@@ -1,0 +1,350 @@
+"""Talker LM + code predictor (counterpart of `qwen3_tts_tpu/models/talker.py`).
+
+Qwen3-style decoder layers (GQA with per-head QK-RMSNorm, SwiGLU MLP,
+RMSNorm pre-norms); the talker's 3-axis mrope carries identical positions
+for TTS, so it runs as 1-D RoPE on the mask-cumsum positions.
+
+Layers are stacked along a leading axis as in the JAX package (so one tree
+converts leaf by leaf), and a Python loop walks them. The KV cache has one
+layout everywhere, (L, B, Hkv, S, D): the fused talker step wants it, and
+keeping prefill and the plain decode step on the same layout saves the
+transposes the JAX package does at each change of path. The cache is
+updated in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import CodePredictorConfig, TalkerConfig
+from ..ops.attention import attention, mask_to_bias
+from ..ops.norms import rms_norm
+from ..ops.rope import apply_rope, default_inv_freq, rope_tables
+from ..ops.sampling import process_and_sample, process_and_sample_rows
+from ..weights import matmul_t, numeric_children, stack_layers, weight_rows
+
+Params = Dict[str, Any]
+
+# Prompts of this many tokens or more go to the flash prefill kernel in the
+# JAX package (ops/pallas/prefill_attention.py). That kernel is not ported
+# yet, so such prefills raise instead of taking the dense path.
+FLASH_PREFILL_MIN_T = 2048
+
+
+@dataclass(frozen=True)
+class StackDims:
+    """Shape info shared by the talker and code-predictor decoder stacks."""
+
+    hidden: int
+    heads: int
+    kv_heads: int
+    head_dim: int
+    eps: float
+
+    @classmethod
+    def from_talker(cls, cfg: TalkerConfig) -> "StackDims":
+        return cls(cfg.hidden_size, cfg.num_attention_heads,
+                   cfg.num_key_value_heads, cfg.resolved_head_dim,
+                   cfg.rms_norm_eps)
+
+    @classmethod
+    def from_code_predictor(cls, cfg: CodePredictorConfig) -> "StackDims":
+        return cls(cfg.hidden_size, cfg.num_attention_heads,
+                   cfg.num_key_value_heads, cfg.head_dim, cfg.rms_norm_eps)
+
+
+@dataclass
+class KVCache:
+    """Preallocated bf16 (or compute-dtype) KV buffers, (L, B, Hkv, S, D)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, n_layers: int, batch: int, max_len: int, kv_heads: int,
+              head_dim: int, dtype=torch.bfloat16, device="cpu") -> "KVCache":
+        shape = (n_layers, batch, kv_heads, max_len, head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Parameter preparation
+# ---------------------------------------------------------------------------
+
+
+def _fuse_layer_projections(stacked: Params) -> Params:
+    """Fuse q/k/v and gate/up weights into single matmuls (outputs are split
+    after; the math is identical)."""
+    attn, mlp = stacked["self_attn"], stacked["mlp"]
+    return {
+        "self_attn": {
+            "qkv_proj": {"weight": torch.cat([attn["q_proj"]["weight"],
+                                              attn["k_proj"]["weight"],
+                                              attn["v_proj"]["weight"]], dim=-2)},
+            "o_proj": attn["o_proj"],
+            "q_norm": attn["q_norm"],
+            "k_norm": attn["k_norm"],
+        },
+        "mlp": {
+            "gate_up_proj": {"weight": torch.cat([mlp["gate_proj"]["weight"],
+                                                  mlp["up_proj"]["weight"]], dim=-2)},
+            "down_proj": mlp["down_proj"],
+        },
+        "input_layernorm": stacked["input_layernorm"],
+        "post_attention_layernorm": stacked["post_attention_layernorm"],
+    }
+
+
+def _stack_decoder_layers(layers_tree: Params) -> Params:
+    return _fuse_layer_projections(stack_layers(numeric_children(layers_tree)))
+
+
+def prepare_talker_params(params: Params, cfg: TalkerConfig) -> Params:
+    """Reorganize a `talker.*` state-dict subtree into the stacked layout."""
+    model, cp = params["model"], params["code_predictor"]
+    cp_cfg = cfg.code_predictor_config
+    out: Params = {
+        "layers": _stack_decoder_layers(model["layers"]),
+        "norm": model["norm"],
+        "codec_embedding": model["codec_embedding"]["weight"],
+        "text_embedding": model["text_embedding"]["weight"],
+        "text_projection": params["text_projection"],
+        "codec_head": params["codec_head"]["weight"],
+    }
+    out["code_predictor"] = {
+        "layers": _stack_decoder_layers(cp["model"]["layers"]),
+        "norm": cp["model"]["norm"],
+        # (Q-1, cp_vocab, talker_hidden)
+        "embeddings": torch.stack(
+            [t["weight"] for t in numeric_children(cp["model"]["codec_embedding"])]),
+        # (Q-1, cp_vocab, cp_hidden)
+        "lm_heads": torch.stack(
+            [t["weight"] for t in numeric_children(cp["lm_head"])]),
+        "proj": (cp["small_to_mtp_projection"]
+                 if cp_cfg.hidden_size != cfg.hidden_size else None),
+    }
+    return out
+
+
+def layer_slice(stacked: Params, i: int) -> Params:
+    """Layer i of a stacked layer tree (views, no copies)."""
+    if isinstance(stacked, dict):
+        return {k: layer_slice(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+# ---------------------------------------------------------------------------
+# Decoder stack (shared by talker / code predictor)
+# ---------------------------------------------------------------------------
+
+
+def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
+                  h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                  mask_bias: torch.Tensor, cache: KVCache, offset: int,
+                  attend_len: Optional[int] = None) -> torch.Tensor:
+    """Run all layers. h: (B, T, hidden); mask_bias: (B, 1, T, S') additive
+    with S' = attend_len or the cache length. Writes the new K/V at
+    [offset, offset + T) of `cache` in place and attends over its first S'
+    slots. Returns the final-normed hidden (B, T, hidden)."""
+    B, T, _ = h.shape
+    nq = dims.heads * dims.head_dim
+    nkv = dims.kv_heads * dims.head_dim
+    S_att = cache.k.shape[3] if attend_len is None else attend_len
+    for li in range(cache.k.shape[0]):
+        lp = layer_slice(stacked, li)
+        attn = lp["self_attn"]
+        x = rms_norm(h, lp["input_layernorm"]["weight"], dims.eps)
+        qkv = matmul_t(x, attn["qkv_proj"]["weight"])
+        q = qkv[..., :nq].reshape(B, T, dims.heads, dims.head_dim)
+        k = qkv[..., nq:nq + nkv].reshape(B, T, dims.kv_heads, dims.head_dim)
+        v = qkv[..., nq + nkv:].reshape(B, T, dims.kv_heads, dims.head_dim)
+        q = rms_norm(q, attn["q_norm"]["weight"], dims.eps)
+        k = rms_norm(k, attn["k_norm"]["weight"], dims.eps)
+        q, k = apply_rope(q, k, cos, sin)
+        cache.k[li, :, :, offset:offset + T] = k.transpose(1, 2).to(cache.k.dtype)
+        cache.v[li, :, :, offset:offset + T] = v.transpose(1, 2).to(cache.v.dtype)
+        k_att = cache.k[li, :, :, :S_att].transpose(1, 2).to(x.dtype)
+        v_att = cache.v[li, :, :, :S_att].transpose(1, 2).to(x.dtype)
+        o = attention(q, k_att, v_att, mask_bias)
+        h = h + matmul_t(o.reshape(B, T, nq), attn["o_proj"]["weight"])
+
+        x = rms_norm(h, lp["post_attention_layernorm"]["weight"], dims.eps)
+        mlp = lp["mlp"]
+        inter = weight_rows(mlp["gate_up_proj"]["weight"]) // 2
+        gu = matmul_t(x, mlp["gate_up_proj"]["weight"])
+        h = h + matmul_t(F.silu(gu[..., :inter]) * gu[..., inter:],
+                         mlp["down_proj"]["weight"])
+    return rms_norm(h, norm["weight"], dims.eps)
+
+
+# ---------------------------------------------------------------------------
+# Talker forward passes
+# ---------------------------------------------------------------------------
+
+
+def text_project(params: Params, cfg: TalkerConfig, x: torch.Tensor) -> torch.Tensor:
+    """text_projection resize MLP (fc1 -> silu -> fc2)."""
+    tp = params["text_projection"]
+    h = (x @ tp["linear_fc1"]["weight"].T.to(x.dtype)
+         + tp["linear_fc1"]["bias"].to(x.dtype))
+    h = F.silu(h)
+    return (h @ tp["linear_fc2"]["weight"].T.to(x.dtype)
+            + tp["linear_fc2"]["bias"].to(x.dtype))
+
+
+def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tensor,
+                   attn_mask: torch.Tensor, cache: KVCache
+                   ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """Prefill the talker. inputs_embeds: (B, T, H) left-padded; attn_mask:
+    (B, T) 1 = real token. Returns (logits of the last position (B, V) f32,
+    last-layer normed hiddens (B, T, H), cache)."""
+    B, T, _ = inputs_embeds.shape
+    if T >= FLASH_PREFILL_MIN_T:
+        raise NotImplementedError(
+            f"prefill of {T} >= {FLASH_PREFILL_MIN_T} tokens needs the flash "
+            "prefill kernel, which comes with the voice-clone slice")
+    S = cache.k.shape[3]
+    dims = StackDims.from_talker(cfg)
+    dev = inputs_embeds.device
+
+    # mrope with identical axes == 1-D rope on mask-cumsum positions
+    positions = torch.cumsum(attn_mask, dim=-1) - 1
+    positions = torch.where(attn_mask == 0, torch.ones_like(positions), positions)
+
+    kv_valid = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    kv_valid[:, :T] = attn_mask.to(torch.bool)
+    # causality by slot index (left padding has position 1)
+    slot = torch.arange(S, device=dev)[None, :]
+    qslot = torch.arange(T, device=dev)[None, :]
+    ok = (slot <= qslot[:, :, None]) & kv_valid[:, None, :]
+    if cfg.sliding_window is not None:
+        ok = ok & (slot > (qslot[:, :, None] - cfg.sliding_window))
+    bias = mask_to_bias(ok[:, None])
+
+    inv_freq = default_inv_freq(dims.head_dim, cfg.rope_theta, device=dev)
+    cos, sin = rope_tables(positions, inv_freq)
+    h = decoder_stack(params["layers"], params["norm"], dims, inputs_embeds,
+                      cos, sin, bias, cache, 0)
+    logits = matmul_t(h[:, -1].to(torch.float32), params["codec_head"])
+    return logits, h, cache
+
+
+def talker_decode_step(params: Params, cfg: TalkerConfig, embed: torch.Tensor,
+                       position: torch.Tensor, cache_index: int,
+                       kv_valid: torch.Tensor, cache: KVCache,
+                       attend_len: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """One plain decode step. embed: (B, 1, H); position: (B,) rope
+    position; cache_index: slot to write; kv_valid: (B, S) incl. the new
+    slot. Returns (logits (B, V), hidden (B, 1, H), cache)."""
+    S = cache.k.shape[3] if attend_len is None else attend_len
+    dims = StackDims.from_talker(cfg)
+    dev = embed.device
+    slot = torch.arange(S, device=dev)[None, :]
+    ok = (slot <= cache_index) & kv_valid[:, :S]
+    if cfg.sliding_window is not None:
+        ok = ok & (slot > (cache_index - cfg.sliding_window))
+    bias = mask_to_bias(ok[:, None, None, :])
+    inv_freq = default_inv_freq(dims.head_dim, cfg.rope_theta, device=dev)
+    cos, sin = rope_tables(position[:, None], inv_freq)
+    h = decoder_stack(params["layers"], params["norm"], dims, embed, cos, sin,
+                      bias, cache, cache_index, attend_len=attend_len)
+    logits = matmul_t(h[:, 0].to(torch.float32), params["codec_head"])
+    return logits, h, cache
+
+
+# ---------------------------------------------------------------------------
+# Code predictor (sub-talker): one frame = prefill(2) + Q-2 single steps
+# ---------------------------------------------------------------------------
+
+
+def _cp_project(cp: Params, x: torch.Tensor) -> torch.Tensor:
+    proj = cp["proj"]
+    if proj is None:
+        return x
+    return x @ proj["weight"].T.to(x.dtype) + proj["bias"].to(x.dtype)
+
+
+def code_predictor_frame_dispatch(params: Params, cfg: TalkerConfig,
+                                  past_hidden: torch.Tensor,
+                                  code0_embed: torch.Tensor, sampling,
+                                  fused: bool = False,
+                                  rows: Optional[torch.Tensor] = None,
+                                  rows_top_k: int = 0,
+                                  generator: Optional[torch.Generator] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route one sub-talker frame to the plain layer loop or to the fused
+    sub-talker (ops/cuda/subtalker.py: W8A8, int8 params only). `rows`
+    ((B, 5), SamplingParams.as_row layout) carries per-row sampling."""
+    if not fused:
+        return code_predictor_frame(params, cfg, past_hidden, code0_embed,
+                                    sampling, rows=rows, rows_top_k=rows_top_k,
+                                    generator=generator)
+    from ..ops.cuda.subtalker import subtalker_frame_fused
+
+    return subtalker_frame_fused(params["code_predictor"],
+                                 cfg.code_predictor_config, past_hidden,
+                                 code0_embed, sampling, rows=rows,
+                                 generator=generator)
+
+
+def code_predictor_frame(params: Params, cfg: TalkerConfig,
+                         past_hidden: torch.Tensor, code0_embed: torch.Tensor,
+                         sampling, rows: Optional[torch.Tensor] = None,
+                         rows_top_k: int = 0,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generate codebooks 1..Q-1 for one frame.
+
+    past_hidden/code0_embed: (B, 1, talker_hidden). Returns (codes (B, Q-1)
+    int32, the sum of the Q-1 sub-code embeddings (B, 1, talker_hidden)).
+    Prefill over 2 positions, then Q-2 single-position steps, each with its
+    own lm head and embedding table."""
+    if rows is not None:
+        def sample(logits):
+            return process_and_sample_rows(logits, rows, rows_top_k,
+                                           generator=generator)
+    else:
+        def sample(logits):
+            return process_and_sample(logits, sampling, generator=generator)
+
+    cp_cfg = cfg.code_predictor_config
+    cp = params["code_predictor"]
+    dims = StackDims.from_code_predictor(cp_cfg)
+    B = past_hidden.shape[0]
+    dev, dtype = past_hidden.device, past_hidden.dtype
+    Qm1 = cfg.num_code_groups - 1
+    S = Qm1 + 2
+    cache = KVCache.zeros(cp_cfg.num_hidden_layers, B, S, dims.kv_heads,
+                          dims.head_dim, dtype=dtype, device=dev)
+    inv_freq = default_inv_freq(dims.head_dim, cp_cfg.rope_theta, device=dev)
+    slots = torch.arange(S, device=dev)
+
+    pre = _cp_project(cp, torch.cat([past_hidden, code0_embed], dim=1))
+    cos, sin = rope_tables(torch.arange(2, device=dev)[None, :].expand(B, 2),
+                           inv_freq)
+    ok = slots[None, :] <= torch.arange(2, device=dev)[:, None]
+    bias = mask_to_bias(ok)[None, None].expand(B, 1, 2, S)
+    h = decoder_stack(cp["layers"], cp["norm"], dims, pre, cos, sin, bias,
+                      cache, 0)
+    logits = h[:, -1].to(torch.float32) @ cp["lm_heads"][0].T.to(torch.float32)
+    code = sample(logits)
+    codes = [code]
+    emb_sum = cp["embeddings"][0][code.long()][:, None, :].to(dtype)
+    for step in range(1, Qm1):
+        raw = cp["embeddings"][step - 1][code.long()][:, None, :].to(dtype)
+        x = _cp_project(cp, raw)
+        cos, sin = rope_tables(torch.full((B, 1), step + 1, device=dev), inv_freq)
+        bias = mask_to_bias(slots <= step + 1)[None, None, None, :].expand(B, 1, 1, S)
+        h = decoder_stack(cp["layers"], cp["norm"], dims, x, cos, sin, bias,
+                          cache, step + 1)
+        logits = h[:, 0].to(torch.float32) @ cp["lm_heads"][step].T.to(torch.float32)
+        code = sample(logits)
+        codes.append(code)
+        emb_sum = emb_sum + cp["embeddings"][step][code.long()][:, None, :].to(dtype)
+    return torch.stack(codes, dim=1), emb_sum

@@ -1,0 +1,279 @@
+"""The whole sub-talker frame, W8A8, with sampling.
+
+Counterpart of `qwen3_tts_tpu/ops/pallas/subtalker.py`. On a CUDA tensor
+`subtalker_frame_fused` launches the hand-written Hopper kernel chain
+(csrc/subtalker.cu); on a CPU tensor it runs the plain twin
+`subtalker_frame_ref`, which follows the JAX `subtalker_frame_ref` line for
+line. Any other device raises.
+
+One frame runs 16 positions (2 prefill + 14 steps) through the code
+predictor: the optional bf16 small_to_mtp projection, W8A8 matmuls with
+per-row dynamic activation scales, QK-RMSNorm, RoPE, a KV cache of at most
+16 slots, per-step lm-head logits, temperature, exact top-k (k-th value by a
+32-step bit search), Gumbel-max sampling, and the embedding gather into
+`emb_sum`. Greedy rows take temperature 1, k 0 and zero noise. The Gumbel
+draw (Q-1, B, V) is made outside (from a generator, or passed in), so both
+versions sample from the same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ...weights import is_int8
+from ..rope import default_inv_freq, rope_tables
+from ..sampling import NEG_INF, gumbel_noise
+from . import build
+from .talker_step import mm8, rms32, rot_half
+
+
+def kth_value_bits(logits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Exact k-th largest value per row by binary search over the monotone
+    int32 image of the fp32 bits (32 iterations, no sort). k: (B, 1)."""
+    sign = torch.tensor(-(1 << 31), dtype=torch.int32, device=logits.device)
+    bits = logits.to(torch.float32).contiguous().view(torch.int32)
+    keys = torch.where(bits >= 0, bits, torch.bitwise_not(bits) ^ sign)
+    lo = torch.full(logits.shape[:-1] + (1,), -(1 << 31), dtype=torch.int32,
+                    device=logits.device)
+    hi = torch.full_like(lo, (1 << 31) - 1)
+    for _ in range(32):
+        mid = (lo >> 1) + (hi >> 1) + ((lo | hi) & 1)
+        ge = (keys >= mid).sum(dim=-1, keepdim=True) >= k
+        lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid - 1)
+    bits_t = torch.where(lo >= 0, lo, torch.bitwise_not(lo ^ sign))
+    return bits_t.view(torch.float32)
+
+
+def process_logits(logits: torch.Tensor, do_sample: bool, temp: torch.Tensor,
+                   top_k: torch.Tensor) -> torch.Tensor:
+    """Temperature + top-k (HF semantics: mask values below the k-th);
+    temp (B, 1) f32, top_k (B, 1) int32, k <= 0 or >= V keeps all."""
+    if not do_sample:
+        return logits
+    lt = logits / temp
+    V = lt.shape[-1]
+    kth = kth_value_bits(lt, torch.clamp(top_k, 1, V))
+    kth = torch.where((top_k > 0) & (top_k < V), kth, torch.full_like(kth, NEG_INF))
+    return torch.where(lt < kth, torch.full_like(lt, NEG_INF), lt)
+
+
+def sampling_inputs(sampling, rows: Optional[torch.Tensor], B: int, V: int,
+                    Qm1: int, device, generator: Optional[torch.Generator] = None,
+                    gumbel: Optional[torch.Tensor] = None):
+    """(do_sample, temp (B, 1) f32, top_k (B, 1) int32, gumbel (Qm1, B, V) or
+    None) from one SamplingParams or per-row `rows` (SamplingParams.as_row
+    layout; greedy rows get temp 1, k 0 and zero noise)."""
+    def noise():
+        g = gumbel if gumbel is not None else gumbel_noise((Qm1, B, V), generator, device)
+        return g.to(device=device, dtype=torch.float32)
+
+    if rows is not None:
+        rows = rows.to(device)
+        row_on = rows[:, 3] > 0.5
+        one = torch.ones((), device=device)
+        temp = torch.where(row_on, torch.clamp(rows[:, 0], min=1e-6), one)
+        kvec = torch.where(row_on, rows[:, 4].to(torch.int32),
+                           torch.zeros((), dtype=torch.int32, device=device))
+        g = torch.where(row_on[None, :, None], noise(), torch.zeros((), device=device))
+        return True, temp[:, None].float(), kvec[:, None], g
+    do_sample = bool(sampling.do_sample)
+    temp = torch.full((B, 1), float(sampling.temperature) if do_sample else 1.0,
+                      dtype=torch.float32, device=device)
+    kvec = torch.full((B, 1), int(sampling.top_k), dtype=torch.int32, device=device)
+    return do_sample, temp, kvec, (noise() if do_sample else None)
+
+
+def _check_sampling(sampling, rows) -> None:
+    if rows is None and sampling.top_p < 1.0:
+        raise ValueError("fused sub-talker does not support top_p < 1")
+
+
+def subtalker_frame_ref(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
+                        code0_embed: torch.Tensor, sampling,
+                        rows: Optional[torch.Tensor] = None,
+                        gumbel: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of the kernel (the JAX `subtalker_frame_ref`).
+    Returns (codes (B, Q-1) int32, emb_sum (B, 1, Ht) bf16)."""
+    _check_sampling(sampling, rows)
+    layers = cp["layers"]
+    attn, mlp = layers["self_attn"], layers["mlp"]
+    dev = past_hidden.device
+    B = past_hidden.shape[0]
+    Ht = past_hidden.shape[-1]
+    heads, kv_heads, D = (cp_cfg.num_attention_heads,
+                          cp_cfg.num_key_value_heads, cp_cfg.head_dim)
+    G = heads // kv_heads
+    inter = cp_cfg.intermediate_size
+    Qm1, V = cp["lm_heads"].shape[:2]
+    smax = Qm1 + 1
+    eps = cp_cfg.rms_norm_eps
+    nq, nkv = heads * D, kv_heads * D
+    scale = D ** -0.5
+    n_layers = attn["qkv_proj"]["weight"]["q"].shape[0]
+
+    inv_freq = default_inv_freq(D, cp_cfg.rope_theta, device=dev)
+    cos, sin = rope_tables(torch.arange(smax, device=dev)[None, :], inv_freq)
+    cos, sin = cos[0], sin[0]
+    do_sample, temp, kvec, gumbel = sampling_inputs(
+        sampling, rows, B, V, Qm1, dev, generator, gumbel)
+
+    kvk = torch.zeros((n_layers, smax, B * kv_heads, D), dtype=torch.bfloat16, device=dev)
+    kvv = torch.zeros_like(kvk)
+    pos_ids = torch.arange(smax, device=dev)[:, None]
+
+    def project(x_raw):
+        if cp.get("proj") is None:
+            return x_raw
+        y = x_raw.float() @ cp["proj"]["weight"].to(torch.bfloat16).float().T
+        return (y + cp["proj"]["bias"].float()[None, :]).to(torch.bfloat16)
+
+    def forward(x_raw, i):
+        x = project(x_raw)
+        cos_i, sin_i = cos[i:i + 1], sin[i:i + 1]
+        for li in range(n_layers):
+            xn = rms32(x.float(), layers["input_layernorm"]["weight"][li], eps
+                       ).to(torch.bfloat16)
+            qkv = mm8(xn, attn["qkv_proj"]["weight"]["q"][li],
+                      attn["qkv_proj"]["weight"]["s"][li])
+            q = qkv[:, :nq].reshape(B * heads, D)
+            k = qkv[:, nq:nq + nkv].reshape(B * kv_heads, D)
+            v = qkv[:, nq + nkv:].reshape(B * kv_heads, D)
+            q = rms32(q, attn["q_norm"]["weight"][li], eps)
+            k = rms32(k, attn["k_norm"]["weight"][li], eps)
+            q = (q * cos_i + rot_half(q) * sin_i).to(torch.bfloat16)
+            k = (k * cos_i + rot_half(k) * sin_i).to(torch.bfloat16)
+            kvk[li, i] = k
+            kvv[li, i] = v.to(torch.bfloat16)
+
+            kf, vf = kvk[li].float(), kvv[li].float()
+            q4 = q.reshape(B, kv_heads, G, D)
+            o_groups = []
+            for g in range(G):
+                qg = q4[:, :, g, :].reshape(B * kv_heads, D).float()
+                s = (kf * qg[None]).sum(dim=-1) * scale
+                s = torch.where(pos_ids <= i, s, torch.full_like(s, NEG_INF))
+                m = s.amax(dim=0, keepdim=True)
+                p = torch.exp(s - m)
+                p = (p / p.sum(dim=0, keepdim=True)).to(torch.bfloat16).float()
+                og = (p[:, :, None] * vf).sum(dim=0)
+                o_groups.append(og.reshape(B, kv_heads, 1, D))
+            o = torch.cat(o_groups, dim=2).reshape(B, heads * D).to(torch.bfloat16)
+            x = x + mm8(o, attn["o_proj"]["weight"]["q"][li],
+                        attn["o_proj"]["weight"]["s"][li]).to(torch.bfloat16)
+
+            xn2 = rms32(x.float(), layers["post_attention_layernorm"]["weight"][li],
+                        eps).to(torch.bfloat16)
+            gu = mm8(xn2, mlp["gate_up_proj"]["weight"]["q"][li],
+                     mlp["gate_up_proj"]["weight"]["s"][li]).to(torch.bfloat16)
+            g32 = gu[:, :inter].float()
+            prod = (g32 * torch.sigmoid(g32) * gu[:, inter:].float()).to(torch.bfloat16)
+            x = x + mm8(prod, mlp["down_proj"]["weight"]["q"][li],
+                        mlp["down_proj"]["weight"]["s"][li]).to(torch.bfloat16)
+        return rms32(x.float(), cp["norm"]["weight"], eps)
+
+    forward(past_hidden[:, 0, :].to(torch.bfloat16), 0)
+    x_raw = code0_embed[:, 0, :].to(torch.bfloat16)
+    emb_sum = torch.zeros((B, Ht), dtype=torch.bfloat16, device=dev)
+    codes_all = []
+    for i in range(1, smax):
+        hn = forward(x_raw, i)
+        head = cp["lm_heads"][i - 1].to(torch.bfloat16).float()
+        lt = process_logits(hn @ head.T, do_sample, temp, kvec)
+        if do_sample:
+            lt = lt + gumbel[i - 1]
+        codes = torch.argmax(lt, dim=-1).to(torch.int32)
+        codes_all.append(codes)
+        row = cp["embeddings"][i - 1].to(torch.bfloat16)[codes.long()]
+        emb_sum = emb_sum + row
+        x_raw = row
+    return torch.stack(codes_all, dim=1), emb_sum[:, None, :]
+
+
+def subtalker_frame_fused(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
+                          code0_embed: torch.Tensor, sampling,
+                          rows: Optional[torch.Tensor] = None,
+                          gumbel: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fused sub-talker frame. cp: code-predictor params with int8 layer
+    weights; past_hidden/code0_embed: (B, 1, Ht). Returns (codes (B, Q-1)
+    int32, emb_sum (B, 1, Ht) bf16). CPU tensors run `subtalker_frame_ref`;
+    CUDA tensors launch the kernel (each launch adds one to
+    `subtalker_frame_fused.launches`)."""
+    if not is_int8(cp["layers"]["self_attn"]["qkv_proj"]["weight"]):
+        raise ValueError("fused sub-talker requires int8-quantized params")
+    if past_hidden.device.type == "cpu":
+        return subtalker_frame_ref(cp, cp_cfg, past_hidden, code0_embed, sampling,
+                                   rows=rows, gumbel=gumbel, generator=generator)
+    if past_hidden.device.type != "cuda":
+        raise ValueError(f"fused sub-talker: unsupported device {past_hidden.device}")
+    _check_sampling(sampling, rows)
+
+    dev = past_hidden.device
+    B, Ht = past_hidden.shape[0], past_hidden.shape[-1]
+    Hc = cp_cfg.hidden_size
+    heads, kvh, D = (cp_cfg.num_attention_heads, cp_cfg.num_key_value_heads,
+                     cp_cfg.head_dim)
+    inter = cp_cfg.intermediate_size
+    Qm1, V = cp["lm_heads"].shape[:2]
+    smax = Qm1 + 1
+    L = cp["layers"]["self_attn"]["qkv_proj"]["weight"]["q"].shape[0]
+    has_proj = cp.get("proj") is not None
+    build.check_layer_shapes(Hc, heads, kvh, D, inter, 1)
+    build.require(Ht % 16 == 0, f"talker hidden {Ht} must be a multiple of 16")
+    build.require(V <= build.MAX_SMEM_ROW, f"vocab {V} exceeds {build.MAX_SMEM_ROW}")
+    build.require(has_proj or Hc == Ht, "without a projection Hc must equal Ht")
+    build.require(tuple(code0_embed.shape) == (B, 1, Ht),
+                  f"code0_embed: want {(B, 1, Ht)}, got {tuple(code0_embed.shape)}")
+    build.same_device(dev, code0_embed=code0_embed, lm_heads=cp["lm_heads"],
+                      embeddings=cp["embeddings"], norm=cp["norm"]["weight"],
+                      proj=cp["proj"]["weight"] if has_proj else None)
+
+    lib = build.load_library()
+    cos, sin = rope_tables(torch.arange(smax, device=dev)[None, :],
+                           default_inv_freq(D, cp_cfg.rope_theta, device=dev))
+    cos, sin = cos[0].contiguous(), sin[0].contiguous()
+    do_sample, temp, kvec, g = sampling_inputs(sampling, rows, B, V, Qm1, dev,
+                                               generator, gumbel)
+    temp = temp[:, 0].contiguous()
+    kvec = kvec[:, 0].contiguous()
+    g = g.contiguous() if do_sample else None
+    x0 = build.bf16(torch.cat([past_hidden, code0_embed], dim=1))
+    projw = build.bf16(cp["proj"]["weight"]) if has_proj else None
+    projb = build.f32(cp["proj"]["bias"]) if has_proj else None
+    lm_heads = build.bf16(cp["lm_heads"])
+    embeds = build.bf16(cp["embeddings"])
+    fnw = build.f32(cp["norm"]["weight"])
+    # the tensors behind each struct's pointers must outlive the call
+    w, _w_tensors = build.int8_layer_weights(cp["layers"], dev)
+    t, _t_tensors = build.layer_scratch(B, Hc, heads, kvh, D, inter, 1, dev)
+
+    def empty(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    kc, vc = empty(L, B, kvh, smax, D), empty(L, B, kvh, smax, D)
+    x, xraw = empty(B, Hc), empty(B, Ht)
+    hn, logits = empty(B, Hc, dtype=torch.float32), empty(B, V, dtype=torch.float32)
+    codes, emb_sum = empty(B, Qm1, dtype=torch.int32), empty(B, Ht)
+    args = build.SubtalkerArgs(
+        B=B, Ht=Ht, Hc=Hc, heads=heads, kvh=kvh, D=D, inter=inter, V=V, Qm1=Qm1,
+        L=L, has_proj=int(has_proj), do_sample=int(do_sample),
+        eps=cp_cfg.rms_norm_eps, scale=D ** -0.5,
+        x0=build.ptr(x0), cosr=build.ptr(cos), sinr=build.ptr(sin),
+        gumbel=build.ptr(g), temp=build.ptr(temp), topk=build.ptr(kvec),
+        projw=build.ptr(projw), projb=build.ptr(projb), w=w, fnw=build.ptr(fnw),
+        lm_heads=build.ptr(lm_heads), embeds=build.ptr(embeds),
+        kc=build.ptr(kc), vc=build.ptr(vc), t=t, x=build.ptr(x),
+        xraw=build.ptr(xraw), hn=build.ptr(hn), logits=build.ptr(logits),
+        codes=build.ptr(codes), emb_sum=build.ptr(emb_sum))
+    rc = lib.qt_subtalker_frame(args, build.stream_handle())
+    subtalker_frame_fused.launches += 1
+    build.check(lib, rc, "sub-talker kernel")
+    return codes, emb_sum[:, None, :]
+
+
+subtalker_frame_fused.launches = 0

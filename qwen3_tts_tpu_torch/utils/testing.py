@@ -1,0 +1,182 @@
+"""Random parameter fabrication for smoke runs and tests.
+
+Torch counterparts of `qwen3_tts_tpu/utils/testing.py`: trees in the
+*prepared* layout that `prepare_talker_params` / `prepare_decoder_params`
+emit, drawn from a `torch.Generator` directly on the target device (a 1.7B
+tree is ~4 GB in bf16; drawing it on the card avoids a host round trip).
+The draws are not the JAX package's numbers: tests that compare the two
+packages build one tree with JAX and convert it with `from_jax_tree`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from ..config import (CodecV2DecoderConfig, CodePredictorConfig,
+                                  TalkerConfig)
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def _decoder_layer_stack(gen, n_layers, hidden, heads, kv_heads, head_dim,
+                         inter, dtype, device):
+    qkv_rows = (heads + 2 * kv_heads) * head_dim
+
+    def init(*shape):
+        return _normal(gen, shape, 0.02, dtype, device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    return {
+        "self_attn": {
+            "qkv_proj": {"weight": init(n_layers, qkv_rows, hidden)},
+            "o_proj": {"weight": init(n_layers, hidden, heads * head_dim)},
+            "q_norm": {"weight": ones(n_layers, head_dim)},
+            "k_norm": {"weight": ones(n_layers, head_dim)},
+        },
+        "mlp": {
+            "gate_up_proj": {"weight": init(n_layers, 2 * inter, hidden)},
+            "down_proj": {"weight": init(n_layers, hidden, inter)},
+        },
+        "input_layernorm": {"weight": ones(n_layers, hidden)},
+        "post_attention_layernorm": {"weight": ones(n_layers, hidden)},
+    }
+
+
+def random_talker_params(cfg: TalkerConfig, gen: torch.Generator,
+                         dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Random talker + code-predictor tree on `gen.device`."""
+    device = gen.device
+    cp_cfg = cfg.code_predictor_config
+    hd = cfg.resolved_head_dim
+
+    def init(*shape):
+        return _normal(gen, shape, 0.02, dtype, device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    params: Dict[str, Any] = {
+        "layers": _decoder_layer_stack(
+            gen, cfg.num_hidden_layers, cfg.hidden_size,
+            cfg.num_attention_heads, cfg.num_key_value_heads, hd,
+            cfg.intermediate_size, dtype, device),
+        "norm": {"weight": torch.ones(cfg.hidden_size, dtype=dtype, device=device)},
+        "codec_embedding": init(cfg.vocab_size, cfg.hidden_size),
+        "text_embedding": init(cfg.text_vocab_size, cfg.text_hidden_size),
+        "text_projection": {
+            "linear_fc1": {"weight": init(cfg.text_hidden_size, cfg.text_hidden_size),
+                           "bias": zeros(cfg.text_hidden_size)},
+            "linear_fc2": {"weight": init(cfg.hidden_size, cfg.text_hidden_size),
+                           "bias": zeros(cfg.hidden_size)},
+        },
+        "codec_head": init(cfg.vocab_size, cfg.hidden_size),
+    }
+    qm1 = cfg.num_code_groups - 1
+    cp: Dict[str, Any] = {
+        "layers": _decoder_layer_stack(
+            gen, cp_cfg.num_hidden_layers, cp_cfg.hidden_size,
+            cp_cfg.num_attention_heads, cp_cfg.num_key_value_heads,
+            cp_cfg.head_dim, cp_cfg.intermediate_size, dtype, device),
+        "norm": {"weight": torch.ones(cp_cfg.hidden_size, dtype=dtype, device=device)},
+        "embeddings": init(qm1, cp_cfg.vocab_size, cfg.hidden_size),
+        "lm_heads": init(qm1, cp_cfg.vocab_size, cp_cfg.hidden_size),
+        "proj": None,
+    }
+    if cp_cfg.hidden_size != cfg.hidden_size:
+        cp["proj"] = {"weight": init(cp_cfg.hidden_size, cfg.hidden_size),
+                      "bias": zeros(cp_cfg.hidden_size)}
+    params["code_predictor"] = cp
+    return params
+
+
+def random_vocoder_params(cfg: CodecV2DecoderConfig, gen: torch.Generator,
+                          dtype=torch.float32) -> Dict[str, Any]:
+    """Random 12 Hz vocoder tree in the prepared layout, any config size."""
+    device = gen.device
+
+    def init(*shape, scale=0.05):
+        return _normal(gen, shape, scale, dtype, device)
+
+    def const(n, value):
+        return torch.full((n,), value, dtype=dtype, device=device)
+
+    def conv(o, i, k):
+        return {"conv": {"weight": init(o, i, k), "bias": const(o, 0.0)}}
+
+    def tconv(i, o, k):
+        return {"conv": {"weight": init(i, o, k), "bias": const(o, 0.0)}}
+
+    def snake(n):
+        return {"alpha": const(n, 0.0), "beta": const(n, 0.0)}
+
+    h, lat, dd = cfg.hidden_size, cfg.latent_dim, cfg.decoder_dim
+    layers = {}
+    for li in range(cfg.num_hidden_layers):
+        layers[str(li)] = {
+            "self_attn": {name: {"weight": init(h, h)}
+                          for name in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "mlp": {"gate_proj": {"weight": init(cfg.intermediate_size, h)},
+                    "up_proj": {"weight": init(cfg.intermediate_size, h)},
+                    "down_proj": {"weight": init(h, cfg.intermediate_size)}},
+            "input_layernorm": {"weight": const(h, 1.0)},
+            "post_attention_layernorm": {"weight": const(h, 1.0)},
+            "self_attn_layer_scale": {"scale": const(h, 0.01)},
+            "mlp_layer_scale": {"scale": const(h, 0.01)},
+        }
+    upsample = {}
+    for i, ratio in enumerate(cfg.upsampling_ratios):
+        upsample[str(i)] = {
+            "0": tconv(lat, lat, ratio),
+            "1": {"dwconv": conv(lat, 1, 7),
+                  "norm": {"weight": const(lat, 1.0), "bias": const(lat, 0.0)},
+                  "pwconv1": {"weight": init(4 * lat, lat), "bias": const(4 * lat, 0.0)},
+                  "pwconv2": {"weight": init(lat, 4 * lat), "bias": const(lat, 0.0)},
+                  "gamma": const(lat, 1e-6)},
+        }
+    decoder = {"0": conv(dd, lat, 7)}
+    for i, rate in enumerate(cfg.upsample_rates):
+        ind, outd = dd // (2 ** i), dd // (2 ** (i + 1))
+        block = {"0": snake(ind), "1": tconv(ind, outd, 2 * rate)}
+        for j in range(3):
+            block[str(2 + j)] = {"act1": snake(outd), "conv1": conv(outd, outd, 7),
+                                 "act2": snake(outd), "conv2": conv(outd, outd, 1)}
+        decoder[str(1 + i)] = {"block": block}
+    outd = dd // (2 ** len(cfg.upsample_rates))
+    decoder[str(1 + len(cfg.upsample_rates))] = snake(outd)
+    decoder[str(2 + len(cfg.upsample_rates))] = conv(1, outd, 7)
+
+    return {
+        "_codebooks": init(cfg.num_quantizers, cfg.codebook_size,
+                           cfg.codebook_dim, scale=0.02),
+        "pre_conv": conv(lat, cfg.codebook_dim, 3),
+        "pre_transformer": {
+            "input_proj": {"weight": init(h, lat), "bias": const(h, 0.0)},
+            "layers": layers,
+            "norm": {"weight": const(h, 1.0)},
+            "output_proj": {"weight": init(lat, h), "bias": const(lat, 0.0)},
+        },
+        "upsample": upsample,
+        "decoder": decoder,
+    }
+
+
+# The released 1.7B talker's widths (the JAX package's TALKER_1B7 preset).
+TALKER_1B7 = TalkerConfig(
+    vocab_size=6400, hidden_size=2048, intermediate_size=6144,
+    num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=8,
+    head_dim=128, text_hidden_size=2048, text_vocab_size=151936,
+    num_code_groups=16,
+    rope_scaling={"rope_type": "default", "mrope_section": [24, 20, 20],
+                  "interleaved": True},
+    code_predictor_config=CodePredictorConfig(
+        vocab_size=2048, hidden_size=1024, intermediate_size=3072,
+        num_hidden_layers=5, num_attention_heads=16, num_key_value_heads=8,
+        head_dim=128, num_code_groups=16),
+)
