@@ -2,8 +2,9 @@
 
 The JAX package `qwen3_tts_tpu` stays the reference; each module here is
 held against its counterpart there. The port imports torch and never jax
-(it reuses the JAX package's pure-Python `config.py`, which imports no
-jax). Public API:
+nor anything of `qwen3_tts_tpu`: it keeps its own copies of the pure-Python
+modules it needs (`config.py`, `utils/audio.py`, `utils/flac.py`). Public
+API:
 
     from qwen3_tts_tpu_torch import Qwen3TTSModel, Qwen3TTSTokenizer
 """

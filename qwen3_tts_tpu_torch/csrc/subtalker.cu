@@ -6,12 +6,14 @@
 // `subtalker_frame_fused` (kernel body `_subtalker_kernel`); its plain twin
 // is `subtalker_frame_ref` in qwen3_tts_tpu_torch/ops/cuda/subtalker.py.
 //
-// What bounds it on the H100: the 15 dependent steps. Each position reads
-// the ~78 MB of int8 layer weights (qkv 4096x1024, o 1024x2048, gate_up
-// 6144x1024, down 1024x3072, 5 layers) plus a 4 MB bf16 lm head; the weights
-// fit neither in shared memory nor in the 50 MB L2, so a frame streams
-// ~1.3 GB (~0.4 ms at 3.35 TB/s), and the sample -> embed -> next position
-// chain serialises everything. The TPU kernel's design (all weights resident
+// What bounds it on the H100: bytes. Counting each input byte once, a frame
+// needs the ~78 MB of int8 layer weights (qkv 4096x1024, o 1024x2048,
+// gate_up 6144x1024, down 1024x3072, 5 layers), the 15 bf16 lm heads (63
+// MB) and the projection (4 MB): ~0.044 ms at 3.35 TB/s for B=8. This
+// design does not reach that: the 15 dependent steps (sample -> embed ->
+// next position) serialise the frame, and the weights fit neither in shared
+// memory nor in the 50 MB L2, so each position re-reads them and a frame
+// streams ~1.3 GB (~0.4 ms). The TPU kernel's design (all weights resident
 // in 128 MB of VMEM for the frame) does not carry over.
 //
 // What this first design does about it: the same W8A8 building blocks as

@@ -1,57 +1,135 @@
 """Qwen3TTSModel, the user-facing TTS API (counterpart of
-`qwen3_tts_tpu/inference/model.py`), custom-voice synthesis:
+`qwen3_tts_tpu/inference/model.py`):
 
-    model = Qwen3TTSModel.from_pretrained(ckpt_dir, quantize="int8", device="cuda")
+    model = Qwen3TTSModel.from_pretrained(ckpt_dir, quantize="int8")
     wavs, sr = model.generate_custom_voice(text=..., speaker=..., language=...)
+    wavs, sr = model.generate_voice_design(text=..., instruct=...)
+    items    = model.create_voice_clone_prompt(ref_audio=..., ref_text=...)
+    wavs, sr = model.generate_voice_clone(text=..., voice_clone_prompt=items)
 
-Prompts assemble per request (runtime/prompts.py), the frame loop runs on
-the model's device (runtime/generate.py), and the vocoder decodes chunked
+Everything runs on the model's device, the card unless the caller asks for
+the CPU. Prompts assemble per request (runtime/prompts.py), the frame loop
+runs in runtime/generate.py, and the vocoder decodes chunked
 (inference/tokenizer.py). int8 loads default onto the fused sub-talker and,
-on a CUDA device, onto the fused talker step: the two hand-written kernels.
-Voice design, voice clone and streaming come with later slices.
+on a CUDA device, onto the fused talker step; prompts of 2048 tokens or
+more prefill through the flash prefill kernel. Streaming comes with a later
+slice.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..config import TTSModelConfig, load_config
+from ..models.speaker_encoder import extract_speaker_embedding
 from ..models.talker import prepare_talker_params
 from ..ops.sampling import SamplingParams
 from ..runtime.generate import (GenerationConfig, generate_frames,
                                 generate_frames_chunked)
 from ..runtime.prompts import PromptSpec, assemble_prompt_specs
+from ..utils.audio import AudioLike, normalize_audio_inputs, resample
 from ..weights import load_safetensors_dir, quantize_talker_params
-from .tokenizer import Qwen3TTSTokenizer
+from .tokenizer import Qwen3TTSTokenizer, resolve_device
 
 MaybeList = Union[Any, List[Any]]
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
-    return device
+@dataclass
+class VoiceClonePromptItem:
+    """One sample's voice-clone prompt (reference VoiceClonePromptItem,
+    qwen3_tts_model.py:40-52)."""
+
+    ref_code: Optional[np.ndarray]       # (T, Q) or None (x-vector only)
+    ref_spk_embedding: np.ndarray        # (D,)
+    x_vector_only_mode: bool
+    icl_mode: bool
+    ref_text: Optional[str] = None
+
+
+def save_voice_clone_prompts(path: str, items: List[VoiceClonePromptItem]) -> None:
+    """Persist prompt items. `.pt` paths write the reference demo's torch
+    payload {"items": [asdict(item)]} with tensor fields (qwen_tts/cli/
+    demo.py:516-522); any other extension writes a torch-free .npz. Both
+    formats are the JAX package's."""
+    if str(path).endswith(".pt"):
+        torch.save({"items": [{
+            "ref_code": (None if it.ref_code is None
+                         else torch.from_numpy(np.array(it.ref_code))),
+            "ref_spk_embedding": torch.from_numpy(
+                np.array(it.ref_spk_embedding, np.float32)),
+            "x_vector_only_mode": bool(it.x_vector_only_mode),
+            "icl_mode": bool(it.icl_mode),
+            "ref_text": it.ref_text,
+        } for it in items]}, path)
+        return
+    payload: Dict[str, Any] = {"n": np.asarray(len(items))}
+    for i, it in enumerate(items):
+        payload[f"spk_{i}"] = np.asarray(it.ref_spk_embedding)
+        payload[f"xvec_{i}"] = np.asarray(it.x_vector_only_mode)
+        payload[f"icl_{i}"] = np.asarray(it.icl_mode)
+        payload[f"text_{i}"] = np.asarray(it.ref_text or "")
+        if it.ref_code is not None:
+            payload[f"code_{i}"] = np.asarray(it.ref_code)
+    np.savez(path, **payload)
+
+
+def _load_pt_prompts(path: str) -> List[VoiceClonePromptItem]:
+    """A reference-made `.pt` payload (qwen_tts/cli/demo.py:533-563)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(payload, dict) or "items" not in payload:
+        raise ValueError(f"{path}: not a voice-clone prompt payload (missing 'items')")
+    items = []
+    for d in payload["items"]:
+        code = d.get("ref_code")
+        if code is not None:
+            code = np.asarray(code.numpy() if torch.is_tensor(code) else code)
+        spk = d.get("ref_spk_embedding")
+        if spk is None:
+            raise ValueError(f"{path}: item missing ref_spk_embedding")
+        spk = np.asarray(spk.numpy() if torch.is_tensor(spk) else spk, np.float32)
+        xvec = bool(d.get("x_vector_only_mode", False))
+        items.append(VoiceClonePromptItem(
+            ref_code=code, ref_spk_embedding=spk, x_vector_only_mode=xvec,
+            icl_mode=bool(d.get("icl_mode", not xvec)), ref_text=d.get("ref_text")))
+    return items
+
+
+def load_voice_clone_prompts(path: str) -> List[VoiceClonePromptItem]:
+    """Load `.npz` or reference-demo `.pt` voice-clone prompts."""
+    if str(path).endswith(".pt"):
+        return _load_pt_prompts(path)
+    data = np.load(path, allow_pickle=False)
+    items = []
+    for i in range(int(data["n"])):
+        text = str(data[f"text_{i}"])
+        items.append(VoiceClonePromptItem(
+            ref_code=data[f"code_{i}"] if f"code_{i}" in data else None,
+            ref_spk_embedding=data[f"spk_{i}"],
+            x_vector_only_mode=bool(data[f"xvec_{i}"]),
+            icl_mode=bool(data[f"icl_{i}"]), ref_text=text or None))
+    return items
 
 
 class Qwen3TTSModel:
     def __init__(self, config: TTSModelConfig, talker_params,
-                 speech_tokenizer=None, processor=None,
-                 generate_defaults: Optional[Dict] = None,
-                 quantized: Optional[str] = None, device="cpu"):
+                 speaker_encoder_params=None, speech_tokenizer=None,
+                 processor=None, generate_defaults: Optional[Dict] = None,
+                 quantized: Optional[str] = None, device="cuda"):
         self.config = config
         self.talker_params = talker_params
+        self.speaker_encoder_params = speaker_encoder_params
         self.speech_tokenizer = speech_tokenizer
         self.processor = processor
         self.generate_defaults = generate_defaults or {}
         # "int8" or None: int8 loads default onto the fused kernels
         self.quantized = quantized
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
 
         tc = config.talker_config
         self.supported_speakers = list((tc.spk_id or {}).keys())
@@ -59,6 +137,7 @@ class Qwen3TTSModel:
             k for k in (tc.codec_language_id or {}) if "dialect" not in k]
         self.tts_model_type = config.tts_model_type
         self.tts_model_size = config.tts_model_size
+        self.speaker_encoder_sample_rate = config.speaker_encoder_config.sample_rate
 
     @classmethod
     def from_pretrained(cls, model_dir: str, dtype=torch.bfloat16,
@@ -69,14 +148,16 @@ class Qwen3TTSModel:
 
         quantize="int8" applies weight-only per-channel int8 to the talker /
         code-predictor matmul weights and the codec head. device="cuda"
-        raises when CUDA is absent."""
-        device = _resolve_device(device)
+        raises when CUDA is absent. The speaker encoder (`speaker_encoder.*`,
+        base checkpoints) loads at `dtype`, as the JAX package loads it."""
+        device = resolve_device(device)
         if not os.path.isdir(model_dir):
             raise FileNotFoundError(f"{model_dir} is not a local directory")
         config = load_config(model_dir)
         if not isinstance(config, TTSModelConfig):
             raise ValueError(f"{model_dir} is not a qwen3_tts checkpoint")
-        tree = load_safetensors_dir(model_dir, dtype=dtype, key_filter=r"^talker\.",
+        tree = load_safetensors_dir(model_dir, dtype=dtype,
+                                    key_filter=r"^(talker|speaker_encoder)\.",
                                     device=device)
         talker_params = prepare_talker_params(tree["talker"], config.talker_config)
         if quantize == "int8":
@@ -102,8 +183,9 @@ class Qwen3TTSModel:
         if os.path.exists(gc_path):
             with open(gc_path, "r", encoding="utf-8") as f:
                 gen_defaults = json.load(f)
-        return cls(config, talker_params, speech_tokenizer, processor,
-                   gen_defaults, quantized=quantize, device=device)
+        return cls(config, talker_params, tree.get("speaker_encoder"),
+                   speech_tokenizer, processor, gen_defaults, quantized=quantize,
+                   device=device)
 
     # -- helpers ------------------------------------------------------------
 
@@ -269,3 +351,146 @@ class Qwen3TTSModel:
         kw = self._merge_generate_kwargs(**kwargs)
         codes = self._run(specs, self._generation_config(kw), seed=seed)
         return self.speech_tokenizer.decode([{"audio_codes": c} for c in codes])
+
+    # -- voice design -------------------------------------------------------
+
+    def _specs_voice_design(self, text, instruct, language,
+                            non_streaming) -> List[PromptSpec]:
+        if self.tts_model_type != "voice_design":
+            raise ValueError(f"model type {self.tts_model_type} does not support "
+                             "voice design")
+        texts = self._ensure_list(text)
+        n = len(texts)
+        languages = self._broadcast(language, n, default="Auto")
+        instructs = self._broadcast(instruct, n)
+        self._validate_languages(languages)
+        return [PromptSpec(
+            input_id=self._tokenize(self._build_assistant_text(t)),
+            language_id=self._language_id(lang, None),
+            instruct_id=(self._tokenize(self._build_instruct_text(ins))
+                         if ins else None),
+            non_streaming=non_streaming)
+            for t, lang, ins in zip(texts, languages, instructs)]
+
+    def generate_voice_design(self, text, instruct, language=None,
+                              non_streaming_mode: bool = True,
+                              seed: Optional[int] = None, **kwargs):
+        """Returns ([float32 waveform per text], sample_rate)."""
+        specs = self._specs_voice_design(text, instruct, language, non_streaming_mode)
+        kw = self._merge_generate_kwargs(**kwargs)
+        codes = self._run(specs, self._generation_config(kw), seed=seed)
+        return self.speech_tokenizer.decode([{"audio_codes": c} for c in codes])
+
+    # -- voice clone ----------------------------------------------------------
+
+    def _build_ref_text(self, text: str) -> str:
+        return f"<|im_start|>assistant\n{text}<|im_end|>\n"
+
+    def extract_speaker_embedding(self, audio: np.ndarray, sr: int) -> np.ndarray:
+        """24 kHz mono waveform -> (enc_dim,) float32 x-vector, computed on
+        the model's device."""
+        want_sr = self.speaker_encoder_sample_rate
+        if sr != want_sr:
+            raise ValueError(f"speaker encoder expects {want_sr} Hz audio, got {sr}")
+        if self.speaker_encoder_params is None:
+            raise RuntimeError("this checkpoint has no speaker encoder")
+        with torch.no_grad():
+            emb = extract_speaker_embedding(self.speaker_encoder_params,
+                                            self.config.speaker_encoder_config, audio)
+        return emb.float().cpu().numpy()
+
+    def create_voice_clone_prompt(
+            self, ref_audio: Union[AudioLike, List[AudioLike]],
+            ref_text: Optional[Union[str, List[Optional[str]]]] = None,
+            x_vector_only_mode: Union[bool, List[bool]] = False,
+    ) -> List[VoiceClonePromptItem]:
+        """Reference audio (+ its transcript) -> prompt items: the codec codes
+        of the clip (ICL mode) and its speaker embedding (reference
+        qwen3_tts_model.py:355-458)."""
+        if self.tts_model_type != "base":
+            raise ValueError(f"model type {self.tts_model_type} does not support "
+                             "create_voice_clone_prompt")
+        ref_audio_list = self._ensure_list(ref_audio)
+        n = len(ref_audio_list)
+        ref_text_list = ref_text if isinstance(ref_text, list) else [ref_text] * n
+        xvec_list = (x_vector_only_mode if isinstance(x_vector_only_mode, list)
+                     else [x_vector_only_mode] * n)
+        if len(ref_text_list) != n or len(xvec_list) != n:
+            raise ValueError("Batch size mismatch in voice clone prompt inputs")
+        normalized = normalize_audio_inputs(ref_audio_list)
+        ref_codes = self.speech_tokenizer.encode(list(normalized)).audio_codes
+        items = []
+        for i, ((wav, sr), code, rtext, xvec) in enumerate(
+                zip(normalized, ref_codes, ref_text_list, xvec_list)):
+            if not xvec and not rtext:
+                raise ValueError("ref_text is required when x_vector_only_mode="
+                                 f"False (ICL mode). Bad index={i}")
+            wav24 = resample(wav, sr, self.speaker_encoder_sample_rate)
+            items.append(VoiceClonePromptItem(
+                ref_code=None if xvec else np.asarray(code),
+                ref_spk_embedding=self.extract_speaker_embedding(
+                    wav24, self.speaker_encoder_sample_rate),
+                x_vector_only_mode=bool(xvec), icl_mode=bool(not xvec),
+                ref_text=rtext))
+        return items
+
+    def _specs_voice_clone(self, text, language, ref_audio, ref_text,
+                           x_vector_only_mode, voice_clone_prompt, non_streaming):
+        if self.tts_model_type != "base":
+            raise ValueError(f"model type {self.tts_model_type} does not support "
+                             "voice clone")
+        texts = self._ensure_list(text)
+        n = len(texts)
+        languages = self._broadcast(language, n, default="Auto")
+        self._validate_languages(languages)
+        if voice_clone_prompt is None:
+            if ref_audio is None:
+                raise ValueError("Either `voice_clone_prompt` or `ref_audio` must "
+                                 "be provided.")
+            items = self.create_voice_clone_prompt(
+                ref_audio=ref_audio, ref_text=ref_text,
+                x_vector_only_mode=x_vector_only_mode)
+        else:
+            items = voice_clone_prompt
+        if len(items) == 1 and n > 1:
+            items = items * n
+        if len(items) != n:
+            raise ValueError(f"Batch size mismatch: prompt={len(items)}, text={n}")
+        specs = []
+        for t, lang, item in zip(texts, languages, items):
+            icl = item.icl_mode and item.ref_code is not None
+            specs.append(PromptSpec(
+                input_id=self._tokenize(self._build_assistant_text(t)),
+                language_id=self._language_id(lang, None),
+                speaker_embed=(np.asarray(item.ref_spk_embedding)
+                               if (item.x_vector_only_mode or item.icl_mode) else None),
+                ref_id=(self._tokenize(self._build_ref_text(item.ref_text))
+                        if icl else None),
+                ref_code=item.ref_code if icl else None,
+                non_streaming=non_streaming))
+        return specs, items
+
+    def generate_voice_clone(self, text, language=None, ref_audio=None,
+                             ref_text=None, x_vector_only_mode=False,
+                             voice_clone_prompt=None,
+                             non_streaming_mode: bool = False,
+                             seed: Optional[int] = None, **kwargs):
+        """Returns ([float32 waveform per text], sample_rate). Rows with
+        reference codes decode those codes ahead of the generated ones (the
+        vocoder's left context) and drop the same share of samples from the
+        front (reference qwen3_tts_model.py:469-633)."""
+        specs, items = self._specs_voice_clone(
+            text, language, ref_audio, ref_text, x_vector_only_mode,
+            voice_clone_prompt, non_streaming_mode)
+        kw = self._merge_generate_kwargs(**kwargs)
+        codes = self._run(specs, self._generation_config(kw), seed=seed)
+        codes_for_decode = [c if it.ref_code is None
+                            else np.concatenate([np.asarray(it.ref_code), c], axis=0)
+                            for it, c in zip(items, codes)]
+        wavs, fs = self.speech_tokenizer.decode(
+            [{"audio_codes": c} for c in codes_for_decode])
+        out = []
+        for wav, it, c in zip(wavs, items, codes_for_decode):
+            rl = 0 if it.ref_code is None else len(it.ref_code)
+            out.append(wav[int(rl / max(len(c), 1) * wav.shape[0]):] if rl else wav)
+        return out, fs

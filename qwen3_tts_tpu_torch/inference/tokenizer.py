@@ -1,85 +1,177 @@
-"""Qwen3TTSTokenizer, the decode half (counterpart of
+"""Qwen3TTSTokenizer, the 12 Hz speech tokenizer (counterpart of
 `qwen3_tts_tpu/inference/tokenizer.py`).
 
-`decode` takes the encode output, a dict or a list of dicts, pads the codes
-up to a multiple of the vocoder chunk, chunk-decodes and trims each row to
-its own length. `encode` (the 12 Hz encoder) comes with the voice-clone
-slice.
+- `encode` takes wav path(s) / URL / base64 / numpy (+ sr) / (wav, sr)
+  tuples, pads the batch to a multiple of 8 frames, runs the Mimi encoder
+  on the tokenizer's device and trims each row to ceil(len / 1920) frames:
+  (T_i, Q) codes per input.
+- `decode` takes the encode output, a dict or a list of dicts, pads the
+  codes up to a multiple of the vocoder chunk, chunk-decodes and trims each
+  row to its own length.
+
+The 25 Hz (V1) tokenizer is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import CodecV2Config, load_config
 from ..models.codec12 import decoder as codec_decoder
+from ..models.codec12 import encoder as codec_encoder
+from ..utils.audio import load_audio, resample, to_mono
 from ..weights import load_safetensors_dir
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device(device); asking for CUDA where there is none raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    return device
+
+
+@dataclasses.dataclass
+class EncodeOutput:
+    audio_codes: List[np.ndarray]          # (T_i, Q) int64 each
+
+
 class Qwen3TTSTokenizer:
-    """12 Hz (V2) codec tokenizer, decode side."""
+    """12 Hz (V2) codec tokenizer: encoder and vocoder."""
 
     def __init__(self):
         self.config = None
+        self.enc_params = None
         self.dec_params = None
         self.chunk_size = 300
         self.left_context = 25
         self._compute_dtype = torch.float32
+        self._fe_sampling_rate: Optional[int] = None
 
     @classmethod
     def from_pretrained(cls, model_dir: str, dtype=torch.float32,
-                        device="cpu") -> "Qwen3TTSTokenizer":
-        """Load the decoder of a 12 Hz tokenizer checkpoint directory."""
+                        device="cuda") -> "Qwen3TTSTokenizer":
+        """Load a 12 Hz tokenizer checkpoint directory (encoder + decoder)
+        onto `device`; device="cuda" raises when CUDA is absent."""
+        device = resolve_device(device)
         if not os.path.isdir(model_dir):
             raise FileNotFoundError(f"{model_dir} is not a local directory")
         cfg = load_config(model_dir)
         if not isinstance(cfg, CodecV2Config):
             raise ValueError(f"unsupported tokenizer config at {model_dir}: the "
-                             "port decodes the 12 Hz codec only")
-        tree = load_safetensors_dir(model_dir, dtype=dtype, key_filter=r"^decoder\.",
-                                    device=device)
+                             "port runs the 12 Hz codec only")
+        tree = load_safetensors_dir(model_dir, dtype=dtype,
+                                    key_filter=r"^(en|de)coder\.", device=device)
         inst = cls()
         inst.config = cfg
         inst._compute_dtype = dtype
+        if "encoder" in tree:
+            inst.enc_params = codec_encoder.prepare_encoder_params(
+                tree["encoder"], cfg.encoder_config)
         inst.dec_params = codec_decoder.prepare_decoder_params(
             tree["decoder"], cfg.decoder_config)
+        pre = os.path.join(model_dir, "preprocessor_config.json")
+        if os.path.exists(pre):
+            with open(pre) as f:
+                inst._fe_sampling_rate = json.load(f).get("sampling_rate")
         return inst
 
     @classmethod
-    def from_params(cls, config: CodecV2Config, dec_params=None,
+    def from_params(cls, config: CodecV2Config, enc_params=None, dec_params=None,
                     dtype=torch.float32) -> "Qwen3TTSTokenizer":
-        """Construct from an in-memory prepared decoder tree."""
+        """Construct from in-memory prepared encoder / decoder trees."""
         inst = cls()
         inst.config = config
+        inst.enc_params = enc_params
         inst.dec_params = dec_params
         inst._compute_dtype = dtype
         return inst
 
+    def get_input_sample_rate(self) -> int:
+        return int(self.config.input_sample_rate)
+
     def get_output_sample_rate(self) -> int:
         return int(self.config.output_sample_rate)
+
+    def get_encode_downsample_rate(self) -> int:
+        return int(self.config.encode_downsample_rate)
 
     def get_decode_upsample_rate(self) -> int:
         return int(self.config.decode_upsample_rate)
 
-    def encode(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the 12 Hz encoder comes with the voice-clone slice")
+    # -- encode -----------------------------------------------------------
+
+    def _normalize_audio_inputs(self, audios, sr: Optional[int]) -> List[np.ndarray]:
+        target_sr = self._fe_sampling_rate or self.get_input_sample_rate()
+        if isinstance(audios, (str, np.ndarray)):
+            audios = [audios]
+        elif (isinstance(audios, tuple) and len(audios) == 2
+                and isinstance(audios[0], np.ndarray)):
+            audios = [audios]   # a single (wav, sr) pair, not a sequence
+        out = []
+        for a in audios:
+            if isinstance(a, str):
+                wav, asr = load_audio(a)
+            elif isinstance(a, np.ndarray):
+                if sr is None:
+                    raise ValueError("For numpy waveform input, you must provide `sr`.")
+                wav, asr = to_mono(a), int(sr)
+            elif isinstance(a, tuple):
+                wav, asr = to_mono(a[0]), int(a[1])
+            else:
+                raise TypeError(f"Unsupported audio input type: {type(a)}")
+            if asr != target_sr:
+                wav = resample(wav, asr, target_sr)
+            out.append(wav.astype(np.float32))
+        return out
+
+    def encode(self, audios, sr: Optional[int] = None, return_dict: bool = True):
+        """Audio -> EncodeOutput(audio_codes=[(T_i, Q) int64 per input])."""
+        if self.enc_params is None:
+            raise RuntimeError("this tokenizer has no encoder loaded")
+        wavs = self._normalize_audio_inputs(audios, sr)
+        ds = self.get_encode_downsample_rate()
+        lengths = [len(w) for w in wavs]
+        # pad to a multiple of 8 frames, as the JAX package buckets
+        bucket = ds * 8
+        padded_len = -(-max(lengths) // bucket) * bucket
+        batch = np.zeros((len(wavs), padded_len), np.float32)
+        for i, w in enumerate(wavs):
+            batch[i, :len(w)] = w
+        device = self.enc_params["_semantic_codebooks"].device
+        with torch.no_grad():
+            codes = codec_encoder.encode_waveform(
+                self.enc_params, self.config.encoder_config,
+                torch.as_tensor(batch, device=device),
+                num_quantizers=int(self.config.encoder_valid_num_quantizers),
+                dtype=self._compute_dtype).cpu().numpy()
+        # per-row trim to ceil(len / ds) frames (reference modeling...v2.py:984)
+        out = [codes[i, :, :-(-n // ds)].T.astype(np.int64)
+               for i, n in enumerate(lengths)]
+        return EncodeOutput(audio_codes=out) if return_dict else (out,)
+
+    # -- decode -----------------------------------------------------------
 
     def decode(self, encoded, output_dtype: str = "float32"
                ) -> Tuple[List[np.ndarray], int]:
-        """Codes -> ([wav per row], sample_rate). `encoded` is a dict or a
-        list of dicts with "audio_codes" ((T, Q) each); output_dtype
-        "float32" or "int16" (PCM16, converted on the device)."""
-        if isinstance(encoded, dict):
+        """Codes -> ([wav per row], sample_rate). `encoded` is an encode
+        output, a dict or a list of dicts with "audio_codes" ((T, Q) each);
+        output_dtype "float32" or "int16" (PCM16, converted on the device)."""
+        if hasattr(encoded, "audio_codes"):
+            codes_list = encoded.audio_codes
+        elif isinstance(encoded, dict):
             codes_list = encoded["audio_codes"]
         elif isinstance(encoded, list):
             codes_list = [e["audio_codes"] for e in encoded]
         else:
-            raise TypeError("`encoded` must be a dict or a list of dicts.")
+            raise TypeError("`encoded` must be an encode output, a dict, or a "
+                            "list of dicts.")
         if output_dtype not in ("float32", "int16"):
             raise ValueError(f"unsupported output_dtype {output_dtype!r}")
         out_np = np.int16 if output_dtype == "int16" else np.float32

@@ -29,9 +29,10 @@ from ..weights import matmul_t, numeric_children, stack_layers, weight_rows
 
 Params = Dict[str, Any]
 
-# Prompts of this many tokens or more go to the flash prefill kernel in the
-# JAX package (ops/pallas/prefill_attention.py). That kernel is not ported
-# yet, so such prefills raise instead of taking the dense path.
+# Prefills of this many tokens or more attend through the flash prefill
+# kernel (ops/cuda/prefill_attention.py) instead of the dense masked path,
+# the JAX package's routing. Tests lower it to run the kernel's path at
+# small shapes.
 FLASH_PREFILL_MIN_T = 2048
 
 
@@ -146,15 +147,25 @@ def layer_slice(stacked: Params, i: int) -> Params:
 def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
                   h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                   mask_bias: torch.Tensor, cache: KVCache, offset: int,
-                  attend_len: Optional[int] = None) -> torch.Tensor:
+                  attend_len: Optional[int] = None,
+                  prefill_start: Optional[torch.Tensor] = None,
+                  prefill_window: Optional[int] = None) -> torch.Tensor:
     """Run all layers. h: (B, T, hidden); mask_bias: (B, 1, T, S') additive
     with S' = attend_len or the cache length. Writes the new K/V at
     [offset, offset + T) of `cache` in place and attends over its first S'
-    slots. Returns the final-normed hidden (B, T, hidden)."""
+    slots. Returns the final-normed hidden (B, T, hidden).
+
+    With `prefill_start` ((B,) first valid slot per row of a left-padded
+    prefill) and T >= FLASH_PREFILL_MIN_T, attention runs `flash_prefill`
+    on this call's fresh K/V instead (the cache's slots [0, T); later slots
+    are masked on the dense path anyway), and `mask_bias` is not read."""
     B, T, _ = h.shape
     nq = dims.heads * dims.head_dim
     nkv = dims.kv_heads * dims.head_dim
     S_att = cache.k.shape[3] if attend_len is None else attend_len
+    use_flash = prefill_start is not None and T >= FLASH_PREFILL_MIN_T
+    if use_flash:
+        from ..ops.cuda.prefill_attention import flash_prefill
     for li in range(cache.k.shape[0]):
         lp = layer_slice(stacked, li)
         attn = lp["self_attn"]
@@ -168,9 +179,12 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
         q, k = apply_rope(q, k, cos, sin)
         cache.k[li, :, :, offset:offset + T] = k.transpose(1, 2).to(cache.k.dtype)
         cache.v[li, :, :, offset:offset + T] = v.transpose(1, 2).to(cache.v.dtype)
-        k_att = cache.k[li, :, :, :S_att].transpose(1, 2).to(x.dtype)
-        v_att = cache.v[li, :, :, :S_att].transpose(1, 2).to(x.dtype)
-        o = attention(q, k_att, v_att, mask_bias)
+        if use_flash:
+            o = flash_prefill(q, k, v, prefill_start, sliding_window=prefill_window)
+        else:
+            k_att = cache.k[li, :, :, :S_att].transpose(1, 2).to(x.dtype)
+            v_att = cache.v[li, :, :, :S_att].transpose(1, 2).to(x.dtype)
+            o = attention(q, k_att, v_att, mask_bias)
         h = h + matmul_t(o.reshape(B, T, nq), attn["o_proj"]["weight"])
 
         x = rms_norm(h, lp["post_attention_layernorm"]["weight"], dims.eps)
@@ -198,16 +212,16 @@ def text_project(params: Params, cfg: TalkerConfig, x: torch.Tensor) -> torch.Te
 
 
 def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tensor,
-                   attn_mask: torch.Tensor, cache: KVCache
+                   attn_mask: torch.Tensor, cache: KVCache, allow_flash: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """Prefill the talker. inputs_embeds: (B, T, H) left-padded; attn_mask:
     (B, T) 1 = real token. Returns (logits of the last position (B, V) f32,
-    last-layer normed hiddens (B, T, H), cache)."""
+    last-layer normed hiddens (B, T, H), cache).
+
+    Prefills of T >= FLASH_PREFILL_MIN_T attend through `flash_prefill`,
+    which requires contiguous left padding (the prompt layout); callers
+    with other masks pass allow_flash=False."""
     B, T, _ = inputs_embeds.shape
-    if T >= FLASH_PREFILL_MIN_T:
-        raise NotImplementedError(
-            f"prefill of {T} >= {FLASH_PREFILL_MIN_T} tokens needs the flash "
-            "prefill kernel, which comes with the voice-clone slice")
     S = cache.k.shape[3]
     dims = StackDims.from_talker(cfg)
     dev = inputs_embeds.device
@@ -225,11 +239,14 @@ def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tenso
     if cfg.sliding_window is not None:
         ok = ok & (slot > (qslot[:, :, None] - cfg.sliding_window))
     bias = mask_to_bias(ok[:, None])
+    # first valid slot per row, for the flash path
+    start = (T - attn_mask.sum(dim=-1)).to(torch.int32) if allow_flash else None
 
     inv_freq = default_inv_freq(dims.head_dim, cfg.rope_theta, device=dev)
     cos, sin = rope_tables(positions, inv_freq)
     h = decoder_stack(params["layers"], params["norm"], dims, inputs_embeds,
-                      cos, sin, bias, cache, 0)
+                      cos, sin, bias, cache, 0, prefill_start=start,
+                      prefill_window=cfg.sliding_window)
     logits = matmul_t(h[:, -1].to(torch.float32), params["codec_head"])
     return logits, h, cache
 

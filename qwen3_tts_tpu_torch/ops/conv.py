@@ -40,11 +40,14 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor,
 
 def causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, stride: int = 1,
-                  dilation: int = 1, groups: int = 1) -> torch.Tensor:
-    """Causal conv1d with the reference's left + extra right zero padding."""
+                  dilation: int = 1, groups: int = 1,
+                  pad_mode: str = "constant") -> torch.Tensor:
+    """Causal conv1d with the reference's left + extra right padding, zeros
+    or ("replicate") copies of the edge samples."""
     left, extra = _causal_pad_amounts(x.shape[-1], weight.shape[-1], stride,
                                       dilation)
-    x = F.pad(x, (left, max(extra, 0)))
+    x = F.pad(x, (left, max(extra, 0)),
+              mode="replicate" if pad_mode == "replicate" else "constant")
     return conv1d(x, weight, bias, stride=stride, dilation=dilation,
                   groups=groups)
 

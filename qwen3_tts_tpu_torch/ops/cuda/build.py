@@ -2,9 +2,11 @@
 
 The sources have a plain C interface and are compiled with nvcc into one
 shared library, loaded with ctypes: no PyTorch headers, so a build takes
-seconds. The build happens at first use, into `build/kernels/` at the root
-of the checkout, keyed by a hash of the sources and flags, so a fresh
-checkout builds everything on its first call and later calls reuse it.
+seconds. Each `.cu` compiles in its own nvcc process, all started together,
+and one more nvcc links the objects. The build happens at first use, into
+`build/kernels/` at the root of the checkout, keyed by a hash of the sources
+and flags, so a fresh checkout builds everything on its first call and
+later calls reuse it.
 
 Every entry point takes a pointer to an argument struct and a CUDA stream
 and returns `cudaGetLastError()` after its launches; `check` turns a
@@ -26,12 +28,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("common.cuh", "subtalker.cu", "talker_step.cu")
+SOURCES = ("common.cuh", "subtalker.cu", "talker_step.cu", "prefill_attention.cu")
 # widest row a kernel keeps in shared memory (48 KB of floats, the default
 # dynamic limit: k_row_norm's rows, k_sample's logits)
 MAX_SMEM_ROW = 12288
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+              "-Xcompiler", "-fPIC", "--fmad=false")
 
 
 def _nvcc() -> str:
@@ -58,15 +60,26 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES if s.endswith(".cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = [s for s in SOURCES if s.endswith(".cu")]
+        objs = [os.path.join(tmp, s[:-3] + ".o") for s in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(cus, objs)]
+        errors = []
+        for p in procs:
+            _, err = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{' '.join(p.args)} ({p.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 
@@ -109,10 +122,21 @@ class SubtalkerArgs(ctypes.Structure):
             "x", "xraw", "hn", "logits", "codes", "emb_sum")])
 
 
+class FlashPrefillArgs(ctypes.Structure):
+    """Mirror of `FlashPrefillArgs` in csrc/prefill_attention.cu."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("B", "T", "Hq", "Hkv", "D", "window")]
+                + [("scale", ctypes.c_float)]
+                + [(n, ctypes.c_longlong) for n in (
+                    "sqb", "sqt", "sqh", "skb", "skt", "skh", "svb", "svt", "svh")]
+                + [(n, ctypes.c_void_p) for n in ("q", "k", "v", "start", "out")])
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with typed entry points."""
     lib = ctypes.CDLL(str(build()))
+    lib.qt_flash_prefill.argtypes = [ctypes.POINTER(FlashPrefillArgs), ctypes.c_void_p]
+    lib.qt_flash_prefill.restype = ctypes.c_int
     lib.qt_talker_step.argtypes = [ctypes.POINTER(TalkerStepArgs), ctypes.c_void_p]
     lib.qt_talker_step.restype = ctypes.c_int
     lib.qt_subtalker_frame.argtypes = [ctypes.POINTER(SubtalkerArgs), ctypes.c_void_p]

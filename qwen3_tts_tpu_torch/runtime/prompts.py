@@ -1,7 +1,8 @@
 """Prompt / prefill assembly for the talker (counterpart of
-`qwen3_tts_tpu/runtime/prompts.py`, non-ICL branches).
+`qwen3_tts_tpu/runtime/prompts.py`).
 
-Per-sample prefill layout (reference modeling_qwen3_tts.py:2068-2234):
+Per-sample prefill layout (reference modeling_qwen3_tts.py:2068-2234 and
+generate_icl_prompt 1968-2019):
 
   [instruct text embeds]                      (optional, projected)
   [<|im_start|>assistant\\n role embeds]      (3 text tokens, projected)
@@ -10,9 +11,11 @@ Per-sample prefill layout (reference modeling_qwen3_tts.py:2068-2234):
     streaming:      [first text token + codec_bos]; trailing = rest + tts_eos
     non-streaming:  [text.. + tts_eos over codec_pad; tts_pad + codec_bos];
                     trailing = tts_pad
+    ICL (clone):    ref text + text (+ tts_eos) against codec_bos + the
+                    summed codec embeddings of every reference frame;
+                    trailing per stream mode
 
-Batches are left-padded with a mask, as the reference batches them. The
-ICL (voice-clone) block comes with the voice-clone slice.
+Batches are left-padded with a mask, as the reference batches them.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ class PromptSpec:
     language_id: Optional[int] = None             # codec language id or None (auto)
     speaker_embed: Optional[torch.Tensor] = None  # (H,) codec-space speaker vec
     instruct_id: Optional[np.ndarray] = None      # tokenized instruct block
+    ref_id: Optional[np.ndarray] = None           # tokenized ref text (ICL)
+    ref_code: Optional[np.ndarray] = None         # (T, Q) reference codec codes
     non_streaming: bool = False
 
 
@@ -49,6 +54,17 @@ def _embed_text(params, cfg: TalkerConfig, ids: torch.Tensor) -> torch.Tensor:
 
 def _embed_codec(params, ids: torch.Tensor) -> torch.Tensor:
     return params["codec_embedding"][ids][None]
+
+
+def _frame_codec_embed(params, cfg: TalkerConfig, ref_code: torch.Tensor) -> torch.Tensor:
+    """Summed per-codebook embeddings of reference frames. ref_code: (T, Q)
+    -> (1, T, H); codebook 0 reads the talker table, 1..Q-1 the code
+    predictor's tables (reference 1984-1989)."""
+    cp_tables = params["code_predictor"]["embeddings"]   # (Q-1, V, H)
+    out = params["codec_embedding"][ref_code[:, 0]]
+    for i in range(1, cfg.num_code_groups):
+        out = out + cp_tables[i - 1][ref_code[:, i]]
+    return out[None]
 
 
 def build_prompt(params, cfg: TalkerConfig, model_cfg: TTSModelConfig,
@@ -90,6 +106,29 @@ def build_prompt(params, cfg: TalkerConfig, model_cfg: TTSModelConfig,
     merged = text_track + codec_embed[:, :-1]
     # instruct embeds lead the prefill (reference 2076-2080)
     prompt = torch.cat(parts + [role_embed, merged], dim=1)
+
+    if spec.ref_code is not None:
+        # ICL voice-clone block (generate_icl_prompt, reference 1968-2019)
+        ref_id = _ids(spec.ref_id, dev)
+        text_embed = torch.cat([_embed_text(params, cfg, torch.cat(
+            [ref_id[3:-2], input_id[3:-5]])), tts_eos], dim=1)
+        ref_code = torch.as_tensor(np.asarray(spec.ref_code, np.int64), device=dev)
+        codec_icl = torch.cat([_embed_codec(params, _ids([cfg.codec_bos_id], dev)),
+                               _frame_codec_embed(params, cfg, ref_code)], dim=1)
+        t_len, c_len = text_embed.shape[1], codec_icl.shape[1]
+        if spec.non_streaming:
+            pad_ids = torch.full((t_len,), cfg.codec_pad_id, device=dev)
+            icl = torch.cat([text_embed + _embed_codec(params, pad_ids),
+                             codec_icl + tts_pad], dim=1)
+            trailing = tts_pad
+        elif t_len > c_len:
+            icl = text_embed[:, :c_len] + codec_icl
+            trailing = text_embed[:, c_len:]
+        else:
+            icl = torch.cat([text_embed, tts_pad.expand(1, c_len - t_len, -1)],
+                            dim=1) + codec_icl
+            trailing = tts_pad
+        return torch.cat([prompt, icl], dim=1), trailing, tts_pad
 
     first_tok = _embed_text(params, cfg, input_id[3:4]) + codec_embed[:, -1:]
     prompt = torch.cat([prompt, first_tok], dim=1)

@@ -1,21 +1,29 @@
 """Random parameter fabrication for smoke runs and tests.
 
-Torch counterparts of `qwen3_tts_tpu/utils/testing.py`: trees in the
-*prepared* layout that `prepare_talker_params` / `prepare_decoder_params`
-emit, drawn from a `torch.Generator` directly on the target device (a 1.7B
-tree is ~4 GB in bf16; drawing it on the card avoids a host round trip).
-The draws are not the JAX package's numbers: tests that compare the two
-packages build one tree with JAX and convert it with `from_jax_tree`.
+- Talker and vocoder: torch counterparts of `qwen3_tts_tpu/utils/testing.py`,
+  trees in the *prepared* layout that `prepare_talker_params` /
+  `prepare_decoder_params` emit, drawn from a `torch.Generator` directly on
+  the target device (a 1.7B tree is ~4 GB in bf16; drawing it on the card
+  avoids a host round trip). The draws are not the JAX package's numbers:
+  tests that compare the two packages build one tree with JAX and convert
+  it with `from_jax_tree`.
+- Speaker encoder and Mimi encoder: numpy trees from a seed, in the
+  checkpoint's state-dict layout (`speaker_encoder.*` and the speech
+  tokenizer's `encoder.*`, unflattened). Both packages take the same numpy
+  tree (the JAX package as is, the port through `from_jax_tree`), so a test
+  feeds them identical weights; conv weights are drawn with a 1/sqrt(fan_in)
+  scale so activations stay O(1) at the released widths.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
-from ..config import (CodecV2DecoderConfig, CodePredictorConfig,
-                                  TalkerConfig)
+from ..config import (CodecV2DecoderConfig, CodePredictorConfig, MimiEncoderConfig,
+                      SpeakerEncoderConfig, TalkerConfig)
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
@@ -164,6 +172,109 @@ def random_vocoder_params(cfg: CodecV2DecoderConfig, gen: torch.Generator,
         },
         "upsample": upsample,
         "decoder": decoder,
+    }
+
+
+def _np_conv(rng: np.random.Generator, o: int, i: int, k: int, bias: bool = True):
+    """{"weight": (o, i, k)[, "bias": (o,)]} float32, 1/sqrt(fan_in) scale."""
+    out = {"weight": rng.normal(0, 1 / np.sqrt(i * k), (o, i, k)).astype(np.float32)}
+    if bias:
+        out["bias"] = rng.normal(0, 0.02, (o,)).astype(np.float32)
+    return out
+
+
+def speaker_encoder_state(cfg: SpeakerEncoderConfig, seed: int) -> Dict[str, Any]:
+    """A random ECAPA-TDNN `speaker_encoder.*` tree (numpy float32)."""
+    rng = np.random.default_rng(seed)
+    C, K = cfg.enc_channels, cfg.enc_kernel_sizes
+    scale = cfg.enc_res2net_scale
+    blocks: Dict[str, Any] = {"0": {"conv": _np_conv(rng, C[0], cfg.mel_dim, K[0])}}
+    for i in range(1, len(C) - 1):
+        part = C[i] // scale
+        blocks[str(i)] = {
+            "tdnn1": {"conv": _np_conv(rng, C[i], C[i - 1], 1)},
+            "res2net_block": {"blocks": {str(j): {"conv": _np_conv(rng, part, part, K[i])}
+                                         for j in range(scale - 1)}},
+            "tdnn2": {"conv": _np_conv(rng, C[i], C[i], 1)},
+            "se_block": {"conv1": _np_conv(rng, cfg.enc_se_channels, C[i], 1),
+                         "conv2": _np_conv(rng, C[i], cfg.enc_se_channels, 1)},
+        }
+    return {
+        "blocks": blocks,
+        "mfa": {"conv": _np_conv(rng, C[-1], sum(C[1:-1]), K[-1])},
+        "asp": {"tdnn": {"conv": _np_conv(rng, cfg.enc_attention_channels, 3 * C[-1], 1)},
+                "conv": _np_conv(rng, C[-1], cfg.enc_attention_channels, 1)},
+        "fc": _np_conv(rng, cfg.enc_dim, 2 * C[-1], 1),
+    }
+
+
+def mimi_encoder_state(cfg: MimiEncoderConfig, seed: int) -> Dict[str, Any]:
+    """A random Mimi encoder tree (numpy float32) in the layout of HF
+    `MimiModel`'s encoder half: `encoder`, `encoder_transformer`,
+    `downsample`, `quantizer`."""
+    rng = np.random.default_rng(seed)
+    nf, h = cfg.num_filters, cfg.hidden_size
+
+    def vec(n, mean=0.0, std=0.02):
+        return (mean + rng.normal(0, std, (n,))).astype(np.float32)
+
+    layers: Dict[str, Any] = {"0": {"conv": _np_conv(rng, nf, cfg.audio_channels,
+                                                     cfg.kernel_size)}}
+    idx, mult = 1, 1
+    for ratio in reversed(cfg.upsampling_ratios):
+        dim = mult * nf
+        for _ in range(cfg.num_residual_layers):
+            layers[str(idx)] = {"block": {
+                "1": {"conv": _np_conv(rng, dim // cfg.compress, dim,
+                                       cfg.residual_kernel_size)},
+                "3": {"conv": _np_conv(rng, dim, dim // cfg.compress, 1)}}}
+            idx += 1
+        idx += 1   # ELU
+        layers[str(idx)] = {"conv": _np_conv(rng, 2 * dim, dim, 2 * ratio)}
+        idx += 1
+        mult *= 2
+    idx += 1       # ELU
+    layers[str(idx)] = {"conv": _np_conv(rng, h, mult * nf, cfg.last_kernel_size)}
+
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+
+    def lin(o, i):
+        return {"weight": rng.normal(0, 1 / np.sqrt(i), (o, i)).astype(np.float32)}
+
+    tlayers = {str(li): {
+        "self_attn": {"q_proj": lin(nq, h), "k_proj": lin(nkv, h), "v_proj": lin(nkv, h),
+                      "o_proj": lin(h, nq)},
+        "mlp": {"fc1": lin(cfg.intermediate_size, h), "fc2": lin(h, cfg.intermediate_size)},
+        "input_layernorm": {"weight": vec(h, 1.0, 0.1), "bias": vec(h)},
+        "post_attention_layernorm": {"weight": vec(h, 1.0, 0.1), "bias": vec(h)},
+        "self_attn_layer_scale": {"scale": vec(h, cfg.layer_scale_initial_scale, 0.002)},
+        "mlp_layer_scale": {"scale": vec(h, cfg.layer_scale_initial_scale, 0.002)},
+    } for li in range(cfg.num_hidden_layers)}
+
+    vq = cfg.vector_quantization_hidden_dimension
+
+    def rvq(n):
+        def codebook():
+            usage = rng.uniform(0.5, 1.5, (cfg.codebook_size,)).astype(np.float32)
+            embed = rng.normal(0, 1, (cfg.codebook_size, cfg.codebook_dim))
+            return {"codebook": {"initialized": np.ones((1,), np.float32),
+                                 "cluster_usage": usage,
+                                 "embed_sum": (embed * usage[:, None]).astype(np.float32)}}
+
+        return {"layers": {str(i): codebook() for i in range(n)},
+                "input_proj": _np_conv(rng, vq, h, 1, bias=False),
+                "output_proj": _np_conv(rng, h, vq, 1, bias=False)}
+
+    return {
+        "encoder": {"layers": layers},
+        "encoder_transformer": {"layers": tlayers},
+        "downsample": {"conv": _np_conv(
+            rng, h, h, 2 * round(cfg.encodec_frame_rate / cfg.frame_rate), bias=False)},
+        "quantizer": {
+            "semantic_residual_vector_quantizer": rvq(cfg.num_semantic_quantizers),
+            "acoustic_residual_vector_quantizer": rvq(
+                cfg.num_quantizers - cfg.num_semantic_quantizers)},
     }
 
 

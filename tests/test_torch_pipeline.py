@@ -15,7 +15,6 @@ Tolerances:
   generation then diverges for that row.
 """
 
-import dataclasses
 import json
 
 import numpy as np
@@ -265,7 +264,7 @@ def test_speech_tokenizer_from_pretrained_matches_jax(checkpoint, tmp_path):
                    "decode_upsample_rate": DEC_CFG.total_upsample}, f)
 
     want = jdec.prepare_decoder_params(jax.tree_util.tree_map(jnp.asarray, raw), DEC_CFG)
-    tok = TTok.from_pretrained(str(tok_dir))
+    tok = TTok.from_pretrained(str(tok_dir), device="cpu")
     np.testing.assert_allclose(tok.dec_params["_codebooks"].numpy(),
                                np.asarray(want["_codebooks"]), rtol=1e-5, atol=1e-5)
     codes = [rng.integers(0, DEC_CFG.codebook_size, (n, DEC_CFG.num_quantizers))
@@ -287,18 +286,41 @@ def test_speech_tokenizer_from_pretrained_matches_jax(checkpoint, tmp_path):
                                   tok.dec_params["_codebooks"].numpy())
 
 
-def test_long_prefill_raises_and_cuda_request_checked(checkpoint):
-    """Prompts of FLASH_PREFILL_MIN_T tokens need the flash prefill kernel,
-    which is not ported: the port raises instead of taking the dense path."""
-    tc = TTSModelConfig.from_dict(MODEL_TINY).talker_config
-    tc = dataclasses.replace(tc, num_hidden_layers=1)
-    T = ttalker.FLASH_PREFILL_MIN_T
-    params = {"layers": None, "norm": None, "codec_head": None}
-    cache = ttalker.KVCache.zeros(1, 1, T + 1, tc.num_key_value_heads,
-                                  tc.resolved_head_dim, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="flash prefill"):
-        ttalker.talker_prefill(params, tc, torch.zeros(1, T, tc.hidden_size),
-                               torch.ones(1, T, dtype=torch.int32), cache)
+def test_long_prefill_raises_and_cuda_request_checked(checkpoint, monkeypatch):
+    """A prefill of FLASH_PREFILL_MIN_T tokens on CPU tensors attends
+    through the flash prefill's twin (no kernel launch: the counter stays
+    put) and matches the dense path (allow_flash=False) within 1e-4 on the
+    valid rows; asking for CUDA where there is none raises."""
+    from qwen3_tts_tpu_torch.ops.cuda import prefill_attention as tpa
+
+    tm = TModel.from_pretrained(checkpoint[0], dtype=torch.float32, device="cpu")
+    tc = tm.config.talker_config
+    B, T = 2, ttalker.FLASH_PREFILL_MIN_T
+    starts = [0, 301]
+    gen = torch.Generator().manual_seed(0)
+    embeds = 0.3 * torch.randn((B, T, tc.hidden_size), generator=gen)
+    mask = (torch.arange(T)[None, :] >= torch.tensor(starts)[:, None]).to(torch.int32)
+    calls = []
+    real = tpa.flash_prefill_ref
+    monkeypatch.setattr(tpa, "flash_prefill_ref", lambda *a: calls.append(1) or real(*a))
+    launches = tpa.flash_prefill.launches
+
+    def run(allow_flash):
+        cache = ttalker.KVCache.zeros(tc.num_hidden_layers, B, T + 1, tc.num_key_value_heads,
+                                      tc.resolved_head_dim, dtype=torch.float32)
+        return ttalker.talker_prefill(tm.talker_params, tc, embeds, mask, cache,
+                                      allow_flash=allow_flash)
+
+    lf, hf, cf = run(True)
+    assert len(calls) == tc.num_hidden_layers and tpa.flash_prefill.launches == launches
+    ld, hd, cd = run(False)
+    assert len(calls) == tc.num_hidden_layers   # the dense path took no flash call
+    torch.testing.assert_close(lf, ld, rtol=1e-4, atol=1e-4)
+    for b, s in enumerate(starts):
+        torch.testing.assert_close(hf[b, s:], hd[b, s:], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(cf.k[:, b, :, s:T], cd.k[:, b, :, s:T])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TModel.from_pretrained(checkpoint[0], device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TModel(tm.config, tm.talker_params)

@@ -1,0 +1,126 @@
+"""The port's flash prefill against the JAX package's.
+
+- `flash_prefill_ref` (the twin the wrapper runs on CPU tensors) against the
+  JAX `flash_prefill` in interpret mode, on the cases of
+  tests/test_pallas_kernels.py with that file's tolerances: fp32 rtol/atol
+  2e-5 on valid rows (the sums run in another order), bf16 3e-2 (bf16
+  outputs); padded rows are zeros in both.
+- `talker_prefill` with the flash route forced on at small shapes (both
+  packages' FLASH_PREFILL_MIN_T lowered to 8) against the JAX package's,
+  on one fp32 parameter tree: logits, valid hiddens and valid cache slots
+  within 1e-4 (28-op layer chains in another sum order).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from qwen3_tts_tpu.models import talker as jtalker
+from qwen3_tts_tpu.ops.pallas.prefill_attention import flash_prefill as j_flash
+from qwen3_tts_tpu.utils.testing import random_talker_params
+from qwen3_tts_tpu_torch.models import talker as ttalker
+from qwen3_tts_tpu_torch.ops.cuda import prefill_attention as tpa
+from qwen3_tts_tpu_torch.weights import from_jax_tree
+from tests.test_torch_weights import TINY
+
+CASES = {
+    # B, T, Hq, Hkv, D, starts, window, dtype, (block_q, block_k), tol
+    "ragged_starts": (2, 160, 8, 4, 128, [0, 37], None, np.float32, (64, 64), 2e-5),
+    "window_ragged_T": (2, 100, 4, 2, 64, [5, 0], 24, np.float32, (32, 32), 2e-5),
+    "bf16": (1, 128, 4, 2, 128, [11], None, "bf16", (256, 512), 3e-2),
+}
+
+
+def _inputs(B, T, Hq, Hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, size=(B, T, Hq, D)).astype(np.float32),
+            rng.normal(0, 1, size=(B, T, Hkv, D)).astype(np.float32),
+            rng.normal(0, 1, size=(B, T, Hkv, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_flash_prefill_twin_matches_jax(case):
+    B, T, Hq, Hkv, D, starts, window, dtype, (bq, bk), tol = CASES[case]
+    q, k, v = _inputs(B, T, Hq, Hkv, D, seed=len(case))
+    start = np.asarray(starts, np.int32)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    want = np.asarray(j_flash(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+                              jnp.asarray(start), sliding_window=window, block_q=bq,
+                              block_k=bk, interpret=True)).astype(np.float32)
+    launches = tpa.flash_prefill.launches
+    got = tpa.flash_prefill(torch.tensor(q).to(tdt), torch.tensor(k).to(tdt),
+                            torch.tensor(v).to(tdt), torch.tensor(start),
+                            sliding_window=window)
+    assert tpa.flash_prefill.launches == launches   # CPU tensors run the twin
+    assert got.dtype == tdt and tuple(got.shape) == (B, T, Hq, D)
+    got = got.float().numpy()
+    for b in range(B):
+        s = start[b]
+        np.testing.assert_allclose(got[b, s:], want[b, s:], rtol=tol, atol=tol)
+        assert not got[b, :s].any() and not want[b, :s].any()
+
+
+def test_flash_prefill_twin_matches_dense_attention():
+    """The twin equals the dense masked `attention` of ops/attention.py on
+    valid rows (fp32, 1e-5): the flash route computes the same function."""
+    from qwen3_tts_tpu_torch.ops.attention import attention
+
+    B, T, Hq, Hkv, D = 2, 48, 4, 2, 16
+    q, k, v = (torch.tensor(x) for x in _inputs(B, T, Hq, Hkv, D, seed=7))
+    start = torch.tensor([0, 13], dtype=torch.int32)
+    for window in (None, 10):
+        ok = tpa._mask(T, start, window)[:, None]
+        want = attention(q, k, v, ok)
+        got = tpa.flash_prefill_ref(q, k, v, start, sliding_window=window)
+        for b in range(B):
+            torch.testing.assert_close(got[b, start[b]:], want[b, start[b]:],
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_flash_prefill_refuses_other_devices():
+    q = torch.zeros((1, 4, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tpa.flash_prefill(q, q[:, :, :1], q[:, :, :1], torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_talker_prefill_flash_route_matches_jax(monkeypatch, window):
+    cfg = dataclasses.replace(TINY, sliding_window=window)
+    params = random_talker_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    params = jax.tree_util.tree_map(lambda x: x * 3.0, params)
+    B, T, S = 2, 40, 48
+    rng = np.random.default_rng(1)
+    embeds = (0.3 * rng.normal(size=(B, T, cfg.hidden_size))).astype(np.float32)
+    mask = (np.arange(T)[None, :] >= np.array([[0], [7]])).astype(np.int32)
+    monkeypatch.setattr(jtalker, "FLASH_PREFILL_MIN_T", 8)
+    monkeypatch.setattr(ttalker, "FLASH_PREFILL_MIN_T", 8)
+    dims = jtalker.StackDims.from_talker(cfg)
+
+    jcache = jtalker.KVCache.zeros(cfg.num_hidden_layers, B, S, dims.kv_heads,
+                                   dims.head_dim, dtype=jnp.float32)
+    lj, hj, cj = jtalker.talker_prefill(params, cfg, jnp.asarray(embeds),
+                                        jnp.asarray(mask), jcache)
+    tcache = ttalker.KVCache.zeros(cfg.num_hidden_layers, B, S, dims.kv_heads,
+                                   dims.head_dim, dtype=torch.float32)
+    calls = []
+    real = tpa.flash_prefill_ref
+    monkeypatch.setattr(tpa, "flash_prefill_ref",
+                        lambda *a: calls.append(a[5]) or real(*a))
+    lt, ht, ct = ttalker.talker_prefill(from_jax_tree(params), cfg, torch.tensor(embeds),
+                                        torch.tensor(mask), tcache)
+    assert calls == [window] * cfg.num_hidden_layers   # the flash route ran
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4, atol=1e-4)
+    for b in range(B):
+        lo = int(T - mask[b].sum())
+        np.testing.assert_allclose(ht[b, lo:].numpy(), np.asarray(hj)[b, lo:],
+                                   rtol=1e-4, atol=1e-4)
+        # the port's cache is (L, B, Hkv, S, D); the JAX cache (L, B, S, Hkv, D)
+        for t_c, j_c in ((ct.k, cj.k), (ct.v, cj.v)):
+            np.testing.assert_allclose(t_c[:, b, :, lo:T].permute(0, 2, 1, 3).numpy(),
+                                       np.asarray(j_c)[:, b, lo:T], rtol=1e-4, atol=1e-4)

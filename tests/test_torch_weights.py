@@ -128,13 +128,15 @@ def test_matmul_t_int8_and_plain():
 
 
 def test_port_imports_no_jax():
-    """Importing the port's entry points in a fresh interpreter leaves jax
-    out of sys.modules (the port must run where jax is not installed)."""
-    code = ("import sys; import qwen3_tts_tpu_torch.inference.model; "
-            "import qwen3_tts_tpu_torch.ops.cuda.subtalker; "
-            "import qwen3_tts_tpu_torch.ops.cuda.talker_step; "
-            "import qwen3_tts_tpu_torch.utils.testing; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
+    """Importing every module of the port, chip_smoke and chip_profile, in a fresh
+    interpreter leaves jax and every module of the JAX package out of
+    sys.modules (the port must run where neither is installed)."""
+    code = ("import importlib, pkgutil, sys; import qwen3_tts_tpu_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+            "[importlib.import_module(m) for m in mods + ['chip_smoke', 'chip_profile']]; "
+            "assert 'qwen3_tts_tpu_torch.ops.cuda.prefill_attention' in mods, mods; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'qwen3_tts_tpu' or m.startswith('qwen3_tts_tpu.')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
