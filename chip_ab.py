@@ -1,0 +1,126 @@
+"""A/B of the talker-step kernel between checkouts, on one NVIDIA H100.
+
+    python3 chip_ab.py ROOT [ROOT ...] [--rounds N]
+
+Times `talker_step_fused_cache` of each checkout's `qwen3_tts_tpu_torch`
+(built from that checkout's sources) at chip_smoke.py's shapes: B=8 over
+the main path's 256-slot buffer (slot 128), and B=2 over the clone call's
+buffer (a 2304-token prefill plus 49 slots in whole 128-slot chunks: 2432
+slots, slot 2328), with random 1.7B int8 weights from a seed; bf16 KV and,
+where the checkout has it, int8 KV. Each reading is a fresh process of one
+checkout (the packages share a name), and each round runs the checkouts
+forward then backward (A B B A for two), so drift of the card's clocks
+falls on every side alike. Prints every reading, then one JSON line with
+each (checkout, mode, shape)'s median, min and max over the rounds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+SEED = 0
+SHAPES = {"B8_S256": (8, 256, 128), "B2_S2432": (2, 2432, 2328)}   # (B, S_buf, slot)
+
+
+def child(root: str) -> None:
+    """Time one checkout: the mean device ms of 20 launches after a warm-up,
+    the median of 5 such repeats, per (mode, shape)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import inspect
+
+    import numpy as np
+    import torch
+
+    import qwen3_tts_tpu_torch
+    from qwen3_tts_tpu_torch.ops.cuda import build
+    from qwen3_tts_tpu_torch.ops.cuda.talker_step import talker_step_fused_cache as step
+    from qwen3_tts_tpu_torch.utils.testing import TALKER_1B7 as cfg
+    from qwen3_tts_tpu_torch.utils.testing import random_talker_params
+    from qwen3_tts_tpu_torch.weights import quantize_talker_params
+
+    if not qwen3_tts_tpu_torch.__file__.startswith(os.path.abspath(root)):
+        raise SystemExit(f"imported {qwen3_tts_tpu_torch.__file__}, not the one under {root}")
+    build.load_library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = quantize_talker_params(random_talker_params(cfg, gen, dtype=torch.bfloat16))
+    modes = ["bf16"] + (["int8"] if "k_scale" in inspect.signature(step).parameters else [])
+    L, Hkv, D = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.resolved_head_dim
+
+    def cuda_ms(fn, iters=20):
+        fn()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    out = {}
+    for shape, (B, S, ci) in SHAPES.items():
+        k, v = ((torch.randn((L, B, Hkv, S, D), generator=gen, device=dev) * 0.5)
+                .to(torch.bfloat16) for _ in range(2))
+        slot = torch.arange(S, device=dev)[None, :]
+        start = torch.randint(0, 4, (B, 1), generator=gen, device=dev)
+        valid = (slot >= start) & (slot <= ci)
+        embed = (torch.randn((B, 1, cfg.hidden_size), generator=gen, device=dev) * 0.3
+                 ).to(torch.bfloat16)
+        pos = torch.full((B,), ci, dtype=torch.int32, device=dev)
+        for mode in modes:
+            if mode == "bf16":
+                args, kw = (k, v), {}
+            else:
+                from qwen3_tts_tpu_torch.models.talker import kv_quantize
+
+                (kq, ks), (vq, vs) = kv_quantize(k), kv_quantize(v)
+                args, kw = (kq, vq), dict(k_scale=ks, v_scale=vs)
+            reps = [cuda_ms(lambda: step(params, cfg, embed, pos, ci, valid, *args, **kw))
+                    for _ in range(5)]
+            out[f"{mode}/{shape}"] = float(np.median(reps))
+        del k, v
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.child:
+        child(a.roots[0])
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    readings = {root: {} for root in a.roots}
+    for r in range(a.rounds):
+        for root in a.roots + a.roots[::-1]:
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
+                                   os.path.abspath(root)],
+                                  capture_output=True, text=True, cwd=os.path.abspath(root))
+            if proc.returncode != 0:
+                sys.stderr.write(proc.stderr[-4000:])
+                raise SystemExit(f"{root}: exit {proc.returncode}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(f"round {r} {root} {got}", flush=True)
+            for key, ms in got.items():
+                readings[root].setdefault(key, []).append(ms)
+    import statistics
+
+    summary = {root: {key: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                            "n": len(v)} for key, v in rows.items()}
+               for root, rows in readings.items()}
+    print(json.dumps({"device": smi, "ab": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

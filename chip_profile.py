@@ -7,8 +7,10 @@ Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
 1. each kernel's registers, shared memory and spills, as ptxas reports them;
 2. the host wall of the voice-clone call's parts (prompt creation, the
    prefill on the flash and on the dense route);
-3. torch.profiler over one voice-clone and one custom-voice call: device
-   time by kernel (top rows) and the busy share (device kernel time over the
+3. torch.profiler over one voice-clone call (bf16 and int8 KV), one
+   custom-voice call, one int8-KV custom-voice stream and one int8-KV
+   serving run (chip_smoke's 12 requests over 8 slots): device time by
+   kernel (top rows) and the busy share (device kernel time over the
    unprofiled wall of the same call).
 
 A diagnostic beside the smoke; it checks nothing that chip_smoke.py does not.
@@ -23,8 +25,9 @@ import time
 import torch
 
 from chip_smoke import (CLONE_MAX_NEW_TOKENS, CLONE_REF_TEXT, CLONE_TEXTS, MAX_NEW_TOKENS,
-                        SEED, TEXTS, build_clone_model, build_model, line, model_params,
-                        phase_build, phase_clone_front_end, phase_device)
+                        SEED, SERVE_OVERRIDES, SERVE_REQUESTS, SERVE_SLOTS, TEXTS,
+                        build_clone_model, build_model, line, model_params, phase_build,
+                        phase_clone_front_end, phase_device, serve_all)
 
 
 def phase_ptxas() -> None:
@@ -92,12 +95,30 @@ def phase_profile(model, front, custom_voice_model) -> None:
              prefill_dense_s=wall(lambda: prefill(False)))
     kw = dict(language="english", ref_audio=ref, ref_text=CLONE_REF_TEXT,
               non_streaming_mode=True, seed=SEED)
+    from qwen3_tts_tpu_torch.runtime.server import TTSServer
+
+    srv = TTSServer(custom_voice_model, num_slots=SERVE_SLOTS, overrides=SERVE_OVERRIDES,
+                    max_new_tokens=MAX_NEW_TOKENS, seed=SEED)
+    runs = iter(range(10**6))
+
+    def serve():
+        n = next(runs)
+        serve_all(srv, [lambda i=i: srv.submit_custom_voice(
+            f"{n}-{i}", text=f"{TEXTS[i % len(TEXTS)]} Request {i}.", speaker="vivian",
+            language="english", stream=i % 2 == 0) for i in range(SERVE_REQUESTS)])
+
     calls = {
         "clone": lambda: model.generate_voice_clone(
             CLONE_TEXTS, max_new_tokens=CLONE_MAX_NEW_TOKENS, **kw),
+        "clone int8_kv": lambda: model.generate_voice_clone(
+            CLONE_TEXTS, max_new_tokens=CLONE_MAX_NEW_TOKENS, kv_quant=True, **kw),
         "custom_voice": lambda: custom_voice_model.generate_custom_voice(
             TEXTS, speaker="vivian", language="english", seed=SEED,
             max_new_tokens=MAX_NEW_TOKENS),
+        "stream custom_voice int8_kv": lambda: list(custom_voice_model.stream_custom_voice(
+            TEXTS, speaker="vivian", language="english", seed=SEED, kv_quant=True,
+            max_new_tokens=MAX_NEW_TOKENS)),
+        "serve custom_voice int8_kv": serve,
     }
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for name, fn in calls.items():

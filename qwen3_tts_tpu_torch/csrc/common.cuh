@@ -1,8 +1,9 @@
 // Building blocks shared by the two W8A8 decode kernels (talker_step.cu and
 // subtalker.cu): a row RMSNorm + per-row int8 activation quantiser, a W8A8
 // GEMM for small row counts, QK-RMSNorm + RoPE with the KV-slot write, a
-// GQA decode attention over a bf16 cache, SiLU(gate)*up with quantisation,
-// and the host function that chains them into one decoder layer.
+// GQA decode attention over a bf16 or an int8 cache, SiLU(gate)*up with
+// quantisation, and the host function that chains them into one decoder
+// layer.
 //
 // Numerics follow the JAX reference twins (ops/pallas/subtalker.py
 // `subtalker_frame_ref`, ops/pallas/talker_step.py `talker_step_ref`):
@@ -11,7 +12,9 @@
 //   * int8 x int8 products accumulate exactly in int32 (dp4a), and the
 //     epilogue is (float(acc) * s_row) * s_col;
 //   * values round to bf16 at the reference's points (matmul outputs before
-//     each residual add, q/k after RoPE, v, softmax weights).
+//     each residual add, q/k after RoPE, v, softmax weights);
+//   * an int8 KV slot is the JAX `kv_quantize` of the bf16 K/V row over D:
+//     s = max(amax, 1e-8) / 127 (IEEE division), q = clip(rint(x / s), +-127).
 // The library is compiled with --fmad=false so that a*b+c is not contracted
 // into an FMA the reference does not have.
 #pragma once
@@ -36,6 +39,7 @@ typedef __nv_bfloat16 bf16;
 static __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 static __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 static __device__ __forceinline__ float to_f(float x) { return x; }
+static __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 static __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -167,18 +171,65 @@ static __global__ void k_w8a8(const int8_t* __restrict__ xq, int ldx,
   }
 }
 
+// One layer's KV cache. A bf16 cache: kc/vc are bf16 (B, kvh, S_buf, D) and
+// ks is NULL. An int8 cache: kc/vc are int8, ks/vs the f32 (B, kvh, S_buf)
+// scale planes, and knew/vnew (B, kvh, D) bf16 receive the fresh unquantized
+// K/V that the attention folds in at finalize.
+struct KVPtrs {
+  void *kc, *vc;
+  float *ks, *vs;
+  bf16 *knew, *vnew;
+};
+
+static inline KVPtrs kv_layer(const KVPtrs& kv, int li, size_t layer_slots, int D) {
+  const size_t elem = kv.ks ? 1 : sizeof(bf16);
+  KVPtrs o = kv;
+  o.kc = (char*)kv.kc + li * layer_slots * D * elem;
+  o.vc = (char*)kv.vc + li * layer_slots * D * elem;
+  if (kv.ks) {
+    o.ks = kv.ks + li * layer_slots;
+    o.vs = kv.vs + li * layer_slots;
+  }
+  return o;
+}
+
+// Store thread d's element of a fresh K or V row (cache row `row` = b*kvh+h)
+// at slot sl. Block-wide in int8 mode (every thread of the block calls it):
+// the row's scale needs its amax. A slot outside [0, S_buf) traps: the launch
+// fails and the caller's next sync raises, as an out-of-range index does in
+// a PyTorch CUDA kernel (a per-row slot tensor is not checked on the host,
+// which would cost a sync per step).
+static __device__ void store_kv(void* cache, float* scales, bf16* fresh, size_t row,
+                                int S_buf, int sl, int D, int d, float val, bool active,
+                                float* red) {
+  if (sl < 0 || sl >= S_buf) __trap();
+  const bf16 vb = __float2bfloat16_rn(val);
+  if (!scales) {
+    if (active) ((bf16*)cache)[(row * S_buf + sl) * D + d] = vb;
+    return;
+  }
+  const float x = bf(vb);
+  const float amax = block_reduce<true>(active ? fabsf(x) : 0.f, red);
+  const float s = fmaxf(amax, 1e-8f) / 127.f;
+  if (!active) return;
+  fresh[row * D + d] = vb;
+  ((int8_t*)cache)[(row * S_buf + sl) * D + d] = quant_one(x, s);
+  if (d == 0) scales[row * S_buf + sl] = s;
+}
+
 // QK-RMSNorm + RoPE on the f32 qkv projection, and the cache write.
 // grid (B, heads + 2*kvh), block 128 (D <= 128). Head ids [0, heads) are q
-// (written to q_out), then kvh k heads, then kvh v heads, both written into
-// the (B, kvh, S_buf, D) cache of this layer at slot[b] (or slot_const when
-// slot is null). cos/sin rows: row b at offset b*cs_ld (cs_ld 0 = shared).
+// (written to q_out), then kvh k heads, then kvh v heads, both stored into
+// this layer's cache `kv` at slot[b] (or slot_const when slot is null): bf16,
+// or int8 with their scales (and the bf16 row in kv.knew/vnew). cos/sin
+// rows: row b at offset b*cs_ld (cs_ld 0 = shared).
 static __global__ void k_qk_rope(const float* __restrict__ qkv, int ldqkv,
                                  int heads, int kvh, int D,
                                  const float* __restrict__ qn,
                                  const float* __restrict__ kn, float eps,
                                  const float* __restrict__ cosr,
                                  const float* __restrict__ sinr, int cs_ld,
-                                 bf16* q_out, bf16* kc, bf16* vc, int S_buf,
+                                 bf16* q_out, KVPtrs kv, int S_buf,
                                  const int* slot, int slot_const) {
   __shared__ float y_s[128];
   __shared__ float red[32];
@@ -187,11 +238,10 @@ static __global__ void k_qk_rope(const float* __restrict__ qkv, int ldqkv,
   const bool active = d < D;
   const int sl = slot ? slot[b] : slot_const;
   const float* src = qkv + (size_t)b * ldqkv;
-  if (hid >= heads + kvh) {  // v: bf16 into the cache, no norm, no rope
+  if (hid >= heads + kvh) {  // v: into the cache, no norm, no rope
     const int h = hid - heads - kvh;
-    if (active)
-      vc[(((size_t)b * kvh + h) * S_buf + sl) * D + d] =
-          __float2bfloat16_rn(src[nq + nkv + h * D + d]);
+    store_kv(kv.vc, kv.vs, kv.vnew, (size_t)b * kvh + h, S_buf, sl, D, d,
+             active ? src[nq + nkv + h * D + d] : 0.f, active, red);
     return;
   }
   const bool is_q = hid < heads;
@@ -202,14 +252,18 @@ static __global__ void k_qk_rope(const float* __restrict__ qkv, int ldqkv,
   const float y = active ? (v * (1.f / sqrtf(ss / (float)D + eps))) * nw[d] : 0.f;
   if (active) y_s[d] = y;
   __syncthreads();
-  if (!active) return;
   const int half = D / 2;
-  const float rot = d < half ? -y_s[d + half] : y_s[d - half];
-  const float o = y * cosr[(size_t)b * cs_ld + d] + rot * sinr[(size_t)b * cs_ld + d];
-  if (is_q)
-    q_out[(size_t)b * nq + hid * D + d] = __float2bfloat16_rn(o);
-  else
-    kc[(((size_t)b * kvh + (hid - heads)) * S_buf + sl) * D + d] = __float2bfloat16_rn(o);
+  float o = 0.f;
+  if (active) {
+    const float rot = d < half ? -y_s[d + half] : y_s[d - half];
+    o = y * cosr[(size_t)b * cs_ld + d] + rot * sinr[(size_t)b * cs_ld + d];
+  }
+  if (is_q) {
+    if (active) q_out[(size_t)b * nq + hid * D + d] = __float2bfloat16_rn(o);
+    return;
+  }
+  store_kv(kv.kc, kv.ks, kv.knew, (size_t)b * kvh + (hid - heads), S_buf, sl, D, d, o,
+           active, red);
 }
 
 #define ATT_CHUNK 128
@@ -218,27 +272,37 @@ static __global__ void k_qk_rope(const float* __restrict__ qkv, int ldqkv,
 // GQA decode attention for one query position per row, one block per
 // (row b, kv head h), ATT_CHUNK = 128 threads; G = heads / kvh query heads
 // share the block's K/V. q head index = h * G + g. Per chunk, thread t scores
-// slot c0 + t for all G heads (its K row in 16-byte loads, D % 8 == 0), then
-// owns output column d = t for the P.V sum.
+// slot c0 + t for all G heads (its K row in 16-byte loads, D % 8 == 0; int8:
+// D % 16 == 0), then owns output column d = t for the P.V sum.
 //
 // Talker mode (sub_pos < 0): slots j < ci[b] with valid[b, j] (and inside the
 // window) are attended as an online softmax over 128-slot chunks, exactly
 // the reference's order of operations: per chunk m' = max(m, max s),
 // e = bf16(exp(s - m')), l = l*exp(m - m') + sum e, acc = acc*exp(m - m') +
-// e.v; then the fresh K/V at slot ci[b] (already written by k_qk_rope) is
-// folded in: e_new = bf16(exp(s_new - m_tot)), o = (acc*corr + e_new*v_new) /
-// (l*corr + e_new). Masked slots are skipped, which gives the reference's
-// result: their weights are exactly 0, or (while no slot has been live) are
-// wiped by a zero correction factor later.
+// e.v; then the fresh K/V of slot ci[b] is folded in: e_new = bf16(exp(s_new -
+// m_tot)), o = (acc*corr + e_new*v_new) / (l*corr + e_new). Masked slots are
+// skipped, which gives the reference's result: their weights are exactly 0,
+// or (while no slot has been live) are wiped by a zero correction factor
+// later. Q8 (int8 cache): s = (q . k_int8) * k_scale[j] * D^-0.5, the P.V
+// weight is bf16(e * v_scale[j]) against v_int8 (l still sums e), and the
+// fresh K/V comes from kv.knew/vnew in bf16 (the slot holds its int8 copy);
+// a bf16 cache's fresh K/V is read back from slot ci[b]. The cache pointers
+// stay typed and __restrict__ (not void*), so the compiler may route either
+// element type's loads through the read-only data cache.
 //
-// Sub-talker mode (sub_pos >= 0): slots 0..sub_pos, one plain softmax
-// p = bf16(exp(s - m) / sum exp(s - m)), o = sum p.v.
-static __global__ void k_attn(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                              const bf16* __restrict__ vc, int S_buf, int S_att,
+// Sub-talker mode (sub_pos >= 0, bf16 only): slots 0..sub_pos, one plain
+// softmax p = bf16(exp(s - m) / sum exp(s - m)), o = sum p.v.
+template <typename KV>  // bf16: a bf16 cache; int8_t: an int8 cache with scales
+static __global__ void k_attn(const bf16* __restrict__ q, const KV* __restrict__ kc,
+                              const KV* __restrict__ vc, const float* __restrict__ ks,
+                              const float* __restrict__ vs,
+                              const bf16* __restrict__ knew, const bf16* __restrict__ vnew,
+                              int S_buf, int S_att,
                               int heads, int kvh, int D, float scale,
                               const int* __restrict__ ci,
                               const uint8_t* __restrict__ valid, int ld_valid,
                               int window, int sub_pos, bf16* out) {
+  constexpr bool Q8 = sizeof(KV) == 1;
   __shared__ float qf[ATT_MAX_G][128];
   __shared__ float sc[ATT_MAX_G][ATT_CHUNK];
   __shared__ float red[32];
@@ -247,8 +311,11 @@ static __global__ void k_attn(const bf16* __restrict__ q, const bf16* __restrict
   const bool sub = sub_pos >= 0;
   for (int i = tid; i < G * D; i += blockDim.x)
     qf[i / D][i % D] = bf(q[(size_t)b * heads * D + (size_t)(h * G) * D + i]);
-  const bf16* kb = kc + ((size_t)b * kvh + h) * S_buf * D;
-  const bf16* vb = vc + ((size_t)b * kvh + h) * S_buf * D;
+  const size_t row = (size_t)b * kvh + h;
+  const KV* kb = kc + row * S_buf * D;
+  const KV* vb = vc + row * S_buf * D;
+  const float* ksb = Q8 ? ks + row * S_buf : nullptr;
+  const float* vsb = Q8 ? vs + row * S_buf : nullptr;
   const int lim = sub ? sub_pos + 1 : S_att;
   const int cib = sub ? 0 : ci[b];
   float m[ATT_MAX_G], l[ATT_MAX_G], acc[ATT_MAX_G];
@@ -261,6 +328,7 @@ static __global__ void k_attn(const bf16* __restrict__ q, const bf16* __restrict
   __syncthreads();
   for (int c0 = 0; c0 < lim; c0 += ATT_CHUNK) {
     const int cend = min(c0 + ATT_CHUNK, lim);
+    float vsj = 0.f;  // Q8: this thread's slot's V scale
     {  // scores: thread tid owns slot c0 + tid and reads its K row in 16-byte vectors
       const int j = c0 + tid;
       bool ok = j < cend;
@@ -271,17 +339,37 @@ static __global__ void k_attn(const bf16* __restrict__ q, const bf16* __restrict
 #pragma unroll
       for (int g = 0; g < ATT_MAX_G; ++g) part[g] = 0.f;
       if (ok) {
-        const uint4* krow = reinterpret_cast<const uint4*>(kb + (size_t)j * D);
+        if constexpr (Q8) {
+          const int4* krow = reinterpret_cast<const int4*>(kb + (size_t)j * D);
+#pragma unroll 2
+          for (int d16 = 0; d16 < D / 16; ++d16) {
+            const int4 k4 = krow[d16];
+            const int8_t* kv8 = reinterpret_cast<const int8_t*>(&k4);
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+              const float kf = (float)kv8[e];
+#pragma unroll
+              for (int g = 0; g < ATT_MAX_G; ++g)
+                if (g < G) part[g] += qf[g][d16 * 16 + e] * kf;
+            }
+          }
+          const float ksj = ksb[j];
+#pragma unroll
+          for (int g = 0; g < ATT_MAX_G; ++g) part[g] *= ksj;
+          vsj = vsb[j];
+        } else {
+          const uint4* krow = reinterpret_cast<const uint4*>(kb + (size_t)j * D);
 #pragma unroll 4
-        for (int d8 = 0; d8 < D / 8; ++d8) {
-          const uint4 k4 = krow[d8];
-          const bf16* kv = reinterpret_cast<const bf16*>(&k4);
+          for (int d8 = 0; d8 < D / 8; ++d8) {
+            const uint4 k4 = krow[d8];
+            const bf16* kv16 = reinterpret_cast<const bf16*>(&k4);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float kf = bf(kv[e]);
+            for (int e = 0; e < 8; ++e) {
+              const float kf = bf(kv16[e]);
 #pragma unroll
-            for (int g = 0; g < ATT_MAX_G; ++g)
-              if (g < G) part[g] += qf[g][d8 * 8 + e] * kf;
+              for (int g = 0; g < ATT_MAX_G; ++g)
+                if (g < G) part[g] += qf[g][d8 * 8 + e] * kf;
+            }
           }
         }
       }
@@ -312,7 +400,7 @@ static __global__ void k_attn(const bf16* __restrict__ q, const bf16* __restrict
         const float es = block_reduce<false>(e, red);
         l[g] = l[g] * corr[g] + es;
         m[g] = m_new;
-        sc[g][tid] = e;
+        sc[g][tid] = Q8 ? bf16r(e * vsj) : e;
       }
     }
     __syncthreads();
@@ -322,7 +410,7 @@ static __global__ void k_attn(const bf16* __restrict__ q, const bf16* __restrict
         if (!live[g]) continue;
         float pv = 0.f;
         for (int t = 0; t < cend - c0; ++t)
-          pv += sc[g][t] * bf(vb[(size_t)(c0 + t) * D + tid]);
+          pv += sc[g][t] * to_f(vb[(size_t)(c0 + t) * D + tid]);
         acc[g] = sub ? pv : acc[g] * corr[g] + pv;
       }
     }
@@ -335,8 +423,10 @@ static __global__ void k_attn(const bf16* __restrict__ q, const bf16* __restrict
       if (g < G && tid < D) ob[g * D + tid] = __float2bfloat16_rn(acc[g]);
     return;
   }
-  const float kn_d = tid < D ? bf(kb[(size_t)cib * D + tid]) : 0.f;
-  const float vn_d = tid < D ? bf(vb[(size_t)cib * D + tid]) : 0.f;
+  const float kn_d = tid >= D ? 0.f
+                              : Q8 ? bf(knew[row * D + tid]) : to_f(kb[(size_t)cib * D + tid]);
+  const float vn_d = tid >= D ? 0.f
+                              : Q8 ? bf(vnew[row * D + tid]) : to_f(vb[(size_t)cib * D + tid]);
 #pragma unroll
   for (int g = 0; g < ATT_MAX_G; ++g) {
     if (g >= G) break;
@@ -417,13 +507,13 @@ static inline int row_norm_launch(const bf16* x, int ldx, const float* w, float 
   return 0;
 }
 
-// x (B, H) bf16 is the residual stream, updated in place. kc/vc are this
-// layer's (B, kvh, S_buf, D) cache. Talker mode: slot/ci per row (ci), valid
-// (B, ld_valid), sub_pos = -1. Sub-talker mode: slot_const = sub_pos = the
-// position, ci/valid unused.
+// x (B, H) bf16 is the residual stream, updated in place. kv is this
+// layer's (B, kvh, S_buf, D) cache (bf16, or int8 with scales). Talker mode:
+// slot/ci per row (ci), valid (B, ld_valid), sub_pos = -1. Sub-talker mode
+// (bf16 cache): slot_const = sub_pos = the position, ci/valid unused.
 static int run_layer(const LayerShape& s, const LayerWeights& w, bf16* x,
                      const float* cosr, const float* sinr, int cs_ld,
-                     bf16* kc, bf16* vc, const int* ci, const uint8_t* valid,
+                     const KVPtrs& kv, const int* ci, const uint8_t* valid,
                      int ld_valid, int sub_pos, const LayerScratch& t,
                      cudaStream_t st) {
   const int nq = s.heads * s.D, nqkv = (s.heads + 2 * s.kvh) * s.D;
@@ -436,11 +526,18 @@ static int run_layer(const LayerShape& s, const LayerWeights& w, bf16* x,
     return e;
   k_qk_rope<<<dim3(s.B, s.heads + 2 * s.kvh), 128, 0, st>>>(
       t.qkv, nqkv, s.heads, s.kvh, s.D, w.qn, w.kn, s.eps, cosr, sinr, cs_ld,
-      t.q, kc, vc, s.S_buf, sub_pos >= 0 ? nullptr : ci, sub_pos);
+      t.q, kv, s.S_buf, sub_pos >= 0 ? nullptr : ci, sub_pos);
   LAUNCH_CHECK();
-  k_attn<<<s.B * s.kvh, ATT_CHUNK, 0, st>>>(t.q, kc, vc, s.S_buf, s.S_att, s.heads,
-                                            s.kvh, s.D, s.scale, ci, valid, ld_valid,
-                                            s.window, sub_pos, t.o);
+  if (kv.ks)
+    k_attn<int8_t><<<s.B * s.kvh, ATT_CHUNK, 0, st>>>(
+        t.q, (const int8_t*)kv.kc, (const int8_t*)kv.vc, kv.ks, kv.vs, kv.knew, kv.vnew,
+        s.S_buf, s.S_att, s.heads, s.kvh, s.D, s.scale, ci, valid, ld_valid, s.window,
+        sub_pos, t.o);
+  else
+    k_attn<bf16><<<s.B * s.kvh, ATT_CHUNK, 0, st>>>(
+        t.q, (const bf16*)kv.kc, (const bf16*)kv.vc, nullptr, nullptr, nullptr, nullptr,
+        s.S_buf, s.S_att, s.heads, s.kvh, s.D, s.scale, ci, valid, ld_valid, s.window,
+        sub_pos, t.o);
   LAUNCH_CHECK();
   if ((e = row_norm_launch(t.o, nq, nullptr, 0.f, nq, s.B, t.xq, nq, t.xs, nullptr,
                            nullptr, 0, st)))

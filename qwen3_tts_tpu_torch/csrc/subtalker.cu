@@ -198,9 +198,11 @@ extern "C" int qt_subtalker_frame(const SubtalkerArgs* a, void* stream) {
     LAUNCH_CHECK();
     for (int li = 0; li < a->L; ++li) {
       const LayerWeights w = layer_slice(a->w, li, a->Hc, a->heads, a->kvh, a->D, a->inter);
+      const KVPtrs kv{a->kc + li * layer_kv, a->vc + li * layer_kv, nullptr, nullptr,
+                      nullptr, nullptr};
       const int e = run_layer(s, w, a->x, a->cosr + (size_t)i * a->D,
-                              a->sinr + (size_t)i * a->D, 0, a->kc + li * layer_kv,
-                              a->vc + li * layer_kv, nullptr, nullptr, 0, i, a->t, st);
+                              a->sinr + (size_t)i * a->D, 0, kv, nullptr, nullptr, 0, i,
+                              a->t, st);
       if (e) return e;
     }
     if (i == 0) continue;  // the prefill position only fills the cache

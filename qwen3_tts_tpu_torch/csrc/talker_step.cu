@@ -1,4 +1,4 @@
-// One 28-layer talker decode step, W8A8, over a bf16 KV cache.
+// One 28-layer talker decode step, W8A8, over a bf16 or an int8 KV cache.
 //
 // Replaces the TPU kernel qwen3_tts_tpu/ops/pallas/talker_step.py
 // `talker_step_fused_cache` (kernel body `_kernel`); its plain twin is
@@ -22,6 +22,21 @@
 // launch gaps dominate. A persistent kernel or a CUDA graph over the step,
 // and wgmma/TMA weight streaming, are the next steps.
 //
+// int8-KV mode (the JAX kernel's quant_kv): the cache holds int8 K/V with
+// f32 per-(slot, head) scales. At B=2 over a ~2400-slot window one step
+// reads the same 1.41 GB of weights plus B * 28 * 2 * 8 * S * 128 bytes of
+// int8 K/V (~275 MB; 550 MB in bf16) and 8 bytes of scales per (slot, head),
+// so the mode is bounded by bytes as the bf16 one is, with half the KV term.
+// This first design keeps k_attn's structure and only halves its KV loads:
+// a K row is 8 16-byte vectors instead of 16, its scale multiplies the
+// finished dot product, the V scale folds into the bf16 softmax weight
+// (bf16(e * v_scale)) before the P.V sum over int8 V. It adds no split of
+// the window across blocks (16 blocks at B=2 still walk all of it), so the
+// halved bytes buy little while the loop is latency-bound. The fresh slot
+// attends in bf16 from a (B, kvh, D) scratch that k_qk_rope fills; the same
+// kernel stores the slot's int8 quantization and scale early, which is safe
+// because k_attn masks slot ci out of the chunk pass.
+//
 // The chunked MLP keeps the reference's math: the down projection is C
 // separate W8A8 products over inter/C columns, each with its own per-row
 // activation scale, added into the bf16 residual in order (k_w8a8 nseg = C).
@@ -37,8 +52,7 @@ struct TalkerStepArgs {
   const uint8_t* valid;    // (B, ld_valid) bool
   LayerWeights w;          // stacked (L, ...) tensors
   const float* fnw;        // (H,) final norm
-  bf16* kc;                // (L, B, kvh, S_buf, D)
-  bf16* vc;
+  KVPtrs kv;               // (L, B, kvh, S_buf, D) bf16, or int8 + (L, B, kvh, S_buf) scales
   LayerScratch t;
   bf16* x;                 // (B, H) residual scratch
   bf16* h;                 // (B, H) out: final-normed hidden
@@ -55,14 +69,35 @@ extern "C" int qt_talker_step(const TalkerStepArgs* a, void* stream) {
   LAUNCH_CHECK();
   LayerShape s{a->B, a->H, a->heads, a->kvh, a->D, a->inter, a->nseg,
                a->S_buf, a->S_att, a->window, a->eps, a->scale};
-  const size_t layer_kv = (size_t)a->B * a->kvh * a->S_buf * a->D;
+  const size_t layer_slots = (size_t)a->B * a->kvh * a->S_buf;
   for (int li = 0; li < a->L; ++li) {
     const LayerWeights w = layer_slice(a->w, li, a->H, a->heads, a->kvh, a->D, a->inter);
-    const int e = run_layer(s, w, a->x, a->cosr, a->sinr, a->D, a->kc + li * layer_kv,
-                            a->vc + li * layer_kv, a->ci, a->valid, a->ld_valid,
-                            -1, a->t, st);
+    const int e = run_layer(s, w, a->x, a->cosr, a->sinr, a->D,
+                            kv_layer(a->kv, li, layer_slots, a->D), a->ci, a->valid,
+                            a->ld_valid, -1, a->t, st);
     if (e) return e;
   }
   return row_norm_launch(a->x, a->H, a->fnw, a->eps, a->H, a->B, nullptr, 0, nullptr,
                          nullptr, a->h, a->H, st);
+}
+
+// The int8-KV store of k_qk_rope (store_kv) on R given bf16 rows of D <= 128:
+// q (R, D) int8, s (R,) f32, fresh (R, D) the bf16 rows as the attention
+// would read them. No decode path calls it; it lets a test hold the device
+// quantizer to `kv_quantize` bit for bit on chosen values (rounding ties).
+static __global__ void k_kv_store_rows(const bf16* __restrict__ x, int D, int8_t* q,
+                                       float* s, bf16* fresh) {
+  __shared__ float red[32];
+  const int r = blockIdx.x, d = threadIdx.x;
+  const bool active = d < D;
+  store_kv(q, s, fresh, r, 1, 0, D, d, active ? bf(x[(size_t)r * D + d]) : 0.f, active,
+           red);
+}
+
+extern "C" int qt_kv_store_rows(const bf16* x, int R, int D, int8_t* q, float* s,
+                                bf16* fresh, void* stream) {
+  if (D > 128) return (int)cudaErrorInvalidValue;
+  k_kv_store_rows<<<R, 128, 0, (cudaStream_t)stream>>>(x, D, q, s, fresh);
+  LAUNCH_CHECK();
+  return 0;
 }

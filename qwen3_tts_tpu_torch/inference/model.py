@@ -6,14 +6,16 @@
     wavs, sr = model.generate_voice_design(text=..., instruct=...)
     items    = model.create_voice_clone_prompt(ref_audio=..., ref_text=...)
     wavs, sr = model.generate_voice_clone(text=..., voice_clone_prompt=items)
+    for wav, sr in model.stream_custom_voice(text=..., speaker=...): ...
 
 Everything runs on the model's device, the card unless the caller asks for
 the CPU. Prompts assemble per request (runtime/prompts.py), the frame loop
 runs in runtime/generate.py, and the vocoder decodes chunked
-(inference/tokenizer.py). int8 loads default onto the fused sub-talker and,
-on a CUDA device, onto the fused talker step; prompts of 2048 tokens or
-more prefill through the flash prefill kernel. Streaming comes with a later
-slice.
+(inference/tokenizer.py); `stream_*` interleave talker chunks with vocoder
+chunks (runtime/streaming.py). int8 loads default onto the fused
+sub-talker and, on a CUDA device, onto the fused talker step; prompts of
+2048 tokens or more prefill through the flash prefill kernel. `kv_quant=True`
+stores the talker KV cache in int8.
 """
 
 from __future__ import annotations
@@ -275,8 +277,6 @@ class Qwen3TTSModel:
         if fused_step and not int8:
             raise ValueError("fused_talker_step=True requires int8 weights; load "
                              "with from_pretrained(..., quantize='int8')")
-        if kw.get("kv_quant"):
-            raise NotImplementedError("kv_quant (int8 KV cache) is not ported yet")
         return GenerationConfig(
             max_new_tokens=int(kw["max_new_tokens"]),
             min_new_tokens=int(kw.get("min_new_tokens", 2)),
@@ -290,6 +290,7 @@ class Qwen3TTSModel:
                 temperature=float(kw["subtalker_temperature"]),
                 repetition_penalty=1.0),
             fused_subtalker=fused,
+            kv_quant=bool(kw.get("kv_quant", False)),
             fused_talker_step=fused_step)
 
     def _run(self, specs: List[PromptSpec], gen_cfg: GenerationConfig,
@@ -310,6 +311,44 @@ class Qwen3TTSModel:
         codes = out.codes.cpu().numpy()
         lens = out.lengths.cpu().numpy()
         return [codes[b, :lens[b]] for b in range(len(specs))]
+
+    def _stream_run(self, specs: List[PromptSpec], gen_cfg: GenerationConfig,
+                    seed: Optional[int] = None, context_codes=None, context_lens=None):
+        """Streaming counterpart of _run: yields (wav_chunk (B, samples), sr)
+        packets as the session produces them. Each row's samples past its
+        EOS are silenced, and trailing columns no row still uses are
+        dropped (their frames are zero-masked codes, but the vocoder still
+        makes audio of them)."""
+        from ..runtime.streaming import StreamingSession
+
+        tok = self.speech_tokenizer
+        if tok is None or tok.dec_params is None:
+            raise RuntimeError("streaming requires a loaded 12Hz speech tokenizer (vocoder)")
+        tc = self.config.talker_config
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(int(np.random.randint(0, 2**31)) if seed is None
+                              else int(seed))
+        sr = tok.get_output_sample_rate()
+        up = tok.config.decoder_config.total_upsample
+        with torch.no_grad():
+            embeds, mask, trailing, pad = assemble_prompt_specs(
+                self.talker_params, tc, self.config, specs, bucket=32)
+            session = StreamingSession(self.talker_params, tc, gen_cfg, tok.dec_params,
+                                       tok.config.decoder_config)
+            for pkt in session.run(embeds, mask, trailing, pad, generator,
+                                   context_codes=context_codes,
+                                   context_lens=context_lens):
+                wav = pkt.wav
+                n_active = pkt.active_frames.astype(np.int64)
+                max_active = int(n_active.max())
+                if max_active < pkt.frame_count:
+                    wav = wav[:, :max_active * up]
+                if (n_active < max_active).any():
+                    cols = np.arange(wav.shape[1])[None, :]
+                    wav = np.where(cols < n_active[:, None] * up, wav, 0.0)
+                if wav.shape[1] == 0:
+                    continue
+                yield wav.astype(np.float32), sr
 
     # -- custom voice ---------------------------------------------------------
 
@@ -352,6 +391,15 @@ class Qwen3TTSModel:
         codes = self._run(specs, self._generation_config(kw), seed=seed)
         return self.speech_tokenizer.decode([{"audio_codes": c} for c in codes])
 
+    def stream_custom_voice(self, text, speaker, language=None, instruct=None,
+                            seed: Optional[int] = None, **kwargs):
+        """Streaming custom voice: yields (wav_chunk (B, samples), sr)
+        packets, the first after one frame."""
+        specs = self._specs_custom_voice(text, speaker, language, instruct,
+                                         non_streaming=False)
+        kw = self._merge_generate_kwargs(**kwargs)
+        return self._stream_run(specs, self._generation_config(kw), seed=seed)
+
     # -- voice design -------------------------------------------------------
 
     def _specs_voice_design(self, text, instruct, language,
@@ -380,6 +428,13 @@ class Qwen3TTSModel:
         kw = self._merge_generate_kwargs(**kwargs)
         codes = self._run(specs, self._generation_config(kw), seed=seed)
         return self.speech_tokenizer.decode([{"audio_codes": c} for c in codes])
+
+    def stream_voice_design(self, text, instruct, language=None,
+                            seed: Optional[int] = None, **kwargs):
+        """Streaming voice design: yields (wav_chunk, sr) packets."""
+        specs = self._specs_voice_design(text, instruct, language, False)
+        kw = self._merge_generate_kwargs(**kwargs)
+        return self._stream_run(specs, self._generation_config(kw), seed=seed)
 
     # -- voice clone ----------------------------------------------------------
 
@@ -494,3 +549,30 @@ class Qwen3TTSModel:
             rl = 0 if it.ref_code is None else len(it.ref_code)
             out.append(wav[int(rl / max(len(c), 1) * wav.shape[0]):] if rl else wav)
         return out, fs
+
+    def stream_voice_clone(self, text, language=None, ref_audio=None, ref_text=None,
+                           x_vector_only_mode=False, voice_clone_prompt=None,
+                           seed: Optional[int] = None, **kwargs):
+        """Streaming voice clone: yields (wav_chunk, sr) packets of the
+        generated audio only. Each row's last reference frames, right-aligned
+        into (B, Q, T0) with per-row lengths, are its vocoder left context, so
+        a batch mixing ICL and x-vector-only rows keeps each row's own."""
+        from ..runtime.streaming import StreamingConfig
+
+        specs, items = self._specs_voice_clone(text, language, ref_audio, ref_text,
+                                               x_vector_only_mode, voice_clone_prompt,
+                                               False)
+        cap = StreamingConfig().vocoder_left_context
+        lens = [min(cap, 0 if it.ref_code is None else len(it.ref_code)) for it in items]
+        context = context_lens = None
+        t0 = max(lens, default=0)
+        if t0 > 0:
+            context = np.zeros((len(items), self.config.talker_config.num_code_groups, t0),
+                               np.int64)
+            for i, (it, n) in enumerate(zip(items, lens)):
+                if n:
+                    context[i, :, t0 - n:] = np.asarray(it.ref_code)[-n:].T
+            context_lens = np.asarray(lens, np.int64)
+        kw = self._merge_generate_kwargs(**kwargs)
+        return self._stream_run(specs, self._generation_config(kw), seed=seed,
+                                context_codes=context, context_lens=context_lens)

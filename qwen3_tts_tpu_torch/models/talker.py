@@ -9,7 +9,9 @@ converts leaf by leaf), and a Python loop walks them. The KV cache has one
 layout everywhere, (L, B, Hkv, S, D): the fused talker step wants it, and
 keeping prefill and the plain decode step on the same layout saves the
 transposes the JAX package does at each change of path. The cache is
-updated in place.
+updated in place. An int8 cache (`KVCache.zeros(..., quantized=True)`)
+stores per-(slot, head) symmetric int8 with fp32 scale planes
+(L, B, Hkv, S), quantized on the way in (`kv_quantize`).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import CodePredictorConfig, TalkerConfig
-from ..ops.attention import attention, mask_to_bias
+from ..ops.attention import attention, attention_kv_quant, mask_to_bias
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, default_inv_freq, rope_tables
 from ..ops.sampling import process_and_sample, process_and_sample_rows
@@ -60,17 +62,48 @@ class StackDims:
 
 @dataclass
 class KVCache:
-    """Preallocated bf16 (or compute-dtype) KV buffers, (L, B, Hkv, S, D)."""
+    """Preallocated KV buffers, (L, B, Hkv, S, D): compute dtype, or int8
+    with fp32 per-(slot, head) scales (L, B, Hkv, S) when quantized."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @classmethod
     def zeros(cls, n_layers: int, batch: int, max_len: int, kv_heads: int,
-              head_dim: int, dtype=torch.bfloat16, device="cpu") -> "KVCache":
+              head_dim: int, dtype=torch.bfloat16, device="cpu",
+              quantized: bool = False) -> "KVCache":
         shape = (n_layers, batch, kv_heads, max_len, head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+        if not quantized:
+            return cls(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+        return cls(*(torch.zeros(shape, dtype=torch.int8, device=device)
+                     for _ in range(2)),
+                   *(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                     for _ in range(2)))
+
+
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last (head_dim) axis: x (..., D) -> (int8
+    (..., D), fp32 scale (...,)) with x ~= q * scale. Bit-equal to the JAX
+    package: scale = max(amax, 1e-8) / 127, a true division, round half to
+    even."""
+    xf = x.to(torch.float32)
+    amax = torch.clamp(xf.abs().amax(dim=-1), min=1e-8)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # multiply by its reciprocal, which is one ulp off on ~4% of scales
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return q.to(dtype) * scale[..., None].to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -144,21 +177,50 @@ def layer_slice(stacked: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _write_kv(cache: KVCache, li: int, offset, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """Write (B, T, Hkv, D) fresh K/V into layer li at slots [offset,
+    offset + T), or (T = 1) at per-row slots offset (B,); int8 caches get
+    the quantized values and their scales."""
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)          # (B, Hkv, T, D)
+    if cache.quantized:
+        (kt, ks), (vt, vs) = kv_quantize(kt), kv_quantize(vt)
+    if torch.is_tensor(offset):
+        rows = torch.arange(k.shape[0], device=k.device)
+        idx = offset.long()
+        cache.k[li, rows, :, idx] = kt[:, :, 0].to(cache.k.dtype)
+        cache.v[li, rows, :, idx] = vt[:, :, 0].to(cache.v.dtype)
+        if cache.quantized:
+            cache.k_scale[li, rows, :, idx] = ks[:, :, 0]
+            cache.v_scale[li, rows, :, idx] = vs[:, :, 0]
+        return
+    T = k.shape[1]
+    cache.k[li, :, :, offset:offset + T] = kt.to(cache.k.dtype)
+    cache.v[li, :, :, offset:offset + T] = vt.to(cache.v.dtype)
+    if cache.quantized:
+        cache.k_scale[li, :, :, offset:offset + T] = ks
+        cache.v_scale[li, :, :, offset:offset + T] = vs
+
+
 def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
                   h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                  mask_bias: torch.Tensor, cache: KVCache, offset: int,
+                  mask_bias: torch.Tensor, cache: KVCache, offset,
                   attend_len: Optional[int] = None,
                   prefill_start: Optional[torch.Tensor] = None,
                   prefill_window: Optional[int] = None) -> torch.Tensor:
     """Run all layers. h: (B, T, hidden); mask_bias: (B, 1, T, S') additive
     with S' = attend_len or the cache length. Writes the new K/V at
-    [offset, offset + T) of `cache` in place and attends over its first S'
-    slots. Returns the final-normed hidden (B, T, hidden).
+    [offset, offset + T) of `cache` in place (an int offset), or for T = 1
+    at per-row slots (a (B,) tensor offset: the serving engine, whose rows
+    sit at different depths), and attends over its first S' slots; an int8
+    cache is attended through `attention_kv_quant`, the slots just written
+    included. Returns the final-normed hidden (B, T, hidden).
 
     With `prefill_start` ((B,) first valid slot per row of a left-padded
     prefill) and T >= FLASH_PREFILL_MIN_T, attention runs `flash_prefill`
-    on this call's fresh K/V instead (the cache's slots [0, T); later slots
-    are masked on the dense path anyway), and `mask_bias` is not read."""
+    on this call's fresh, unquantized K/V instead (the cache's slots
+    [0, T); later slots are masked on the dense path anyway; an int8 cache
+    still receives the quantized values), and `mask_bias` is not read."""
     B, T, _ = h.shape
     nq = dims.heads * dims.head_dim
     nkv = dims.kv_heads * dims.head_dim
@@ -177,10 +239,15 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
         q = rms_norm(q, attn["q_norm"]["weight"], dims.eps)
         k = rms_norm(k, attn["k_norm"]["weight"], dims.eps)
         q, k = apply_rope(q, k, cos, sin)
-        cache.k[li, :, :, offset:offset + T] = k.transpose(1, 2).to(cache.k.dtype)
-        cache.v[li, :, :, offset:offset + T] = v.transpose(1, 2).to(cache.v.dtype)
+        _write_kv(cache, li, offset, k, v)
         if use_flash:
             o = flash_prefill(q, k, v, prefill_start, sliding_window=prefill_window)
+        elif cache.quantized:
+            o = attention_kv_quant(
+                q, cache.k[li, :, :, :S_att].transpose(1, 2),
+                cache.k_scale[li, :, :, :S_att].transpose(1, 2),
+                cache.v[li, :, :, :S_att].transpose(1, 2),
+                cache.v_scale[li, :, :, :S_att].transpose(1, 2), mask_bias)
         else:
             k_att = cache.k[li, :, :, :S_att].transpose(1, 2).to(x.dtype)
             v_att = cache.v[li, :, :, :S_att].transpose(1, 2).to(x.dtype)

@@ -95,6 +95,11 @@ class LayerScratch(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in ("xq", "xs", "qkv", "q", "o", "gu")]
 
 
+class KVPtrs(ctypes.Structure):
+    """Mirror of `KVPtrs` in csrc/common.cuh (ks NULL: a bf16 cache)."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("kc", "vc", "ks", "vs", "knew", "vnew")]
+
+
 class TalkerStepArgs(ctypes.Structure):
     """Mirror of `TalkerStepArgs` in csrc/talker_step.cu."""
     _fields_ = ([(n, ctypes.c_int) for n in (
@@ -102,8 +107,7 @@ class TalkerStepArgs(ctypes.Structure):
         "window", "ld_valid")]
         + [("eps", ctypes.c_float), ("scale", ctypes.c_float)]
         + [(n, ctypes.c_void_p) for n in ("embed", "cosr", "sinr", "ci", "valid")]
-        + [("w", LayerWeights), ("fnw", ctypes.c_void_p),
-           ("kc", ctypes.c_void_p), ("vc", ctypes.c_void_p),
+        + [("w", LayerWeights), ("fnw", ctypes.c_void_p), ("kv", KVPtrs),
            ("t", LayerScratch), ("x", ctypes.c_void_p), ("h", ctypes.c_void_p)])
 
 
@@ -139,6 +143,10 @@ def load_library() -> ctypes.CDLL:
     lib.qt_flash_prefill.restype = ctypes.c_int
     lib.qt_talker_step.argtypes = [ctypes.POINTER(TalkerStepArgs), ctypes.c_void_p]
     lib.qt_talker_step.restype = ctypes.c_int
+    lib.qt_kv_store_rows.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p]
+    lib.qt_kv_store_rows.restype = ctypes.c_int
     lib.qt_subtalker_frame.argtypes = [ctypes.POINTER(SubtalkerArgs), ctypes.c_void_p]
     lib.qt_subtalker_frame.restype = ctypes.c_int
     lib.qt_error_string.argtypes = [ctypes.c_int]

@@ -5,6 +5,7 @@
   frame_step:        sub-talker -> frame embedding sum -> dual-track text
                      merge -> talker step -> sample the next code0
   generate_frames:   a Python loop over frame_step (the JAX while_loop)
+  decode_chunk:      K frames of frame_step (the streaming granule)
   generate_frames_chunked: the same loop, attending a length bucket of the
                      KV buffer per chunk of frames
 
@@ -47,9 +48,12 @@ class GenerationConfig:
     # route the 15-step sub-talker through the fused W8A8 kernel
     # (ops/cuda/subtalker.py; int8 params only)
     fused_subtalker: bool = False
+    # store the talker KV cache as per-(slot, head) symmetric int8 with f32
+    # scales (half the bytes the decode attention reads)
+    kv_quant: bool = False
     # route the talker decode step through the fused W8A8 kernel
-    # (ops/cuda/talker_step.py; int8 params, bf16 KV cache whose length is
-    # rounded up to a multiple of 128 slots)
+    # (ops/cuda/talker_step.py; int8 params; a bf16 or, with kv_quant, an
+    # int8 KV cache, its length rounded up to a multiple of 128 slots)
     fused_talker_step: bool = False
 
     def sampling_rows(self):
@@ -111,6 +115,12 @@ def kv_capacity(gen_cfg: GenerationConfig, T: int) -> int:
     return S
 
 
+def attend_bucket_for(needed: int, S: int, bucket: int = ATTEND_BUCKET) -> int:
+    """The attended KV window: `needed` slots rounded up to the bucket, at
+    most the buffer S."""
+    return min(S, -(-needed // bucket) * bucket)
+
+
 def init_decode_state(params: Params, cfg: TalkerConfig,
                       gen_cfg: GenerationConfig, inputs_embeds: torch.Tensor,
                       attn_mask: torch.Tensor, trailing_text: torch.Tensor,
@@ -122,7 +132,8 @@ def init_decode_state(params: Params, cfg: TalkerConfig,
     dims = StackDims.from_talker(cfg)
     dev, dtype = inputs_embeds.device, inputs_embeds.dtype
     cache = KVCache.zeros(cfg.num_hidden_layers, B, max_len, dims.kv_heads,
-                          dims.head_dim, dtype=dtype, device=dev)
+                          dims.head_dim, dtype=dtype, device=dev,
+                          quantized=gen_cfg.kv_quant)
     logits, hidden_seq, cache = talker_prefill(params, cfg, inputs_embeds,
                                                attn_mask, cache)
     samp_row, sub_row = gen_cfg.sampling_rows()
@@ -183,9 +194,10 @@ def frame_step(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
     kv_valid = const.valid_prefill | ((slot >= const.prefill_len) & (slot <= cache_index))
     position = const.seq_lens + state.t
     if gen_cfg.fused_talker_step:
-        logits, last_hidden, _, _ = talker_step_fused_cache(
-            params, cfg, embed, position, cache_index, kv_valid,
-            state.cache.k, state.cache.v, attend_len=attend_len)
+        cache = state.cache
+        logits, last_hidden = talker_step_fused_cache(
+            params, cfg, embed, position, cache_index, kv_valid, cache.k, cache.v,
+            attend_len=attend_len, k_scale=cache.k_scale, v_scale=cache.v_scale)[:2]
     else:
         logits, last_hidden, _ = talker_decode_step(
             params, cfg, embed, position, cache_index, kv_valid, state.cache,
@@ -199,6 +211,21 @@ def frame_step(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
     state.lengths = state.lengths + active.to(torch.int32)
     state.t += 1
     return state, frame, active
+
+
+def decode_chunk(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
+                 const: DecodeConst, state: DecodeState, num_frames: int,
+                 generator: torch.Generator, attend_len: Optional[int] = None):
+    """`num_frames` frame steps (the streaming granule), attending the first
+    `attend_len` KV slots. Returns (state, frames (B, K, Q), active (B, K));
+    steps past a row's EOS give inactive frames."""
+    frames, actives = [], []
+    for _ in range(num_frames):
+        state, frame, active = frame_step(params, cfg, gen_cfg, const, state,
+                                          generator, attend_len=attend_len)
+        frames.append(frame)
+        actives.append(active)
+    return state, torch.stack(frames, dim=1), torch.stack(actives, dim=1)
 
 
 def _finish(frames, actives, max_frames: int) -> GenerationResult:
@@ -258,13 +285,11 @@ def generate_frames_chunked(params: Params, cfg: TalkerConfig,
     emitted = 0
     while emitted < max_frames:
         k = min(chunk, max_frames - emitted)
-        needed = T + emitted + k + 1
-        attend = min(S, -(-needed // attend_bucket) * attend_bucket)
-        for _ in range(k):
-            state, frame, active = frame_step(params, cfg, gen_cfg, const, state,
-                                              generator, attend_len=attend)
-            frames.append(frame)
-            actives.append(active)
+        attend = attend_bucket_for(T + emitted + k + 1, S, attend_bucket)
+        state, fr, act = decode_chunk(params, cfg, gen_cfg, const, state, k,
+                                      generator, attend_len=attend)
+        frames.extend(fr.unbind(1))
+        actives.extend(act.unbind(1))
         emitted += k
         if bool(state.done.all()):
             break

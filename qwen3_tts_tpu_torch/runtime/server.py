@@ -1,0 +1,539 @@
+"""Text-in, audio-out serving over the continuous-batching engine
+(counterpart of `qwen3_tts_tpu/runtime/server.py`):
+
+  text request -> build_prompt -> engine (staged prefill, slot decode)
+       -> frame_sink -> per-request code history -> batched chunk vocoder
+       -> AudioPacket stream / AudioResult
+
+- Packet egress: every due streaming request becomes a row of one vocoder
+  call, (rows, Q, left_context + frames); a row's context c = min(25,
+  frames already decoded) leads, its new frames follow, the tail is zero
+  (the vocoder is causal). Rows bucket to a power of two (<= num_slots) and
+  new frames to {4, packet_frames}.
+- Packets are cut every `packet_frames` frames, with an early first packet
+  per request; completions flush the rest. While a stream awaits its first
+  packet, engine chunks are capped at `first_packet_ticks` ticks, the step
+  runs in latency order, other streams' bulk egress is deferred, and first
+  packets vocode straight from the in-flight chunk's aux on the device.
+- Voice-clone requests carry their reference codes as their own vocoder
+  left context; non-streaming clones decode with the reference codes
+  prepended and the same share of samples cut off the front.
+
+`ThreadedTTSServer` (the thread-safe wrapper for HTTP handlers) comes with
+a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.codec12.decoder import decode_frames, to_pcm16
+from .batching import ContinuousBatchingEngine, Request
+from .generate import GenerationConfig
+
+
+@dataclass
+class AudioPacket:
+    """One streamed audio chunk of one request."""
+
+    request_id: Any
+    wav: np.ndarray        # (samples,) float32, or int16
+    sample_rate: int
+    frame_start: int       # first generated-frame index covered
+    frame_count: int
+    final: bool            # True on the request's last packet
+
+
+@dataclass
+class AudioResult:
+    """The whole synthesis of a non-streaming request."""
+
+    request_id: Any
+    wav: np.ndarray        # (samples,) float32, or int16
+    sample_rate: int
+
+
+@dataclass
+class _ReqState:
+    request_id: Any
+    stream: bool
+    # code history ((Q,) frames): ctx0 reference frames, then generated ones
+    history: List[np.ndarray] = field(default_factory=list)
+    ctx0: int = 0
+    emitted: int = 0          # generated frames already sent as packets
+    ref_code: Optional[np.ndarray] = None   # all reference codes (clone decode)
+    done: bool = False
+    first_sent: bool = False
+
+
+def _bucket_request(prompt: torch.Tensor, trailing: torch.Tensor, bucket: int = 16):
+    """Left-pad a (1, T, H) prompt and right-pad a (1, Tt, H) trailing text to
+    length buckets, with the prompt's attention mask (the engine masks the
+    padding and takes rope positions from the mask)."""
+    T, Tt = prompt.shape[1], trailing.shape[1]
+    L = -(-T // bucket) * bucket
+    Tb = -(-Tt // bucket) * bucket
+    mask = torch.zeros((1, L), dtype=torch.int32, device=prompt.device)
+    mask[0, L - T:] = 1
+    return (F.pad(prompt, (0, 0, L - T, 0)), mask, F.pad(trailing, (0, 0, 0, Tb - Tt)))
+
+
+def _first_packet_extract(aux: torch.Tensor, rids: torch.Tensor, B: int, ticks: int,
+                          Q: int, F_: int, T: int):
+    """Each waiting request's first frames out of a chunk aux that is still
+    on the device (serve_chunk's packed layout). A request holds one slot for
+    the whole chunk and emits contiguous ticks, so its frames are
+    frames[slot, t0:t0 + count]. Returns (codes (N, Q, T), rows laid out as
+    a context-free first packet, and counts (N,) clamped to F_; 0: nothing
+    for that request in this chunk)."""
+    n_bt = B * ticks
+    frames = aux[:n_bt * Q].reshape(B, ticks, Q)
+    emit = aux[n_bt * Q:n_bt * Q + n_bt].reshape(B, ticks) != 0
+    req_id = aux[n_bt * Q + n_bt:n_bt * Q + 2 * n_bt].reshape(B, ticks)
+    m = (req_id[None] == rids[:, None, None]) & emit[None]      # (N, B, ticks)
+    slot = m.any(-1).to(torch.int32).argmax(dim=1)             # (N,)
+    mt = m[torch.arange(len(rids), device=aux.device), slot]   # (N, ticks)
+    t0 = mt.to(torch.int32).argmax(dim=1)
+    count = torch.clamp(mt.sum(dim=1), max=F_).to(torch.int32)
+    idx = torch.clamp(t0[:, None] + torch.arange(F_, device=aux.device), max=ticks - 1)
+    sel = torch.gather(frames[slot], 1, idx[:, :, None].expand(-1, -1, Q))   # (N, F_, Q)
+    sel = torch.where(torch.arange(F_, device=aux.device)[None, :, None]
+                      < count[:, None, None], sel, 0)
+    codes = torch.zeros((len(rids), Q, T), dtype=torch.int32, device=aux.device)
+    codes[:, :, :F_] = sel.transpose(1, 2)
+    return codes, count
+
+
+def _vocode_rows_compact(dec_params, cfg, codes: torch.Tensor, ctx: torch.Tensor,
+                         F_: int, pcm16: bool = False) -> torch.Tensor:
+    """codes (N, Q, C + F_); ctx (N,) context frames per row. Vocode the
+    batch, then gather each row's emitted span [c*up, (c + F_)*up) on the
+    device, so only (N, F_*up) samples cross to the host."""
+    wav = decode_frames(dec_params, cfg, torch.clamp(codes.long(), min=0))[:, 0, :]
+    up = wav.shape[-1] // codes.shape[-1]
+    idx = ctx.long()[:, None] * up + torch.arange(F_ * up, device=wav.device)
+    out = torch.gather(wav, 1, idx)
+    return to_pcm16(out) if pcm16 else out
+
+
+class TTSServer:
+    """Single-threaded text-level server: submit_* then step() /
+    run_until_drained(). Built from a loaded `Qwen3TTSModel` whose speech
+    tokenizer carries the 12 Hz vocoder; runs on the model's device."""
+
+    def __init__(self, model, num_slots: int = 16, max_new_tokens: Optional[int] = None,
+                 prefill_bucket: int = 128, max_trailing: int = 512,
+                 packet_frames: int = 25, left_context: int = 25,
+                 ticks_per_sync: int = 8, first_packet_ticks: int = 4, seed: int = 0,
+                 overrides: Optional[Dict[str, Any]] = None, metrics=None,
+                 output_dtype: str = "float32", vocoder_device=None,
+                 fast_first_packet: bool = True, defer_bulk_egress: bool = True,
+                 code_sink=None, **engine_kwargs):
+        tok = model.speech_tokenizer
+        if tok is None or tok.dec_params is None:
+            raise RuntimeError("TTSServer requires a loaded 12Hz speech tokenizer (vocoder)")
+        if vocoder_device is not None:
+            raise NotImplementedError("a dedicated vocoder device needs a second card; "
+                                      "the port serves from one")
+        self.model = model
+        kw = model._merge_generate_kwargs(**(overrides or {}))
+        if max_new_tokens is not None:
+            kw["max_new_tokens"] = max_new_tokens
+        # The server's serve step defaults to the plain route unless
+        # `overrides` names fused_talker_step, whatever the model's own
+        # default: the JAX package chose that for first-packet latency on
+        # its TPU (part of the API; whether it holds on the H100 is open).
+        if "fused_talker_step" not in (overrides or {}):
+            kw["fused_talker_step"] = False
+        self.gen_cfg: GenerationConfig = model._generation_config(kw)
+        self.dec_params = tok.dec_params
+        self.dec_cfg = tok.config.decoder_config
+        self.sample_rate = tok.get_output_sample_rate()
+        self.up = int(self.dec_cfg.total_upsample)
+        self.packet_frames = int(packet_frames)
+        self.left_context = int(left_context)
+        # while a stream awaits its first packet, engine chunks are capped at
+        # this many ticks (0: pure-throughput serving)
+        self.first_packet_ticks = int(first_packet_ticks)
+        # first packets vocode from the in-flight chunk's on-device aux
+        self.fast_first_packet = bool(fast_first_packet)
+        # while a first packet is pending, steady streams' packets wait
+        # (unless their backlog passes 3 * packet_frames)
+        self.defer_bulk_egress = bool(defer_bulk_egress)
+        self._defer_now = False
+        self.num_slots = num_slots
+        if output_dtype not in ("float32", "int16"):
+            raise ValueError(f"unsupported output_dtype {output_dtype!r}")
+        self.output_dtype = output_dtype
+        max_len = prefill_bucket + self.gen_cfg.max_new_tokens + 8
+        self.engine = ContinuousBatchingEngine(
+            model.talker_params, model.config.talker_config, self.gen_cfg,
+            num_slots=num_slots, max_len=max_len, max_trailing=max_trailing,
+            dtype=model.talker_params["codec_embedding"].dtype, seed=seed,
+            ticks_per_sync=ticks_per_sync, prefill_bucket=prefill_bucket,
+            metrics=metrics, **engine_kwargs)
+        self.engine.frame_sink = self._on_frames
+        # code_sink(request_id, frames (k, Q) int32): each request's newly
+        # generated codec frames, in order, as they reach the host
+        self.code_sink = code_sink
+        self.metrics = self.engine.metrics
+        self._states: Dict[int, _ReqState] = {}
+        self._by_user_id: Dict[Any, int] = {}
+        self._next_rid = 0
+        self._Q = model.config.talker_config.num_code_groups
+
+    # -- submission ------------------------------------------------------
+
+    @staticmethod
+    def _override(base, temperature=None, top_p=None, repetition_penalty=None,
+                  do_sample=None, top_k=None):
+        if all(v is None for v in (temperature, top_p, repetition_penalty, do_sample,
+                                   top_k)):
+            return None
+        return dataclasses.replace(
+            base,
+            temperature=base.temperature if temperature is None else float(temperature),
+            top_p=base.top_p if top_p is None else float(top_p),
+            repetition_penalty=(base.repetition_penalty if repetition_penalty is None
+                                else float(repetition_penalty)),
+            do_sample=base.do_sample if do_sample is None else bool(do_sample),
+            top_k=base.top_k if top_k is None else int(top_k))
+
+    def _sampling_overrides(self, **kw):
+        """Per-request sampling kwargs split into talker and sub-talker
+        (`subtalker_` prefix) overrides of the engine's defaults."""
+        sub_kw = {k[len("subtalker_"):]: v for k, v in kw.items()
+                  if k.startswith("subtalker_")}
+        talker_kw = {k: v for k, v in kw.items() if not k.startswith("subtalker_")}
+        return (self._override(self.gen_cfg.sampling, **talker_kw),
+                self._override(self.gen_cfg.subtalker, **sub_kw))
+
+    def _submit_specs(self, request_id, specs, stream: bool,
+                      ref_code: Optional[np.ndarray], max_frames: Optional[int],
+                      sampling=None, sub_sampling=None) -> None:
+        from .prompts import build_prompt
+
+        with self.metrics.time("server.submit_s"):
+            if request_id in self._by_user_id:
+                raise ValueError(f"request id {request_id!r} already in flight")
+            (spec,) = specs
+            with torch.no_grad():
+                prompt, trailing, pad = build_prompt(
+                    self.model.talker_params, self.model.config.talker_config,
+                    self.model.config, spec)
+            trailing_len = trailing.shape[1]
+            if trailing_len > self.engine.max_trailing:
+                # the engine would switch to tts_pad early and drop the tail
+                raise ValueError(
+                    f"text trailing length {trailing_len} exceeds the server's "
+                    f"max_trailing {self.engine.max_trailing}; raise max_trailing or "
+                    "split the text")
+            prompt, attn_mask, trailing = _bucket_request(prompt, trailing, bucket=16)
+            rid = self._next_rid
+            self._next_rid += 1
+            st = _ReqState(request_id=request_id, stream=stream, ref_code=ref_code)
+            if stream and ref_code is not None and len(ref_code):
+                st.history = list(np.asarray(ref_code[-self.left_context:], np.int32))
+                st.ctx0 = len(st.history)
+            mf = self.gen_cfg.max_new_tokens - 1
+            if max_frames is not None:
+                mf = min(mf, int(max_frames))
+            # the engine may reject the request: record server state after
+            self.engine.submit(Request(
+                request_id=rid, inputs_embeds=prompt, attn_mask=attn_mask,
+                trailing=trailing, trailing_len=trailing_len, tts_pad=pad,
+                max_frames=mf, sampling=sampling, sub_sampling=sub_sampling))
+            self._states[rid] = st
+            self._by_user_id[request_id] = rid
+            self.metrics.count("server.submits")
+
+    def submit_custom_voice(self, request_id, text: str, speaker: str,
+                            language: Optional[str] = None,
+                            instruct: Optional[str] = None, stream: bool = False,
+                            max_frames: Optional[int] = None, **sampling_kw) -> None:
+        with self.metrics.time("server.specs_s"):
+            specs = self.model._specs_custom_voice(text, speaker, language, instruct,
+                                                   non_streaming=False)
+        self._submit_specs(request_id, specs, stream, None, max_frames,
+                           *self._sampling_overrides(**sampling_kw))
+
+    def submit_voice_design(self, request_id, text: str, instruct: str,
+                            language: Optional[str] = None, stream: bool = False,
+                            max_frames: Optional[int] = None, **sampling_kw) -> None:
+        specs = self.model._specs_voice_design(text, instruct, language,
+                                               non_streaming=False)
+        self._submit_specs(request_id, specs, stream, None, max_frames,
+                           *self._sampling_overrides(**sampling_kw))
+
+    def submit_voice_clone(self, request_id, text: str, language: Optional[str] = None,
+                           ref_audio=None, ref_text: Optional[str] = None,
+                           x_vector_only_mode: bool = False, voice_clone_prompt=None,
+                           stream: bool = False, max_frames: Optional[int] = None,
+                           **sampling_kw) -> None:
+        specs, items = self.model._specs_voice_clone(
+            text, language, ref_audio, ref_text, x_vector_only_mode,
+            voice_clone_prompt, non_streaming=False)
+        ref_code = items[0].ref_code
+        self._submit_specs(request_id, specs, stream,
+                           None if ref_code is None else np.asarray(ref_code), max_frames,
+                           *self._sampling_overrides(**sampling_kw))
+
+    def abort_all(self) -> None:
+        """Drop every in-flight request, engine and server bookkeeping both
+        (after a failed step: `busy` would otherwise stay True)."""
+        for rid in list(self._states):
+            try:
+                self.engine.cancel(rid)
+            except Exception:
+                pass    # the engine may itself be broken; the state still clears
+        self._states.clear()
+        self._by_user_id.clear()
+
+    def cancel(self, request_id) -> bool:
+        """Cancel an in-flight request: it yields nothing further and its
+        slot or staging row frees at the next chunk. True if it was known."""
+        rid = self._by_user_id.pop(request_id, None)
+        if rid is None:
+            return False
+        self.engine.cancel(rid)
+        self._states.pop(rid, None)
+        self.metrics.count("server.cancels")
+        return True
+
+    # -- egress ----------------------------------------------------------
+
+    def _on_frames(self, rid: int, frames: np.ndarray) -> None:
+        st = self._states.get(rid)
+        if st is not None:
+            frames = frames.astype(np.int32)
+            st.history.extend(frames)
+            if self.code_sink is not None:
+                self.code_sink(st.request_id, frames)
+
+    def _pending(self, st: _ReqState) -> int:
+        return len(st.history) - st.ctx0 - st.emitted
+
+    def _due(self, st: _ReqState) -> bool:
+        if not st.stream:
+            return False
+        if self._defer_now and st.first_sent:
+            # first packets are pending: steady (and finished) streams wait
+            # unless their backlog outgrows the bound
+            return self._pending(st) >= 3 * self.packet_frames
+        if st.done:
+            return True     # the remainder (possibly an empty final packet)
+        p = self._pending(st)
+        if p <= 0:
+            return False
+        return not st.first_sent or p >= self.packet_frames
+
+    def _row_bucket(self, n: int) -> int:
+        return min(1 << max(0, n - 1).bit_length(), self.num_slots)
+
+    def _frame_bucket(self, kmax: int) -> int:
+        small = min(4, self.packet_frames)
+        return small if kmax <= small else self.packet_frames
+
+    def _to_host(self, wav: torch.Tensor) -> np.ndarray:
+        wav = wav.cpu().numpy()
+        return wav.astype(np.float32) if self.output_dtype == "float32" else wav
+
+    def _emit_packets(self) -> List[AudioPacket]:
+        """Vocode every due stream in one call per wave of rows."""
+        out: List[AudioPacket] = []
+        dev = self.dec_params["_codebooks"].device
+        while True:
+            due = [st for st in self._states.values() if self._due(st)]
+            if not due:
+                return out
+            due = due[:self._row_bucket(min(len(due), self.num_slots))]
+            N = self._row_bucket(len(due))
+            meta = []
+            for st in due:
+                c = min(self.left_context, st.ctx0 + st.emitted)
+                meta.append((st, c, min(self._pending(st), self.packet_frames)))
+            F_ = self._frame_bucket(max([1] + [k for _, _, k in meta]))
+            batch = np.zeros((N, self._Q, self.left_context + F_), np.int32)
+            ctx = np.zeros((N,), np.int32)
+            for i, (st, c, k) in enumerate(meta):
+                lo = st.ctx0 + st.emitted - c
+                if c + k > 0:
+                    batch[i, :, :c + k] = np.stack(st.history[lo:lo + c + k]).T
+                ctx[i] = c
+            with self.metrics.time("server.vocode_s"), torch.no_grad():
+                wav = self._to_host(_vocode_rows_compact(
+                    self.dec_params, self.dec_cfg, torch.as_tensor(batch, device=dev),
+                    torch.as_tensor(ctx, device=dev), F_,
+                    pcm16=self.output_dtype == "int16"))
+            now = None
+            for i, (st, c, k) in enumerate(meta):
+                final = st.done and self._pending(st) == k
+                out.append(AudioPacket(request_id=st.request_id, wav=wav[i, :k * self.up],
+                                       sample_rate=self.sample_rate,
+                                       frame_start=st.emitted, frame_count=k, final=final))
+                st.emitted += k
+                if not st.first_sent and self.engine.trace_enabled:
+                    now = now or time.time()
+                    rid = self._by_user_id.get(st.request_id)
+                    if rid is not None:
+                        self.engine.trace.setdefault(rid, {}).setdefault("first_packet", now)
+                st.first_sent = True
+                self.metrics.count("server.packets")
+            for st, _, _ in meta:
+                if st.done and self._pending(st) == 0:
+                    del self._states[self._by_user_id.pop(st.request_id)]
+
+    def _dispatch_fast_first(self, waiting_rids):
+        """Extract first frames from the oldest in-flight chunk's aux and
+        vocode them, all on the device; returns (rids, wav, counts)."""
+        aux = self.engine._unprocessed[0][0]
+        N = self._row_bucket(len(waiting_rids))
+        rids = waiting_rids[:N]
+        arr = np.full((N,), -1, np.int32)
+        arr[:len(rids)] = rids
+        F_ = self._frame_bucket(1)
+        with torch.no_grad():
+            codes, counts = _first_packet_extract(
+                aux, torch.as_tensor(arr, device=aux.device), self.engine.num_slots,
+                self.engine.ticks_per_sync, self._Q, F_, self.left_context + F_)
+            wav = _vocode_rows_compact(self.dec_params, self.dec_cfg, codes,
+                                       torch.zeros((N,), dtype=torch.int32,
+                                                   device=aux.device),
+                                       F_, pcm16=self.output_dtype == "int16")
+        return rids, wav, counts
+
+    def _emit_fast_first(self, rids, wav_dev, counts_dev) -> List[AudioPacket]:
+        """Emit the fast-path first packets, after the aux sync (so done
+        flags and histories are current)."""
+        out: List[AudioPacket] = []
+        counts = counts_dev.cpu().numpy()
+        wav = None
+        for j, rid in enumerate(rids):
+            st = self._states.get(rid)
+            k = int(counts[j])
+            if st is None or st.first_sent or k <= 0:
+                continue
+            if wav is None:
+                wav = self._to_host(wav_dev)
+            final = st.done and self._pending(st) == k
+            out.append(AudioPacket(request_id=st.request_id, wav=wav[j, :k * self.up],
+                                   sample_rate=self.sample_rate, frame_start=st.emitted,
+                                   frame_count=k, final=final))
+            st.emitted += k
+            st.first_sent = True
+            if self.engine.trace_enabled:
+                self.engine.trace.setdefault(rid, {}).setdefault("first_packet", time.time())
+            self.metrics.count("server.packets")
+            self.metrics.count("server.fast_first_packets")
+            if st.done and self._pending(st) == 0:
+                del self._by_user_id[st.request_id]
+                del self._states[rid]
+        return out
+
+    def _finish_results(self, completions) -> List[AudioResult]:
+        """Decode non-streaming completions in one batch and mark streaming
+        ones done for the final flush."""
+        results: List[AudioResult] = []
+        decode_batch = []
+        for c in completions:
+            st = self._states.get(c.request_id)
+            if st is None:
+                continue
+            st.done = True
+            if st.stream:
+                continue
+            codes = np.asarray(c.codes, np.int64)
+            ref_len = 0
+            if st.ref_code is not None:
+                ref = np.asarray(st.ref_code, np.int64)
+                codes = np.concatenate([ref, codes], axis=0)
+                ref_len = len(ref)
+            decode_batch.append((st, codes, ref_len))
+        if decode_batch:
+            # a power-of-two batch (1-frame dummy rows), as the JAX server
+            nb = 1 << (len(decode_batch) - 1).bit_length()
+            codes_in = [c for _, c, _ in decode_batch]
+            codes_in += [np.zeros((1, self._Q), np.int64)] * (nb - len(codes_in))
+            with self.metrics.time("server.decode_s"):
+                wavs, sr = self.model.speech_tokenizer.decode(
+                    [{"audio_codes": c} for c in codes_in], output_dtype=self.output_dtype)
+            for (st, codes, ref_len), wav in zip(decode_batch, wavs):
+                if ref_len:
+                    wav = wav[int(ref_len / max(len(codes), 1) * wav.shape[0]):]
+                results.append(AudioResult(st.request_id, wav, sr))
+                del self._states[self._by_user_id.pop(st.request_id)]
+                self.metrics.count("server.results")
+        return results
+
+    def first_packet_trace(self, request_id) -> Optional[Dict[str, float]]:
+        """Host timestamps (submit, staged, first_frame, first_packet) of a
+        request submitted while `engine.trace_enabled`; pops the entry. A
+        finished request's id mapping is gone, so then the newest entry with
+        a first packet is returned."""
+        rid = self._by_user_id.get(request_id)
+        if rid is not None:
+            return self.engine.trace.pop(rid, None)
+        for rid in sorted(self.engine.trace, reverse=True):
+            if "first_packet" in self.engine.trace[rid]:
+                return self.engine.trace.pop(rid)
+        return None
+
+    # -- driving ---------------------------------------------------------
+
+    def step(self) -> List[Union[AudioPacket, AudioResult]]:
+        """One engine step and its egress; packets and results in order.
+        While a stream awaits its first packet the step runs in latency
+        order: first packets from the in-flight chunk, staging dispatched,
+        the aux synced and due packets vocoded before the next chunk."""
+        waiting_rids = []
+        if self.first_packet_ticks:
+            waiting_rids = [rid for rid, st in self._states.items()
+                            if st.stream and not st.first_sent]
+            self.engine.tick_cap = self.first_packet_ticks if waiting_rids else None
+        waiting = bool(waiting_rids)
+        self._defer_now = waiting and self.defer_bulk_egress
+        events: List[Union[AudioPacket, AudioResult]] = []
+        if waiting and self.engine._unprocessed:
+            # the fast path serves streams with no reference context (a clone
+            # stream's first packet must be vocoded with it) whose frames can
+            # be in the oldest in-flight chunk
+            fast = None
+            if self.fast_first_packet:
+                fast_rids = [rid for rid in waiting_rids if self._states[rid].ctx0 == 0
+                             and self.engine.oldest_chunk_may_contain(rid)]
+                if fast_rids:
+                    with self.metrics.time("server.fast_dispatch_s"):
+                        fast = self._dispatch_fast_first(fast_rids)
+            self.engine.stage_now()
+            with self.metrics.time("server.latency_sync_s"):
+                completions = self.engine.sync_in_flight()
+            events.extend(self._finish_results(completions))
+            if fast is not None:
+                with self.metrics.time("server.emit_fast_s"):
+                    events.extend(self._emit_fast_first(*fast))
+            events.extend(self._emit_packets())
+        with self.metrics.time("server.engine_step_s"):
+            completions = self.engine.step()
+        events.extend(self._finish_results(completions))
+        events.extend(self._emit_packets())
+        return events
+
+    @property
+    def busy(self) -> bool:
+        return bool(self._states or self.engine.pending or self.engine.frames_acc)
+
+    def run_until_drained(self, max_steps: int = 100000
+                          ) -> List[Union[AudioPacket, AudioResult]]:
+        out: List[Union[AudioPacket, AudioResult]] = []
+        for _ in range(max_steps):
+            out.extend(self.step())
+            if not self.busy:
+                return out
+        raise RuntimeError("server did not drain within max_steps")

@@ -175,6 +175,60 @@ def random_vocoder_params(cfg: CodecV2DecoderConfig, gen: torch.Generator,
     }
 
 
+def _bf16_values() -> np.ndarray:
+    """Every positive finite bfloat16 value, as float32."""
+    return (np.arange(1, 0x7F80, dtype=np.uint32) << 16).view(np.float32)
+
+
+def kv_quantizer_traps(x: np.ndarray) -> Dict[str, np.ndarray]:
+    """Masks over float32 rows x (R, D) of the values where a wrong int8 KV
+    quantizer departs from `kv_quantize` (s = max(amax, 1e-8) / 127, q =
+    round half to even(x / s), a true f32 division): "ties" (x / s = k +
+    1/2: rounding half away from zero, or truncation, differ) and
+    "reciprocal" (x * (1 / s) rounds otherwise than x / s)."""
+    x = np.asarray(x, np.float32)
+    s = np.maximum(np.abs(x).max(axis=-1, keepdims=True), np.float32(1e-8)) / np.float32(127)
+    q = x / s
+    return {"ties": np.abs(q - np.trunc(q)) == 0.5,
+            "reciprocal": np.rint(x * (np.float32(1) / s)) != np.rint(q)}
+
+
+def kv_quantizer_probe(D: int = 128, seed: int = 0) -> np.ndarray:
+    """(R, D) float32 rows of bfloat16 values on which a wrong int8 KV
+    quantizer gives another answer than `kv_quantize` (see
+    `kv_quantizer_traps`): rows whose scale is a power of two, holding every
+    rounding tie; rows of scales that have a tie or a reciprocal-sensitive
+    value, holding those; a zero row, a row below the 1e-8 scale floor, and
+    Gaussian rows across scales (a scale of amax / 128 differs everywhere).
+    Each crafted row's first entry is its amax; signs are random."""
+    rng = np.random.default_rng(seed)
+    allx = _bf16_values()
+
+    def row(amax, picks):
+        picks = np.asarray(picks, np.float32)[:D - 1]
+        fill = rng.choice(allx[allx <= amax], D - 1 - len(picks))
+        r = np.concatenate([[amax], picks, fill]).astype(np.float32)
+        return r * rng.choice(np.float32([-1, 1]), D)
+
+    rows = [row(np.float32(127 * 2.0 ** e), (np.arange(127) + 0.5) * 2.0 ** e)
+            for e in (-12, -4, 0, 3)]
+    found = 0
+    for amax in rng.choice(allx[(allx > 1e-4) & (allx < 1e4)], 1500, replace=False):
+        x = allx[allx <= amax]
+        traps = kv_quantizer_traps(np.concatenate([[amax], x])[None])
+        special = x[(traps["ties"] | traps["reciprocal"])[0, 1:]]
+        if len(special):
+            rows.append(row(amax, special))
+            found += 1
+            if found == 48:
+                break
+    rows.append(np.zeros(D, np.float32))
+    rows.append(rng.normal(0, 1e-9, D))
+    rows += [rng.normal(0, sigma, D) for sigma in np.logspace(-3, 2, 16)]
+    x = torch.from_numpy(np.stack(rows).astype(np.float32))
+    return x.to(torch.bfloat16).float().numpy()
+
+
 def _np_conv(rng: np.random.Generator, o: int, i: int, k: int, bias: bool = True):
     """{"weight": (o, i, k)[, "bias": (o,)]} float32, 1/sqrt(fan_in) scale."""
     out = {"weight": rng.normal(0, 1 / np.sqrt(i * k), (o, i, k)).astype(np.float32)}

@@ -144,7 +144,8 @@ def quantize_weight_int8(w: torch.Tensor, axis: int = -1) -> Dict[str, torch.Ten
     """
     wf = w.to(torch.float32)
     amax = wf.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp(amax / 127.0, min=1e-12)
+    # a tensor divisor: on CUDA a Python scalar divides as a reciprocal multiply
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"q": q, "s": scale.squeeze(axis).to(torch.float32)}
 
