@@ -11,7 +11,8 @@ Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
    custom-voice call, one int8-KV custom-voice stream and one int8-KV
    serving run (chip_smoke's 12 requests over 8 slots): device time by
    kernel (top rows) and the busy share (device kernel time over the
-   unprofiled wall of the same call).
+   unprofiled wall of the same call); each call's Chrome trace goes to
+   build/traces/<call>/trace.json (`utils/profiling.py` `device_trace`).
 
 A diagnostic beside the smoke; it checks nothing that chip_smoke.py does not.
 """
@@ -21,6 +22,7 @@ from __future__ import annotations
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -28,6 +30,10 @@ from chip_smoke import (CLONE_MAX_NEW_TOKENS, CLONE_REF_TEXT, CLONE_TEXTS, MAX_N
                         SEED, SERVE_OVERRIDES, SERVE_REQUESTS, SERVE_SLOTS, TEXTS,
                         build_clone_model, build_model, line, model_params, phase_build,
                         phase_clone_front_end, phase_device, serve_all)
+from qwen3_tts_tpu_torch.utils.profiling import device_trace
+
+# one Chrome trace per profiled call (build/ is not committed)
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
 
 
 def phase_ptxas() -> None:
@@ -120,12 +126,13 @@ def phase_profile(model, front, custom_voice_model) -> None:
             max_new_tokens=MAX_NEW_TOKENS)),
         "serve custom_voice int8_kv": serve,
     }
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for name, fn in calls.items():
         walls = wall(fn, 2)
-        with torch.profiler.profile(activities=acts) as prof:
+        # no `annotate` around the call: a record_function range comes back
+        # among the CUDA events (a device-side annotation as long as the
+        # call) and would count as kernel time
+        with device_trace(str(TRACE_DIR / name.replace(" ", "_"))) as prof:
             fn()
-            torch.cuda.synchronize()
         kernels = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:

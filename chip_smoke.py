@@ -6,7 +6,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
 1. device: CUDA present; the card's name and power limit (nvidia-smi);
 2. build: compile the hand-written kernels from qwen3_tts_tpu_torch/csrc
    (one nvcc per source, all started together);
-   then the bounds of the two TPU kernels still to port (arithmetic only);
+   then, before any weights take memory, the bandwidth probes (slice 4,
+   csrc/dma_peak.cu): each kernel against its twin on random data (small
+   ragged shapes and the full default ones, both KV layouts, 1 and 3
+   passes; exact integer sums, float lanes within 1e-6 relative, the weight
+   column-sum sideband exact), then `utils/dma_peak.py`'s sweep in GB/s
+   with each reading's share of the data-sheet rate (a reading above 105%
+   fails: an L2 hit or skipped bytes, not bandwidth);
 3. the sub-talker and talker-step kernels against their plain PyTorch twins
    on the card, at the 1.7B shapes with random int8 weights, B in {1, 8}:
    max errors, code agreement, kernel and twin times (CUDA events);
@@ -45,7 +51,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    `stream_voice_clone` with the clip as vocoder context; a clone
    `TTSServer` (prefill bucket 512) streams two ICL requests, each first
    packet the vocoder over its own reference frames;
-then one JSON line with every kernel's numbers, and the last line
+then the roofline of the custom-voice call (`utils/roofline.py`
+`decode_roofline` with the rate `shaped_bw` measured above) and each decode
+kernel's achievable floor beside its data-sheet bound; one JSON line with
+every kernel's numbers, and the last line
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX: the port runs on hosts that have no JAX installed.
@@ -62,15 +71,18 @@ import time
 import numpy as np
 import torch
 
+from qwen3_tts_tpu_torch.utils.roofline import Peaks
+
 SEED = 0
 B_SET = (1, 8)
 TEXTS = ["Hello from the port.", "A second sentence, a little longer.",
          "Short one.", "The fourth text closes the batch of four."]
 MAX_NEW_TOKENS = 64
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense) for the
-# least time a kernel's work could take.
-PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_FP32_FLOPS = 989e12, 1979e12, 67e12
-PEAK_BYTES_PER_S = 3.35e12
+# The card's published peaks for the least time a kernel's work could take:
+# utils/roofline.py (NVIDIA H100 SXM data sheet, dense; BENCH_* env overrides).
+PEAKS = Peaks.from_env()
+PEAK_BF16_FLOPS, PEAK_INT8_OPS = PEAKS.bf16_flops, PEAKS.int8_ops
+PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = PEAKS.fp32_flops, PEAKS.hbm_bytes
 # Slice 2: two texts whose ICL prompts (reference text + text + 125 frames of
 # a 10 s clip) pad to >= 2048 tokens, with different left padding per row.
 CLONE_TEXT = "The quick brown fox jumps over the lazy dog near the river bank. "
@@ -117,6 +129,18 @@ SPREAD_FACTOR, SPREAD_SLACK = 1.5, 2e-2   # full depth: <= 1.5 x spread + 0.02
 MIN_CODE_AGREEMENT = 0.9      # sub-talker codes against the twin on the host
 INT8_CLONE_B = 2              # the clone call's batch, timed at its window
 EMB_TOL = dict(rtol=0.05, atol=0.02)   # emb_sum of fully agreeing rows
+# The bandwidth probes against their twins: integer sums (the stream, the
+# weight column sums) exactly; the shaped probe's lanes, whose K/V and vector
+# parts the kernel sums in double, within 1e-6 of the float64 twin's f32
+# value (the two differ by f32 rounding, ~6e-8). Small ragged shapes (a last
+# item of 40 of 64 rows; 3-row items over 7 rows; weight items of 256, 256
+# and 88 rows; K/V items of 16, 16 and 3 runs), then the default ones.
+PROBE_REL_TOL = 1e-6
+PROBE_STREAM_CASES = [(1000, 64), (7, 3)]          # (rows, block_rows)
+PROBE_SHAPED_CASES = [dict(L=3, B=5, Hkv=7, Sc=128, S_buf=384, Wr=600, H=2048),
+                      dict(L=2, B=2, Hkv=2, Sc=8, S_buf=16, Wr=16, H=256),
+                      dict(S_buf=256), dict(S_buf=1024)]
+PROBE_MAX_SHARE = 1.05        # of the data-sheet rate: above it, not bandwidth
 
 
 def line(phase: str, **kw) -> None:
@@ -164,6 +188,7 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def _counters() -> dict:
     """name -> (wrapper, attribute) of every kernel launch counter."""
+    from qwen3_tts_tpu_torch.ops.cuda.dma_peak import shaped_sum, stream_sum
     from qwen3_tts_tpu_torch.ops.cuda.prefill_attention import flash_prefill
     from qwen3_tts_tpu_torch.ops.cuda.subtalker import subtalker_frame_fused
     from qwen3_tts_tpu_torch.ops.cuda.talker_step import talker_step_fused_cache
@@ -171,7 +196,9 @@ def _counters() -> dict:
     return {"flash_prefill": (flash_prefill, "launches"),
             "subtalker": (subtalker_frame_fused, "launches"),
             "talker_step": (talker_step_fused_cache, "launches"),
-            "talker_step_int8_kv": (talker_step_fused_cache, "launches_int8_kv")}
+            "talker_step_int8_kv": (talker_step_fused_cache, "launches_int8_kv"),
+            "stream_bw": (stream_sum, "launches"),
+            "shaped_bw": (shaped_sum, "launches")}
 
 
 def reset_launches() -> None:
@@ -292,6 +319,9 @@ def phase_subtalker(params, cfg, device) -> dict:
     bf16_flops = 2 * B * Qm1 * V * Hc + (2 * B * Q * Hc * Ht if cp["proj"] is not None else 0)
     out["bound_ms"], out["bound_by"] = bound(nbytes, [(2 * B * Q * layer_elems, PEAK_INT8_OPS),
                                                       (bf16_flops, PEAK_BF16_FLOPS)])
+    # what the kernel reads instead: every layer weight at each of the Q
+    # positions (78 MB at 1.7B fits neither the L2 nor shared memory)
+    out["streamed_bytes"] = nbytes + (Q - 1) * layer_elems
     agree = float(np.mean(out["agree"]))
     line("kernel subtalker", code_agreement_vs_host_twin=f"{agree:.4f}",
          code_agreement_vs_card_twin=f"{np.mean(out['agree_card_twin']):.4f}",
@@ -913,7 +943,8 @@ def phase_slice(model, kv_quant: bool = False, base=None) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"{name} kernel was not launched on the main path")
     audio_s = sum(frames) * up / sr
-    out = {"launches": launches, "codes": codes, "rtf": wall / audio_s}
+    out = {"launches": launches, "codes": codes, "rtf": wall / audio_s, "wall": wall,
+           "frames": frames}
     extra = {} if base is None else dict(bf16_kv_rtf=f"{base['rtf']:.4f}",
                                          code_agreement_vs_bf16_kv=
                                          f"{code_agreement(codes, base['codes']):.4f}")
@@ -1114,26 +1145,125 @@ def phase_serve_clone(model, front) -> None:
         raise AssertionError(f"clone serving launches {launches}")
 
 
-def phase_probe_bounds() -> None:
-    """The card's bound for the two TPU kernels still to port, the
-    bandwidth probes of benchmarks/dma_peak.py, from that script's default
-    shapes: `stream_bw` reads 2 GB of int8 per pass (DMA_GB=2); `shaped_bw`
-    (L=28, B=32, Hkv=8, D=128, a 4096 x 2048 int8 weight block per layer,
-    bf16 K and V of (L, B, Hkv, S_buf, D), two (L, 1, 2048) f32 vectors)
-    reads each byte once per pass. Both are bound by bytes."""
-    stream = 2e9
-    shaped = {S: 28 * 4096 * 2048 + 2 * 28 * 32 * 8 * S * 128 * 2 + 2 * 28 * 2048 * 4
-              for S in (256, 1024)}
-    line("bounds of the kernels still to port (dma_peak.py shapes)",
-         stream_bw_ms=f"{bound(stream)[0]:.4f}",
-         **{f"shaped_bw_S{S}_GB": f"{b / 1e9:.3f}" for S, b in shaped.items()},
-         **{f"shaped_bw_S{S}_ms": f"{bound(b)[0]:.4f}" for S, b in shaped.items()})
+def phase_probe(device) -> dict:
+    """The bandwidth probes (csrc/dma_peak.cu): each kernel against its twin
+    (PROBE_* cases), then `utils/dma_peak.py`'s sweep as the measurement
+    path, its launches counted; no reading may pass PROBE_MAX_SHARE of the
+    data-sheet rate. Returns the JSON numbers and the shaped probe's rate
+    at the main path's layout (S_buf=256, strided)."""
+    from qwen3_tts_tpu_torch.ops.cuda.dma_peak import (shaped_sum, shaped_sum_ref, stream_sum,
+                                                       stream_sum_ref)
+    from qwen3_tts_tpu_torch.utils import dma_peak as dp
+
+    out = {"stream_err": 0.0, "shaped_err": 0.0, "shaped_rel": 0.0}
+    rows, block_rows = dp.stream_shape(int(dp.DMA_GB * 1e9), 2)
+    for n, br in PROBE_STREAM_CASES + [(rows, block_rows)]:
+        x = dp.stream_input(n, device, SEED + 11)
+        for P in (1, 3):
+            got, want = stream_sum(x, P, br), stream_sum_ref(x, P)
+            out["stream_err"] = max(out["stream_err"], max_abs(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"stream probe rows={n} block_rows={br} P={P}: max abs "
+                                     f"err {max_abs(got, want)} (integer sums: want exact)")
+        if n == rows:
+            out["stream_plain_ms"] = cuda_ms(lambda: stream_sum_ref(x, 1), 3)
+            out["stream_library_ms"] = cuda_ms(lambda: torch.sum(x, 0, dtype=torch.float32), 3)
+        del x
+        torch.cuda.empty_cache()
+    for shape in PROBE_SHAPED_CASES:
+        for contig in (False, True):
+            w, k, v, s1, s2, nS = dp.shaped_inputs(**shape, contiguous_kv=contig,
+                                                   device=device, seed=SEED + 12)
+            for P in (1, 3):
+                (got, side), (want, wside) = (
+                    f(w, k, v, s1, s2, P, nS, contig) for f in (shaped_sum, shaped_sum_ref))
+                rel = float(((got.double() - want.double()).abs()
+                             / want.double().abs().clamp_min(1e-30)).max())
+                out["shaped_err"] = max(out["shaped_err"], max_abs(got, want))
+                out["shaped_rel"] = max(out["shaped_rel"], rel)
+                if not (rel <= PROBE_REL_TOL and torch.equal(side, wside)):
+                    raise AssertionError(
+                        f"shaped probe {shape} contiguous_kv={contig} P={P}: max lane rel "
+                        f"err {rel:.3g} (bar {PROBE_REL_TOL}), weight column sums exact: "
+                        f"{torch.equal(side, wside)}")
+            if shape == dict(S_buf=256) and not contig:
+                out["shaped_plain_ms"] = cuda_ms(
+                    lambda: shaped_sum_ref(w, k, v, s1, s2, 1, nS, contig), 3)
+            del w, k, v, s1, s2
+            torch.cuda.empty_cache()
+    line("probe kernels vs twins", stream_cases=len(PROBE_STREAM_CASES) + 1,
+         shaped_cases=2 * len(PROBE_SHAPED_CASES), passes=[1, 3],
+         stream_max_abs_err=out["stream_err"], shaped_max_abs_err=f"{out['shaped_err']:.3g}",
+         shaped_max_lane_rel_err=f"{out['shaped_rel']:.3g}", sideband="exact")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    readings = dp.sweep(device)
+    launches = read_launches()
+    peak_gbps = PEAK_BYTES_PER_S / 1e9
+    for r in readings:
+        print(f"  [probe sweep] {dp.describe(r)} = {r['gbps'] / peak_gbps:.4f} of "
+              f"{peak_gbps:.0f} GB/s", flush=True)
+    line("probe sweep", seconds=f"{time.time() - t0:.1f}", passes=f"{dp.P1}->{dp.P2}",
+         reps=dp.REPS, launches=launches)
+    too_fast = [r for r in readings if r["gbps"] > PROBE_MAX_SHARE * peak_gbps]
+    if too_fast:
+        raise AssertionError(f"readings above {PROBE_MAX_SHARE} of {peak_gbps} GB/s (an L2 "
+                             f"hit or skipped bytes): {too_fast}")
+    if min(launches["stream_bw"], launches["shaped_bw"]) <= 0:
+        raise AssertionError(f"probe sweep launches {launches}")
+    stream = max((r for r in readings if r["probe"] == "pure-stream"), key=lambda r: r["gbps"])
+    shaped = next(r for r in readings if r["probe"] == "kernel-shaped"
+                  and r["S_buf"] == 256 and r["kv"] == "strided")
+    for key, r in (("stream", stream), ("shaped", shaped)):
+        out[f"{key}_ms"] = r["bytes"] / (r["gbps"] * 1e9) * 1e3
+        out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = bound(r["bytes"])
+    out.update(launches=launches, rate_gbps=shaped["gbps"])
+    line("probe rows", stream_block_mb=stream["block_mb"],
+         stream_ms_per_pass=f"{out['stream_ms']:.4f}",
+         stream_plain_ms=f"{out['stream_plain_ms']:.3f}",
+         stream_library_ms=f"{out['stream_library_ms']:.3f}",
+         shaped_S256_strided_ms_per_pass=f"{out['shaped_ms']:.4f}",
+         shaped_plain_ms=f"{out['shaped_plain_ms']:.3f}",
+         achievable_gbps=f"{shaped['gbps']:.1f}")
+    return out
+
+
+def phase_roofline(cfg, cv, S_buf: int, probe: dict, kernels: list, sub: dict) -> None:
+    """The custom-voice call against the card (`decode_roofline` at its B and
+    window, the tick its wall over its frames, prefill and vocoder
+    included), with the rate the shaped probe measured as the achievable
+    one; each bytes-bound kernel's achievable floor (its bound's bytes at
+    that rate) beside its data-sheet bound, the probes' own rows too; and
+    the sub-talker's floor for the bytes its kernel streams (each layer
+    weight at every position) beside the bound's (each once a frame)."""
+    from qwen3_tts_tpu_torch.utils.roofline import decode_roofline
+
+    rate = probe["rate_gbps"]
+    ticks = max(cv["frames"])
+    r = decode_roofline(cfg, len(TEXTS), attend_len=S_buf, tick_seconds=cv["wall"] / ticks,
+                        peaks=PEAKS, achievable_gbps=rate)
+    line("roofline custom voice", B=len(TEXTS), attend_len=S_buf, ticks=ticks,
+         achievable_gbps=f"{rate:.1f}",
+         **{k: f"{r[k]:.4g}" for k in ("tick_ms", "dma_floor_ms", "achievable_floor_ms",
+                                       "mfu", "hbm_bw_util", "pct_of_dma_floor",
+                                       "pct_of_achievable_floor")})
+    for k in kernels:
+        ach = (f"{k['bound_ms'] * PEAK_BYTES_PER_S / (rate * 1e9):.4f}"
+               if k["bound_by"] == "bytes" else "n/a (bound by operations)")
+        line("achievable floor", kernel=k["name"], ms=f"{k['ms']:.4f}",
+             bound_ms=f"{k['bound_ms']:.4f}", bound_by=k["bound_by"], achievable_ms=ach)
+    line("achievable floor, sub-talker as streamed", B=max(B_SET),
+         streamed_gb=f"{sub['streamed_bytes'] / 1e9:.4f}",
+         data_sheet_ms=f"{bound(sub['streamed_bytes'])[0]:.4f}",
+         achievable_ms=f"{sub['streamed_bytes'] / (rate * 1e9) * 1e3:.4f}",
+         ms=f"{sub['ms'][max(B_SET)]:.4f}")
 
 
 def run(cfg, device) -> list:
     """Every phase after the build, at talker config `cfg`; returns the
     kernels' JSON rows."""
-    phase_probe_bounds()
+    probe = phase_probe(device)
     t0 = time.time()
     params = model_params(cfg, device)
     line("weights", seconds=f"{time.time() - t0:.1f}",
@@ -1176,7 +1306,7 @@ def run(cfg, device) -> list:
         kv_quant=True, max_new_tokens=CLONE_MAX_NEW_TOKENS), up, CLONE_MAX_NEW_TOKENS - 1)
     phase_serve_clone(clone_model, front)
     row8 = next(r for r in step8["rows"] if r["B"] == max(B_SET) and r["S_buf"] == S_buf)
-    return [
+    kernels = [
         {"name": "subtalker_frame_fused", "route": "cuda",
          "source": "qwen3_tts_tpu_torch/csrc/subtalker.cu",
          "replaces": "qwen3_tts_tpu/ops/pallas/subtalker.py:352",
@@ -1202,6 +1332,20 @@ def run(cfg, device) -> list:
          "ms": flash["ms"], "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
     ]
+    kernels += [
+        {"name": "stream_bw", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/dma_peak.cu",
+         "replaces": "benchmarks/dma_peak.py:109", "launches": probe["launches"]["stream_bw"],
+         "max_abs_err": probe["stream_err"], "ms": probe["stream_ms"],
+         "plain_ms": probe["stream_plain_ms"], "bound_ms": probe["stream_bound_ms"],
+         "bound_by": probe["stream_bound_by"], "library_ms": probe["stream_library_ms"]},
+        {"name": "shaped_bw", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/dma_peak.cu",
+         "replaces": "benchmarks/dma_peak.py:178", "launches": probe["launches"]["shaped_bw"],
+         "max_abs_err": probe["shaped_err"], "ms": probe["shaped_ms"],
+         "plain_ms": probe["shaped_plain_ms"], "bound_ms": probe["shaped_bound_ms"],
+         "bound_by": probe["shaped_bound_by"], "library_ms": None},
+    ]
+    phase_roofline(cfg, cv, S_buf, probe, kernels, sub)
+    return kernels
 
 
 def main() -> int:

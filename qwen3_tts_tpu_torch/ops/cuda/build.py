@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("common.cuh", "subtalker.cu", "talker_step.cu", "prefill_attention.cu")
+SOURCES = ("common.cuh", "subtalker.cu", "talker_step.cu", "prefill_attention.cu",
+           "dma_peak.cu")
 # widest row a kernel keeps in shared memory (48 KB of floats, the default
 # dynamic limit: k_row_norm's rows, k_sample's logits)
 MAX_SMEM_ROW = 12288
@@ -135,6 +136,23 @@ class FlashPrefillArgs(ctypes.Structure):
                 + [(n, ctypes.c_void_p) for n in ("q", "k", "v", "start", "out")])
 
 
+class StreamArgs(ctypes.Structure):
+    """Mirror of `StreamArgs` in csrc/dma_peak.cu."""
+    _fields_ = ([(n, ctypes.c_longlong) for n in ("rows", "block_rows")]
+                + [(n, ctypes.c_int) for n in ("passes", "grid")]
+                + [(n, ctypes.c_void_p) for n in ("x", "acc", "out")])
+
+
+class ShapedArgs(ctypes.Structure):
+    """Mirror of `ShapedArgs` in csrc/dma_peak.cu."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "L", "Wr", "H", "BH", "Hkv", "Sc", "nS", "passes", "grid", "w_rows", "runs")]
+        + [(n, ctypes.c_longlong) for n in (
+            "k_sl", "k_sc", "k_sb", "k_sh", "v_sl", "v_sc", "v_sb", "v_sh")]
+        + [(n, ctypes.c_void_p) for n in (
+            "w", "k", "v", "s1", "s2", "colsum", "kvpart", "scpart", "out", "side")])
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with typed entry points."""
@@ -149,6 +167,12 @@ def load_library() -> ctypes.CDLL:
     lib.qt_kv_store_rows.restype = ctypes.c_int
     lib.qt_subtalker_frame.argtypes = [ctypes.POINTER(SubtalkerArgs), ctypes.c_void_p]
     lib.qt_subtalker_frame.restype = ctypes.c_int
+    lib.qt_dma_max_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.qt_dma_max_grid.restype = ctypes.c_int
+    lib.qt_stream_sum.argtypes = [ctypes.POINTER(StreamArgs), ctypes.c_void_p]
+    lib.qt_stream_sum.restype = ctypes.c_int
+    lib.qt_shaped_sum.argtypes = [ctypes.POINTER(ShapedArgs), ctypes.c_void_p]
+    lib.qt_shaped_sum.restype = ctypes.c_int
     lib.qt_error_string.argtypes = [ctypes.c_int]
     lib.qt_error_string.restype = ctypes.c_char_p
     return lib
