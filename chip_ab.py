@@ -1,13 +1,15 @@
-"""A/B of the talker-step kernel between checkouts, on one NVIDIA H100.
+"""A/B of the two decode kernels between checkouts, on one NVIDIA H100.
 
     python3 chip_ab.py ROOT [ROOT ...] [--rounds N]
 
 Times `talker_step_fused_cache` of each checkout's `qwen3_tts_tpu_torch`
-(built from that checkout's sources) at chip_smoke.py's shapes: B=8 over
-the main path's 256-slot buffer (slot 128), and B=2 over the clone call's
-buffer (a 2304-token prefill plus 49 slots in whole 128-slot chunks: 2432
-slots, slot 2328), with random 1.7B int8 weights from a seed; bf16 KV and,
-where the checkout has it, int8 KV. Each reading is a fresh process of one
+(built from that checkout's sources) at chip_smoke.py's shapes: B=8 and
+B=32 over the main path's 256-slot buffer (slot 128), and B=2 over the
+clone call's buffer (a 2304-token prefill plus 49 slots in whole 128-slot
+chunks: 2432 slots, slot 2328), with random 1.7B int8 weights from a seed;
+bf16 KV and, where the checkout has it, int8 KV. Then
+`subtalker_frame_fused`, one sampled frame (top-k 50, temperature 0.9) at
+B in {1, 8, 32} (keys `subtalker/B<n>`). Each reading is a fresh process of one
 checkout (the packages share a name), and each round runs the checkouts
 forward then backward (A B B A for two), so drift of the card's clocks
 falls on every side alike. Prints every reading, then one JSON line with
@@ -23,7 +25,9 @@ import subprocess
 import sys
 
 SEED = 0
-SHAPES = {"B8_S256": (8, 256, 128), "B2_S2432": (2, 2432, 2328)}   # (B, S_buf, slot)
+SHAPES = {"B8_S256": (8, 256, 128), "B32_S256": (32, 256, 128),
+          "B2_S2432": (2, 2432, 2328)}   # (B, S_buf, slot)
+SUBTALKER_B = (1, 8, 32)
 
 
 def child(root: str) -> None:
@@ -85,6 +89,19 @@ def child(root: str) -> None:
             out[f"{mode}/{shape}"] = float(np.median(reps))
         del k, v
         torch.cuda.empty_cache()
+    from qwen3_tts_tpu_torch.ops.cuda.subtalker import subtalker_frame_fused as frame
+    from qwen3_tts_tpu_torch.ops.sampling import SamplingParams, gumbel_noise
+
+    cp, cp_cfg = params["code_predictor"], cfg.code_predictor_config
+    Qm1, V = cp["lm_heads"].shape[:2]
+    sampled = SamplingParams(do_sample=True, top_k=50, temperature=0.9)
+    for B in SUBTALKER_B:
+        h, c0 = ((torch.randn((B, 1, cfg.hidden_size), generator=gen, device=dev) * 0.5)
+                 .to(torch.bfloat16) for _ in range(2))
+        g = gumbel_noise((Qm1, B, V), gen, dev)
+        reps = [cuda_ms(lambda: frame(cp, cp_cfg, h, c0, sampled, gumbel=g))
+                for _ in range(5)]
+        out[f"subtalker/B{B}"] = float(np.median(reps))
     print(json.dumps(out), flush=True)
 
 

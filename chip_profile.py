@@ -1,6 +1,6 @@
 """Where the time of the port's calls goes on one NVIDIA H100.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [--stages]
 
 Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
 (random weights from its seed), then prints:
@@ -13,6 +13,15 @@ Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
    kernel (top rows) and the busy share (device kernel time over the
    unprofiled wall of the same call); each call's Chrome trace goes to
    build/traces/<call>/trace.json (`utils/profiling.py` `device_trace`).
+
+4. the decode kernels' stages: the kernel library built once more with
+   -DENG_PROFILE, in which block 0 notes the SM clock after each part of a
+   stage (csrc/common.cuh `ENG_MARK`); one sub-talker frame at B=8 and one
+   talker step at B=8 over 256 slots and at B=2 over the clone window:
+   mean microseconds per layer of each quantiser (with the grid barrier
+   and the copy of the int8 rows that follow it), GEMM stage, attention
+   and grid barrier, and of the sub-talker's projection, lm head and
+   sampling per step (`--stages` runs this part alone).
 
 A diagnostic beside the smoke; it checks nothing that chip_smoke.py does not.
 """
@@ -146,18 +155,114 @@ def phase_profile(model, front, custom_voice_model) -> None:
             print(f"  {t:9.2f} ms {n:6d} launches  {kname}", flush=True)
 
 
+def phase_engine_stages(params, cfg, device) -> None:
+    """Where a launch of each persistent decode kernel spends its time, by
+    the clock marks of block 0 (a build with -DENG_PROFILE; the marks cost a
+    clock read each, so the sums run a few percent over the plain kernels')."""
+    import ctypes
+
+    import numpy as np
+
+    from chip_smoke import decode_state
+    from qwen3_tts_tpu_torch.ops.cuda import build
+    from qwen3_tts_tpu_torch.ops.cuda.subtalker import subtalker_frame_fused
+    from qwen3_tts_tpu_torch.ops.cuda.talker_step import talker_step_fused_cache
+    from qwen3_tts_tpu_torch.ops.sampling import SamplingParams, gumbel_noise
+
+    plain_flags = build.NVCC_FLAGS
+    build.NVCC_FLAGS = plain_flags + ("-DENG_PROFILE",)
+    build.load_library.cache_clear()
+    try:
+        lib = build.load_library()
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout.split()[0])
+
+        def marks(fn):
+            fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+            buf, n = np.zeros(4096, dtype=np.int64), ctypes.c_int()
+            build.check(lib, fn(buf.ctypes.data, ctypes.byref(n)), "clock marks")
+            return buf[:n.value]
+
+        def show(name, parts, rows):
+            us = np.diff(rows, axis=1) / mhz
+            line(name, **{p: f"{v:.2f}" for p, v in zip(parts, us.mean(0))},
+                 total_us=f"{us.sum(1).mean():.2f}")
+
+        names = ["quant_in", "gemm_qkv", "barrier_1", "attention", "barrier_2", "quant_o",
+                 "gemm_o", "barrier_3", "quant_mlp", "gemm_gate_up", "barrier_4"]
+        gen = torch.Generator(device=device).manual_seed(SEED + 20)
+        cp, cp_cfg = params["code_predictor"], cfg.code_predictor_config
+        Qm1, V = cp["lm_heads"].shape[:2]
+        B = 8
+        h, c0 = ((torch.randn((B, 1, cfg.hidden_size), generator=gen, device=device) * 0.5)
+                 .to(torch.bfloat16) for _ in range(2))
+        g = gumbel_noise((Qm1, B, V), gen, device)
+        sampled = SamplingParams(do_sample=True, top_k=50, temperature=0.9)
+        for _ in range(3):
+            subtalker_frame_fused(cp, cp_cfg, h, c0, sampled, gumbel=g)
+        marks(lib.qt_subtalker_clock)
+        subtalker_frame_fused(cp, cp_cfg, h, c0, sampled, gumbel=g)
+        m = marks(lib.qt_subtalker_clock)
+        # a position: stage x, the projection; 5 layers of 15 marks; from the
+        # second on: final norm, lm head, barrier, sampling, barrier
+        L, per, head, tail = cp_cfg.num_hidden_layers, 15, 2, 5
+        first = head + L * per
+        pos = [m[:first]] + [m[first + i * (first + tail):first + (i + 1) * (first + tail)]
+                             for i in range(Qm1)]
+        show(f"stages sub-talker B={B}, us per layer (of {L * (Qm1 + 1)})",
+             names + ["quant_down", "gemm_down", "barrier_5"],
+             np.stack([p[head + per * li:head + per * (li + 1)] for p in pos for li in range(L)]))
+        show(f"stages sub-talker B={B}, us per step after the layers",
+             ["final_norm", "lm_head", "barrier", "sampling", "barrier_2"],
+             np.stack([p[first - 1:] for p in pos[1:]]))
+        show(f"stages sub-talker B={B}, us per position before the layers",
+             ["stage_x", "projection", "barrier_and_quant_in"],
+             np.stack([np.concatenate([pos[i][-1:], pos[i + 1][:head + 1]])
+                       for i in range(Qm1)]))
+        line(f"stages sub-talker B={B}", frame_us=f"{(m[-1] - m[0]) / mhz:.1f}", marks=len(m))
+        nseg = 6
+        for B, S_buf, ci in ((8, 256, 128), (2, 2432, 2328)):
+            k, v, kv_valid, embed, position = decode_state(cfg, B, S_buf, ci, device, gen)
+            for _ in range(3):
+                talker_step_fused_cache(params, cfg, embed, position, ci, kv_valid, k, v)
+            marks(lib.qt_talker_clock)
+            talker_step_fused_cache(params, cfg, embed, position, ci, kv_valid, k, v)
+            m = marks(lib.qt_talker_clock)
+            # block 0 runs one attention item a layer at these shapes: 2 more marks
+            parts = (names[:3] + ["attention_prepare", "attention_chunks", "attention_fold"]
+                     + names[4:] + [f"{a}_{c}" for c in range(nseg)
+                                    for a in ("quant_down", "gemm_down")] + ["barrier_5"])
+            per = len(parts) + 1
+            show(f"stages talker step B={B} S={S_buf}, us per layer (of {len(m) // per})",
+                 parts, m[:len(m) // per * per].reshape(-1, per))
+            line(f"stages talker step B={B} S={S_buf}", step_us=f"{(m[-1] - m[0]) / mhz:.1f}",
+                 marks=len(m))
+            del k, v
+            torch.cuda.empty_cache()
+    finally:
+        build.NVCC_FLAGS = plain_flags
+        build.load_library.cache_clear()
+
+
 def main() -> int:
     from qwen3_tts_tpu_torch.utils.testing import TALKER_1B7
 
     phase_device()
     phase_build()
-    phase_ptxas()
     device = torch.device("cuda")
+    if sys.argv[1:] == ["--stages"]:   # the decode kernels' stages only
+        phase_engine_stages(model_params(TALKER_1B7, device), TALKER_1B7, device)
+        return 0
+    phase_ptxas()
     params = model_params(TALKER_1B7, device)
     model = build_model(params, TALKER_1B7, device)
     clone_model = build_clone_model(params, TALKER_1B7, device)
     front = phase_clone_front_end(clone_model)
     phase_profile(clone_model, front, model)
+    del model, clone_model
+    torch.cuda.empty_cache()
+    phase_engine_stages(params, TALKER_1B7, device)
     return 0
 
 

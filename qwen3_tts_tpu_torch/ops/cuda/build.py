@@ -22,6 +22,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import weakref
+from collections import OrderedDict
 from pathlib import Path
 
 import torch
@@ -30,8 +32,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("common.cuh", "subtalker.cu", "talker_step.cu", "prefill_attention.cu",
            "dma_peak.cu")
-# widest row a kernel keeps in shared memory (48 KB of floats, the default
-# dynamic limit: k_row_norm's rows, k_sample's logits)
+# widest logits row the sub-talker's sampling keeps in shared memory
 MAX_SMEM_ROW = 12288
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false")
@@ -91,25 +92,27 @@ class LayerWeights(ctypes.Structure):
         "ln1", "ln2", "qn", "kn")]
 
 
-class LayerScratch(ctypes.Structure):
-    """Mirror of `LayerScratch` in csrc/common.cuh."""
-    _fields_ = [(n, ctypes.c_void_p) for n in ("xq", "xs", "qkv", "q", "o", "gu")]
+class EngineScratch(ctypes.Structure):
+    """Mirror of `EngineScratch` in csrc/common.cuh."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "qkv", "o", "prod", "part_ml", "part_acc", "bar", "cnt", "amax", "xq_g", "xs_g")]
 
 
 class KVPtrs(ctypes.Structure):
     """Mirror of `KVPtrs` in csrc/common.cuh (ks NULL: a bf16 cache)."""
-    _fields_ = [(n, ctypes.c_void_p) for n in ("kc", "vc", "ks", "vs", "knew", "vnew")]
+    _fields_ = [(n, ctypes.c_void_p) for n in ("kc", "vc", "ks", "vs")]
 
 
 class TalkerStepArgs(ctypes.Structure):
     """Mirror of `TalkerStepArgs` in csrc/talker_step.cu."""
     _fields_ = ([(n, ctypes.c_int) for n in (
         "B", "H", "heads", "kvh", "D", "inter", "nseg", "L", "S_buf", "S_att",
-        "window", "ld_valid")]
+        "window", "ld_valid", "kv_splits", "kv_cps")]
         + [("eps", ctypes.c_float), ("scale", ctypes.c_float)]
         + [(n, ctypes.c_void_p) for n in ("embed", "cosr", "sinr", "ci", "valid")]
         + [("w", LayerWeights), ("fnw", ctypes.c_void_p), ("kv", KVPtrs),
-           ("t", LayerScratch), ("x", ctypes.c_void_p), ("h", ctypes.c_void_p)])
+           ("t", EngineScratch), ("zero_bytes", ctypes.c_longlong),
+           ("x", ctypes.c_void_p), ("h", ctypes.c_void_p)])
 
 
 class SubtalkerArgs(ctypes.Structure):
@@ -122,9 +125,22 @@ class SubtalkerArgs(ctypes.Structure):
             "x0", "cosr", "sinr", "gumbel", "temp", "topk", "projw", "projb")]
         + [("w", LayerWeights)]
         + [(n, ctypes.c_void_p) for n in ("fnw", "lm_heads", "embeds", "kc", "vc")]
-        + [("t", LayerScratch)]
+        + [("t", EngineScratch), ("zero_bytes", ctypes.c_longlong),
+           ("part_off", ctypes.c_longlong)]
         + [(n, ctypes.c_void_p) for n in (
-            "x", "xraw", "hn", "logits", "codes", "emb_sum")])
+            "x", "xraw", "logits", "codes", "emb_sum")])
+
+
+class GemmProbeArgs(ctypes.Structure):
+    """Mirror of `GemmProbeArgs` in csrc/talker_step.cu."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("B", "N", "K", "ldx", "ldw", "paired")]
+                + [(n, ctypes.c_void_p) for n in ("x", "wq", "ws", "out", "bar", "xq_g",
+                                                  "xs_g")])
+
+
+class BarrierProbeArgs(ctypes.Structure):
+    """Mirror of `BarrierProbeArgs` in csrc/talker_step.cu."""
+    _fields_ = [("n", ctypes.c_int), ("bar", ctypes.c_void_p)]
 
 
 class FlashPrefillArgs(ctypes.Structure):
@@ -162,11 +178,19 @@ def load_library() -> ctypes.CDLL:
     lib.qt_talker_step.argtypes = [ctypes.POINTER(TalkerStepArgs), ctypes.c_void_p]
     lib.qt_talker_step.restype = ctypes.c_int
     lib.qt_kv_store_rows.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p]
+                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.qt_kv_store_rows.restype = ctypes.c_int
     lib.qt_subtalker_frame.argtypes = [ctypes.POINTER(SubtalkerArgs), ctypes.c_void_p]
     lib.qt_subtalker_frame.restype = ctypes.c_int
+    for fn, args in ((lib.qt_talker_step_geometry, TalkerStepArgs),
+                     (lib.qt_subtalker_frame_geometry, SubtalkerArgs)):
+        fn.argtypes = [ctypes.POINTER(args), ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    lib.qt_gemm_probe.argtypes = [ctypes.POINTER(GemmProbeArgs), ctypes.c_void_p]
+    lib.qt_gemm_probe.restype = ctypes.c_int
+    lib.qt_barrier_probe.argtypes = [ctypes.POINTER(BarrierProbeArgs), ctypes.c_void_p]
+    lib.qt_barrier_probe.restype = ctypes.c_int
     lib.qt_dma_max_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.qt_dma_max_grid.restype = ctypes.c_int
     lib.qt_stream_sum.argtypes = [ctypes.POINTER(StreamArgs), ctypes.c_void_p]
@@ -182,6 +206,16 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.qt_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def launch_geometry(fn, args) -> tuple:
+    """(grid blocks, bytes of dynamic shared memory) of the cooperative
+    launch a decode kernel makes for `args`; fn is the library's
+    `qt_*_geometry` of that kernel."""
+    grid, smem = ctypes.c_int(), ctypes.c_int()
+    check(load_library(), fn(args, ctypes.byref(grid), ctypes.byref(smem)),
+          "launch geometry")
+    return grid.value, smem.value
 
 
 def ptr(t) -> int:
@@ -214,12 +248,61 @@ def same_device(device, **tensors) -> None:
             require(t.device == device, f"{name} is on {t.device}, want {device}")
 
 
-def int8_layer_weights(layers, device) -> tuple:
-    """(LayerWeights struct, tensors kept alive) for a stacked int8 layer tree
-    on `device`. Norm weights go to f32 (the kernels read f32; bf16 -> f32 is
-    exact)."""
+_CONVERTED: "OrderedDict[tuple, tuple]" = OrderedDict()
+_STATE: "OrderedDict[tuple, LaunchState]" = OrderedDict()
+MAX_CACHED = 256   # entries either cache keeps (the oldest go first)
+
+
+def converted(t: torch.Tensor, dtype) -> torch.Tensor:
+    """`t` as a contiguous `dtype` tensor for a kernel. A weight that needs a
+    copy (a bf16 norm weight read as f32) is converted once and kept while
+    the source tensor lives and is not written to."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    key = (id(t), dtype)
+    hit = _CONVERTED.get(key)
+    if hit is not None and hit[0]() is t and hit[1] == t._version:
+        return hit[2]
+    out = t.to(dtype).contiguous()
+    _CONVERTED[key] = (weakref.ref(t), t._version, out)
+    while len(_CONVERTED) > MAX_CACHED:
+        _CONVERTED.popitem(last=False)
+    return out
+
+
+class LaunchState:
+    """What a decode wrapper keeps between calls of one (device, stream,
+    shape, weights): the scratch tensors, the argument struct with every
+    pointer that does not change, and what `make` added. Scratch is never
+    shared across streams: the stream is part of the key."""
+
+    def __init__(self, weights):
+        self.refs = [(weakref.ref(t), t._version) for t in weights]
+
+    def holds(self, weights) -> bool:
+        return (len(self.refs) == len(weights)
+                and all(r() is t and v == t._version for (r, v), t in zip(self.refs, weights)))
+
+
+def launch_state(key: tuple, weights, make) -> LaunchState:
+    """The cached `LaunchState` for `key` (which names the wrapper, the
+    device, the stream and the shape), built by `make(state)` at first use or
+    when one of the `weights` tensors is another object or was written to."""
+    key = key + tuple(id(t) for t in weights)
+    state = _STATE.get(key)
+    if state is None or not state.holds(weights):
+        state = LaunchState(weights)
+        make(state)
+        _STATE[key] = state
+        while len(_STATE) > MAX_CACHED:
+            _STATE.popitem(last=False)
+    return state
+
+
+def layer_weight_tensors(layers) -> dict:
+    """name -> tensor of `LayerWeights`' fields, from a stacked layer tree."""
     attn, mlp = layers["self_attn"], layers["mlp"]
-    ts = {
+    return {
         "qkv_q": attn["qkv_proj"]["weight"]["q"], "qkv_s": attn["qkv_proj"]["weight"]["s"],
         "o_q": attn["o_proj"]["weight"]["q"], "o_s": attn["o_proj"]["weight"]["s"],
         "gu_q": mlp["gate_up_proj"]["weight"]["q"], "gu_s": mlp["gate_up_proj"]["weight"]["s"],
@@ -228,44 +311,84 @@ def int8_layer_weights(layers, device) -> tuple:
         "ln2": layers["post_attention_layernorm"]["weight"],
         "qn": attn["q_norm"]["weight"], "kn": attn["k_norm"]["weight"],
     }
+
+
+def int8_layer_weights(ts: dict, device) -> tuple:
+    """(LayerWeights struct, tensors kept alive) for `layer_weight_tensors`
+    on `device`. Norm weights and scales go to f32 (the kernels read f32;
+    bf16 -> f32 is exact)."""
     same_device(device, **ts)
+    out = {}
     for name, t in ts.items():
         if name.endswith("_q"):
             require(t.dtype == torch.int8 and t.is_contiguous(),
                     f"{name}: want a contiguous int8 tensor")
+            out[name] = t
         else:
-            ts[name] = f32(t)
-    return LayerWeights(**{k: ptr(v) for k, v in ts.items()}), ts
+            out[name] = converted(t, torch.float32)
+    return LayerWeights(**{k: ptr(v) for k, v in out.items()}), out
 
 
-def layer_scratch(B: int, H: int, heads: int, kvh: int, D: int, inter: int,
-                  nseg: int, device) -> tuple:
-    """(LayerScratch struct, tensors kept alive) for one decoder layer chain."""
+# most window splits of the talker step's attention (sizes its partials)
+KV_SPLITS_MAX = 16
+ENGINE_MAX_ROWS = 32   # ENG_MAX_ROWS in csrc/common.cuh
+
+
+def engine_scratch(B: int, H: int, heads: int, kvh: int, D: int, inter: int, nseg: int,
+                   instances: int, device) -> tuple:
+    """(EngineScratch struct, bytes of its zeroed region, tensors kept alive)
+    for launches of `instances` layer runs (layers, times positions) over B
+    rows. The barrier words, the attention's arrival counts and the
+    product's maxima are one int32 tensor, which the launch zeroes on its
+    stream."""
     def empty(*shape, dtype):
         return torch.empty(shape, dtype=dtype, device=device)
 
+    G = heads // kvh
+    items = B * kvh * KV_SPLITS_MAX
+    n_bar = 4   # the grid barrier's two words, padded to 16 bytes
+    n_cnt = -(-B * kvh // 4) * 4
+    zeroed = torch.zeros((n_bar + n_cnt + instances * B * nseg,), dtype=torch.int32,
+                         device=device)
     ts = {
-        "xq": empty(B, max(H, heads * D, inter), dtype=torch.int8),
-        "xs": empty(B, max(1, nseg), dtype=torch.float32),
         "qkv": empty(B, (heads + 2 * kvh) * D, dtype=torch.float32),
-        "q": empty(B, heads * D, dtype=torch.bfloat16),
         "o": empty(B, heads * D, dtype=torch.bfloat16),
-        "gu": empty(B, 2 * inter, dtype=torch.bfloat16),
+        "prod": empty(B, inter, dtype=torch.bfloat16),
+        "part_ml": empty(items, G, 2, dtype=torch.float32),
+        "part_acc": empty(items, G, D, dtype=torch.float32),
+        "bar": zeroed, "cnt": zeroed[n_bar:], "amax": zeroed[n_bar + n_cnt:],
+        "xq_g": empty(B, max(H, heads * D, inter), dtype=torch.int8),
+        "xs_g": empty(B, nseg, dtype=torch.float32),
     }
-    return LayerScratch(**{k: ptr(v) for k, v in ts.items()}), ts
+    return (EngineScratch(**{k: ptr(v) for k, v in ts.items()}),
+            zeroed.numel() * zeroed.element_size(), ts)
 
 
-def check_layer_shapes(H: int, heads: int, kvh: int, D: int, inter: int,
+def sm_count(device) -> int:
+    """Streaming multiprocessors of `device`: the blocks of an engine launch."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_layer_shapes(B: int, H: int, heads: int, kvh: int, D: int, inter: int,
                        nseg: int) -> None:
-    """What the layer chain's kernels accept (16-byte vector loads, one
-    128-thread block per head, at most 8 query heads per kv head)."""
-    require(D <= 128 and D % 8 == 0, f"head_dim {D} must be a multiple of 8, <= 128")
-    require(heads % kvh == 0 and heads // kvh <= 8,
-            f"{heads} query heads over {kvh} kv heads: groups of at most 8")
+    """What the layer engine accepts (csrc/common.cuh): at most 32 rows, a
+    head_dim of 64 or 128, at most 2 query heads per kv head, every GEMM's K
+    in whole 256-column warp loads (at most 16 of them) and its N in whole
+    8-row units."""
+    require(1 <= B <= ENGINE_MAX_ROWS, f"batch {B}: the engine takes 1..{ENGINE_MAX_ROWS} rows")
+    require(D in (64, 128), f"head_dim {D} must be 64 or 128")
+    require(heads % kvh == 0 and heads // kvh <= 2,
+            f"{heads} query heads over {kvh} kv heads: the attention is built for groups "
+            "of at most 2 (ATT_MAX_G in csrc/common.cuh)")
+    require(inter % nseg == 0, f"{nseg} chunks do not divide {inter}")
     for name, v in (("hidden", H), ("heads*head_dim", heads * D),
                     ("intermediate/chunks", inter // nseg)):
-        require(v % 16 == 0, f"{name} = {v} must be a multiple of 16")
-    require(inter % nseg == 0, f"{nseg} chunks do not divide {inter}")
-    # the row norm keeps one row in (default, <= 48 KB) shared memory
-    require(max(H, heads * D) <= MAX_SMEM_ROW,
-            f"rows of {max(H, heads * D)} exceed {MAX_SMEM_ROW} floats")
+        require(v % 256 == 0 and v <= 4096,
+                f"{name} = {v} must be a multiple of 256, at most 4096")
+    require(inter % 8 == 0, f"intermediate {inter} must be a multiple of 8")

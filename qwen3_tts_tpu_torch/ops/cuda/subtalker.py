@@ -1,8 +1,9 @@
 """The whole sub-talker frame, W8A8, with sampling.
 
 Counterpart of `qwen3_tts_tpu/ops/pallas/subtalker.py`. On a CUDA tensor
-`subtalker_frame_fused` launches the hand-written Hopper kernel chain
-(csrc/subtalker.cu); on a CPU tensor it runs the plain twin
+`subtalker_frame_fused` launches the hand-written Hopper kernel, one
+persistent cooperative launch per frame (csrc/subtalker.cu on the layer
+engine of csrc/common.cuh); on a CPU tensor it runs the plain twin
 `subtalker_frame_ref`, which follows the JAX `subtalker_frame_ref` line for
 line. Any other device raises.
 
@@ -193,6 +194,53 @@ def subtalker_frame_ref(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
     return torch.stack(codes_all, dim=1), emb_sum[:, None, :]
 
 
+def _launch_state(cp: Dict[str, Any], cp_cfg, B: int, Ht: int, V: int, Qm1: int, L: int,
+                  dev) -> "build.LaunchState":
+    """What the wrapper keeps between frames for these weights, this batch
+    size, device and stream: the converted weights, the rope tables of the
+    16 positions, the engine's scratch, the frame's KV cache and the
+    argument struct with every pointer that does not change."""
+    Hc = cp_cfg.hidden_size
+    heads, kvh, D = (cp_cfg.num_attention_heads, cp_cfg.num_key_value_heads,
+                     cp_cfg.head_dim)
+    inter, smax = cp_cfg.intermediate_size, Qm1 + 1
+    has_proj = cp.get("proj") is not None
+    wts = build.layer_weight_tensors(cp["layers"])
+    extra = {"fnw": cp["norm"]["weight"], "lm_heads": cp["lm_heads"],
+             "embeds": cp["embeddings"]}
+    if has_proj:
+        extra.update(projw=cp["proj"]["weight"], projb=cp["proj"]["bias"])
+
+    def make(st):
+        def empty(*shape, dtype=torch.bfloat16):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        cos, sin = rope_tables(torch.arange(smax, device=dev)[None, :],
+                               default_inv_freq(D, cp_cfg.rope_theta, device=dev))
+        cos, sin = cos[0].contiguous(), sin[0].contiguous()
+        f32 = {"fnw", "projb"}
+        conv = {k: build.converted(v, torch.float32 if k in f32 else torch.bfloat16)
+                for k, v in extra.items()}
+        w, w_keep = build.int8_layer_weights(wts, dev)
+        t, zero_bytes, t_keep = build.engine_scratch(B, Hc, heads, kvh, D, inter, 1, smax * L, dev)
+        kc, vc = empty(L, B, kvh, smax, D), empty(L, B, kvh, smax, D)
+        x, xraw = empty(B, Hc), empty(B, Ht)
+        logits = empty(B, V, dtype=torch.float32)
+        st.keep = (cos, sin, conv, w_keep, t_keep, kc, vc, x, xraw, logits)
+        st.args = build.SubtalkerArgs(
+            B=B, Ht=Ht, Hc=Hc, heads=heads, kvh=kvh, D=D, inter=inter, V=V, Qm1=Qm1,
+            L=L, has_proj=int(has_proj), eps=cp_cfg.rms_norm_eps, scale=D ** -0.5,
+            cosr=build.ptr(cos), sinr=build.ptr(sin), projw=build.ptr(conv.get("projw")),
+            projb=build.ptr(conv.get("projb")), w=w, fnw=build.ptr(conv["fnw"]),
+            lm_heads=build.ptr(conv["lm_heads"]), embeds=build.ptr(conv["embeds"]),
+            kc=build.ptr(kc), vc=build.ptr(vc), t=t, zero_bytes=zero_bytes,
+            x=build.ptr(x), xraw=build.ptr(xraw), logits=build.ptr(logits))
+
+    key = ("subtalker", dev.index, build.stream_handle(), B, cp_cfg.rms_norm_eps,
+           cp_cfg.rope_theta)
+    return build.launch_state(key, list(wts.values()) + list(extra.values()), make)
+
+
 def subtalker_frame_fused(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
                           code0_embed: torch.Tensor, sampling,
                           rows: Optional[torch.Tensor] = None,
@@ -220,12 +268,15 @@ def subtalker_frame_fused(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
                      cp_cfg.head_dim)
     inter = cp_cfg.intermediate_size
     Qm1, V = cp["lm_heads"].shape[:2]
-    smax = Qm1 + 1
     L = cp["layers"]["self_attn"]["qkv_proj"]["weight"]["q"].shape[0]
     has_proj = cp.get("proj") is not None
-    build.check_layer_shapes(Hc, heads, kvh, D, inter, 1)
-    build.require(Ht % 16 == 0, f"talker hidden {Ht} must be a multiple of 16")
-    build.require(V <= build.MAX_SMEM_ROW, f"vocab {V} exceeds {build.MAX_SMEM_ROW}")
+    build.check_layer_shapes(B, Hc, heads, kvh, D, inter, 1)
+    build.require(Ht % 256 == 0 and Hc % 256 == 0,
+                  f"talker hidden {Ht} and hidden {Hc} must be multiples of 256")
+    build.require(V <= build.MAX_SMEM_ROW and V % 4 == 0,
+                  f"vocab {V}: want a multiple of 4, at most {build.MAX_SMEM_ROW}")
+    build.require(Qm1 + 1 <= 16, f"{Qm1 + 1} positions: the kernel's attention holds 16 slots")
+    build.require(B <= build.sm_count(dev), f"batch {B}: sampling takes one block per row")
     build.require(has_proj or Hc == Ht, "without a projection Hc must equal Ht")
     build.require(tuple(code0_embed.shape) == (B, 1, Ht),
                   f"code0_embed: want {(B, 1, Ht)}, got {tuple(code0_embed.shape)}")
@@ -234,46 +285,26 @@ def subtalker_frame_fused(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
                       proj=cp["proj"]["weight"] if has_proj else None)
 
     lib = build.load_library()
-    cos, sin = rope_tables(torch.arange(smax, device=dev)[None, :],
-                           default_inv_freq(D, cp_cfg.rope_theta, device=dev))
-    cos, sin = cos[0].contiguous(), sin[0].contiguous()
+    st = _launch_state(cp, cp_cfg, B, Ht, V, Qm1, L, dev)
     do_sample, temp, kvec, g = sampling_inputs(sampling, rows, B, V, Qm1, dev,
                                                generator, gumbel)
     temp = temp[:, 0].contiguous()
     kvec = kvec[:, 0].contiguous()
     g = g.contiguous() if do_sample else None
     x0 = build.bf16(torch.cat([past_hidden, code0_embed], dim=1))
-    projw = build.bf16(cp["proj"]["weight"]) if has_proj else None
-    projb = build.f32(cp["proj"]["bias"]) if has_proj else None
-    lm_heads = build.bf16(cp["lm_heads"])
-    embeds = build.bf16(cp["embeddings"])
-    fnw = build.f32(cp["norm"]["weight"])
-    # the tensors behind each struct's pointers must outlive the call
-    w, _w_tensors = build.int8_layer_weights(cp["layers"], dev)
-    t, _t_tensors = build.layer_scratch(B, Hc, heads, kvh, D, inter, 1, dev)
-
-    def empty(*shape, dtype=torch.bfloat16):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    kc, vc = empty(L, B, kvh, smax, D), empty(L, B, kvh, smax, D)
-    x, xraw = empty(B, Hc), empty(B, Ht)
-    hn, logits = empty(B, Hc, dtype=torch.float32), empty(B, V, dtype=torch.float32)
-    codes, emb_sum = empty(B, Qm1, dtype=torch.int32), empty(B, Ht)
-    args = build.SubtalkerArgs(
-        B=B, Ht=Ht, Hc=Hc, heads=heads, kvh=kvh, D=D, inter=inter, V=V, Qm1=Qm1,
-        L=L, has_proj=int(has_proj), do_sample=int(do_sample),
-        eps=cp_cfg.rms_norm_eps, scale=D ** -0.5,
-        x0=build.ptr(x0), cosr=build.ptr(cos), sinr=build.ptr(sin),
-        gumbel=build.ptr(g), temp=build.ptr(temp), topk=build.ptr(kvec),
-        projw=build.ptr(projw), projb=build.ptr(projb), w=w, fnw=build.ptr(fnw),
-        lm_heads=build.ptr(lm_heads), embeds=build.ptr(embeds),
-        kc=build.ptr(kc), vc=build.ptr(vc), t=t, x=build.ptr(x),
-        xraw=build.ptr(xraw), hn=build.ptr(hn), logits=build.ptr(logits),
-        codes=build.ptr(codes), emb_sum=build.ptr(emb_sum))
+    codes = torch.empty((B, Qm1), dtype=torch.int32, device=dev)
+    emb_sum = torch.empty((B, Ht), dtype=torch.bfloat16, device=dev)
+    args = st.args
+    args.do_sample = int(do_sample)
+    args.x0, args.gumbel = build.ptr(x0), build.ptr(g)
+    args.temp, args.topk = build.ptr(temp), build.ptr(kvec)
+    args.codes, args.emb_sum = build.ptr(codes), build.ptr(emb_sum)
     rc = lib.qt_subtalker_frame(args, build.stream_handle())
     subtalker_frame_fused.launches += 1
+    subtalker_frame_fused.last_args = args
     build.check(lib, rc, "sub-talker kernel")
     return codes, emb_sum[:, None, :]
 
 
 subtalker_frame_fused.launches = 0
+subtalker_frame_fused.last_args = None   # the last launch's argument struct

@@ -1,14 +1,18 @@
 """The whole talker decode step, W8A8, over a bf16 or an int8 KV cache.
 
 Counterpart of `qwen3_tts_tpu/ops/pallas/talker_step.py`. On a CUDA tensor
-`talker_step_fused_cache` launches the hand-written Hopper kernel chain
-(csrc/talker_step.cu); on a CPU tensor it runs the plain twin
+`talker_step_fused_cache` launches the hand-written Hopper kernel, one
+persistent cooperative launch per step (csrc/talker_step.cu on the layer
+engine of csrc/common.cuh); on a CPU tensor it runs the plain twin
 `talker_step_ref`, which follows the JAX `talker_step_ref` (mxu attention)
 line for line. Any other device raises.
 
 Per layer: RMSNorm, W8A8 qkv, QK-RMSNorm and RoPE, GQA over the cache as an
 online softmax in 128-slot chunks with the current slot masked out and the
-fresh K/V folded in at the end, W8A8 o_proj + residual, RMSNorm, W8A8
+fresh K/V folded in at the end (the kernel cuts the window into `kv_splits`
+runs of chunks, each with its own online softmax, and folds the partial
+sums in order before the fresh slot; `talker_step_ref(..., kv_splits=S)` is
+that order in plain PyTorch, 1 the one-pass order), W8A8 o_proj + residual, RMSNorm, W8A8
 gate_up, SiLU(gate)*up and the down projection in C column chunks, each a
 separate W8A8 product with its own activation scale added into the bf16
 residual in turn. Then the final norm; the codec head runs outside.
@@ -44,6 +48,18 @@ def pick_mlp_chunks(inter: int) -> int:
         if inter % c == 0:
             return c
     return 1
+
+
+def pick_kv_splits(B: int, kv_heads: int, attend_len: int, blocks: int) -> int:
+    """Window splits of the kernel's attention: enough (row, kv head, split)
+    items to cover `blocks` SMs, in whole 128-slot chunks, at most
+    `build.KV_SPLITS_MAX`. Split s takes chunks [s * cps, (s + 1) * cps) with
+    cps = ceil(chunks / splits), and no split is empty."""
+    nchunks = -(-attend_len // KV_CHUNK)
+    # a split pays for its fold with at least two chunks
+    want = max(1, min(build.KV_SPLITS_MAX, nchunks // 2, blocks // (B * kv_heads)))
+    cps = -(-nchunks // want)
+    return -(-nchunks // cps)
 
 
 def _quant_rows(xf: torch.Tensor):
@@ -105,11 +121,14 @@ def talker_step_ref(params: Dict[str, Any], cfg: TalkerConfig,
                     kv_valid: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, attend_len: Optional[int] = None,
                     k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None):
+                    v_scale: Optional[torch.Tensor] = None, kv_splits: int = 1):
     """Plain-torch twin of the kernel (the JAX `talker_step_ref`, mxu
     attention). Returns (logits (B, V) f32, hidden (B, 1, H), k_cache,
     v_cache) with the new slot written in place, plus (k_scale, v_scale) in
-    int8-KV mode (a 6-tuple, as the JAX function)."""
+    int8-KV mode (a 6-tuple, as the JAX function). `kv_splits` > 1 is the
+    kernel's split-K order: the window's chunks in that many runs, each an
+    online softmax from an empty state, the partial (m, l, acc) folded in
+    run order, then the fresh slot; 1 is the reference's one pass."""
     quant_kv = k_scale is not None
     layers = params["layers"]
     attn, mlp = layers["self_attn"], layers["mlp"]
@@ -124,6 +143,9 @@ def talker_step_ref(params: Dict[str, Any], cfg: TalkerConfig,
     # the JAX kernel takes one whole-window chunk for short odd windows
     Sc = KV_CHUNK if (S % KV_CHUNK == 0 or S > 3 * KV_CHUNK) else S
     nS = -(-S // Sc)
+    if kv_splits < 1:
+        raise ValueError(f"kv_splits must be >= 1, got {kv_splits}")
+    cps = -(-nS // kv_splits)   # chunks per split
     eps = cfg.rms_norm_eps
     scale = D ** -0.5
     C = pick_mlp_chunks(inter)
@@ -155,29 +177,39 @@ def talker_step_ref(params: Dict[str, Any], cfg: TalkerConfig,
         newvs.append(v.reshape(B, kv_heads, D))
 
         qb = q.reshape(B * kv_heads, G, D).float()
-        m = torch.full((B * kv_heads, G), NEG_INF, device=x.device)
-        den = torch.zeros((B * kv_heads, G), device=x.device)
-        acc = torch.zeros((B * kv_heads, G, D), device=x.device)
-        for c in range(nS):
-            sl = slice(c * Sc, min((c + 1) * Sc, S))
-            kf = k_cache[li, :, :, sl].reshape(B * kv_heads, -1, D).float()
-            vf = v_cache[li, :, :, sl].reshape(B * kv_heads, -1, D).float()
-            s = torch.einsum("bgd,bsd->bgs", qb, kf)
-            if quant_kv:
-                s = s * k_scale[li, :, :, sl].reshape(B * kv_heads, 1, -1)
-            bc = bias[:, :, sl].reshape(B, 1, 1, -1).expand(
-                B, kv_heads, G, kf.shape[1]).reshape(B * kv_heads, G, -1)
-            s = s * scale + bc
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            corr = torch.exp(m - m_new)
-            e = torch.exp(s - m_new[..., None]).to(torch.bfloat16).float()
-            den = den * corr + e.sum(dim=-1)
-            if quant_kv:
-                e = (e * v_scale[li, :, :, sl].reshape(B * kv_heads, 1, -1)
-                     ).to(torch.bfloat16).float()
-            pv = torch.einsum("bgs,bsd->bgd", e, vf)
-            acc = acc * corr[..., None] + pv
-            m = m_new
+        parts = []
+        for c0 in range(0, nS, cps):
+            m = torch.full((B * kv_heads, G), NEG_INF, device=x.device)
+            den = torch.zeros((B * kv_heads, G), device=x.device)
+            acc = torch.zeros((B * kv_heads, G, D), device=x.device)
+            for c in range(c0, min(c0 + cps, nS)):
+                sl = slice(c * Sc, min((c + 1) * Sc, S))
+                kf = k_cache[li, :, :, sl].reshape(B * kv_heads, -1, D).float()
+                vf = v_cache[li, :, :, sl].reshape(B * kv_heads, -1, D).float()
+                s = torch.einsum("bgd,bsd->bgs", qb, kf)
+                if quant_kv:
+                    s = s * k_scale[li, :, :, sl].reshape(B * kv_heads, 1, -1)
+                bc = bias[:, :, sl].reshape(B, 1, 1, -1).expand(
+                    B, kv_heads, G, kf.shape[1]).reshape(B * kv_heads, G, -1)
+                s = s * scale + bc
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                corr = torch.exp(m - m_new)
+                e = torch.exp(s - m_new[..., None]).to(torch.bfloat16).float()
+                den = den * corr + e.sum(dim=-1)
+                if quant_kv:
+                    e = (e * v_scale[li, :, :, sl].reshape(B * kv_heads, 1, -1)
+                         ).to(torch.bfloat16).float()
+                pv = torch.einsum("bgs,bsd->bgd", e, vf)
+                acc = acc * corr[..., None] + pv
+                m = m_new
+            parts.append((m, den, acc))
+        m, den, acc = parts[0]
+        for m_b, den_b, acc_b in parts[1:]:
+            m_t = torch.maximum(m, m_b)
+            wa, wb = torch.exp(m - m_t), torch.exp(m_b - m_t)
+            den = den * wa + den_b * wb
+            acc = acc * wa[..., None] + acc_b * wb[..., None]
+            m = m_t
         knf = newks[-1].reshape(B * kv_heads, 1, D).float()
         vnf = newvs[-1].reshape(B * kv_heads, 1, D).float()
         s_new = (qb * knf).sum(dim=-1) * scale
@@ -216,6 +248,36 @@ def talker_step_ref(params: Dict[str, Any], cfg: TalkerConfig,
     logits = matmul_t(h.float(), params["codec_head"])
     out = (logits, h[:, None, :].to(embed.dtype), k_cache, v_cache)
     return out + (k_scale, v_scale) if quant_kv else out
+
+
+def _launch_state(params, cfg: TalkerConfig, B: int, inter: int, C: int, L: int,
+                  dev) -> "build.LaunchState":
+    """What the wrapper keeps between calls for these weights, this batch
+    size, device and stream: the converted weights, the engine's
+    scratch, the rope frequencies and the argument struct with every pointer
+    that does not change from step to step."""
+    H = cfg.hidden_size
+    heads, kvh, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.resolved_head_dim)
+    wts = build.layer_weight_tensors(params["layers"])
+    final_norm = params["norm"]["weight"]
+
+    def make(st):
+        fnw = build.converted(final_norm, torch.float32)
+        w, w_keep = build.int8_layer_weights(wts, dev)
+        t, zero_bytes, t_keep = build.engine_scratch(B, H, heads, kvh, D, inter, C, L, dev)
+        x = torch.empty((B, H), dtype=torch.bfloat16, device=dev)
+        st.inv_freq = default_inv_freq(D, cfg.rope_theta, device=dev)
+        st.ci = torch.empty((B,), dtype=torch.int32, device=dev)
+        st.keep = (fnw, w_keep, t_keep, x)
+        st.args = build.TalkerStepArgs(
+            B=B, H=H, heads=heads, kvh=kvh, D=D, inter=inter, nseg=C, L=L,
+            window=cfg.sliding_window or 0, eps=cfg.rms_norm_eps, scale=D ** -0.5,
+            w=w, fnw=build.ptr(fnw), t=t, zero_bytes=zero_bytes, x=build.ptr(x))
+
+    key = ("talker_step", dev.index, build.stream_handle(), B, cfg.sliding_window,
+           cfg.rms_norm_eps, cfg.rope_theta)
+    return build.launch_state(key, list(wts.values()) + [final_norm], make)
 
 
 def talker_step_fused_cache(params: Dict[str, Any], cfg: TalkerConfig,
@@ -262,7 +324,7 @@ def talker_step_fused_cache(params: Dict[str, Any], cfg: TalkerConfig,
     S_buf = k_cache.shape[3]
     S = S_buf if attend_len is None else attend_len
     C = pick_mlp_chunks(inter)
-    build.check_layer_shapes(H, heads, kvh, D, inter, C)
+    build.check_layer_shapes(B, H, heads, kvh, D, inter, C)
     kv_dtype = torch.int8 if quant_kv else torch.bfloat16
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
         build.require(c.dtype == kv_dtype and c.is_contiguous() and c.is_cuda
@@ -284,40 +346,31 @@ def talker_step_fused_cache(params: Dict[str, Any], cfg: TalkerConfig,
                       k_scale=k_scale, v_scale=v_scale,
                       norm=params["norm"]["weight"])
     lib = build.load_library()
-    inv_freq = default_inv_freq(D, cfg.rope_theta, device=dev)
-    cos, sin = rope_tables(position.to(dev)[:, None], inv_freq)
+    st = _launch_state(params, cfg, B, inter, C, L, dev)
+    cos, sin = rope_tables(position.to(dev)[:, None], st.inv_freq)
     cos, sin = cos[:, 0].contiguous(), sin[:, 0].contiguous()
-    ci = torch.as_tensor(cache_index, device=dev).to(torch.int32)
-    ci = (ci if ci.ndim == 1 else ci.expand(B)).contiguous()
-    # the kernel writes slot ci of every row: a Python int is checked here
-    # without a sync, a per-row tensor by the kernel (it traps)
-    build.require(ci.shape == (B,) and (not isinstance(cache_index, int)
-                                        or 0 <= cache_index < S_buf),
-                  f"cache_index must be in [0, {S_buf}), one per row")
+    if isinstance(cache_index, int):
+        # the kernel writes slot ci of every row: a Python int is checked here
+        # without a sync, a per-row tensor by the kernel (it traps)
+        build.require(0 <= cache_index < S_buf, f"cache_index must be in [0, {S_buf})")
+        ci = st.ci.fill_(cache_index)
+    else:
+        ci = torch.as_tensor(cache_index, device=dev).to(torch.int32)
+        ci = (ci if ci.ndim == 1 else ci.expand(B)).contiguous()
+        build.require(ci.shape == (B,), f"cache_index: want one slot per row, got {ci.shape}")
     valid = kv_valid.contiguous()
     x0 = build.bf16(embed[:, 0, :])
-    # the tensors behind each struct's pointers must outlive the call
-    w, _w_tensors = build.int8_layer_weights(layers, dev)
-    t, _t_tensors = build.layer_scratch(B, H, heads, kvh, D, inter, C, dev)
-    fnw = build.f32(params["norm"]["weight"])
-    x = torch.empty((B, H), dtype=torch.bfloat16, device=dev)
     h = torch.empty((B, H), dtype=torch.bfloat16, device=dev)
-    # int8 mode: this layer's fresh bf16 K/V, which the attention folds in
-    # at finalize (the cache slot holds its int8 quantization)
-    fresh = (torch.empty((2, B, kvh, D), dtype=torch.bfloat16, device=dev)
-             if quant_kv else None)
-    kv = build.KVPtrs(kc=build.ptr(k_cache), vc=build.ptr(v_cache),
-                      ks=build.ptr(k_scale), vs=build.ptr(v_scale),
-                      knew=build.ptr(None if fresh is None else fresh[0]),
-                      vnew=build.ptr(None if fresh is None else fresh[1]))
-    args = build.TalkerStepArgs(
-        B=B, H=H, heads=heads, kvh=kvh, D=D, inter=inter, nseg=C, L=L,
-        S_buf=S_buf, S_att=S, window=cfg.sliding_window or 0, ld_valid=S_buf,
-        eps=cfg.rms_norm_eps, scale=D ** -0.5,
-        embed=build.ptr(x0), cosr=build.ptr(cos), sinr=build.ptr(sin),
-        ci=build.ptr(ci), valid=build.ptr(valid), w=w, fnw=build.ptr(fnw),
-        kv=kv, t=t, x=build.ptr(x), h=build.ptr(h))
+    args = st.args
+    args.S_buf, args.S_att, args.ld_valid = S_buf, S, S_buf
+    args.kv_splits = pick_kv_splits(B, kvh, S, build.sm_count(dev))
+    args.kv_cps = -(-(-(-S // KV_CHUNK)) // args.kv_splits)
+    args.embed, args.cosr, args.sinr = build.ptr(x0), build.ptr(cos), build.ptr(sin)
+    args.ci, args.valid, args.h = build.ptr(ci), build.ptr(valid), build.ptr(h)
+    args.kv.kc, args.kv.vc = build.ptr(k_cache), build.ptr(v_cache)
+    args.kv.ks, args.kv.vs = build.ptr(k_scale), build.ptr(v_scale)
     rc = lib.qt_talker_step(args, build.stream_handle())
+    talker_step_fused_cache.last_args = args
     if quant_kv:
         talker_step_fused_cache.launches_int8_kv += 1
     else:
@@ -330,6 +383,7 @@ def talker_step_fused_cache(params: Dict[str, Any], cfg: TalkerConfig,
 
 talker_step_fused_cache.launches = 0
 talker_step_fused_cache.launches_int8_kv = 0
+talker_step_fused_cache.last_args = None   # the last launch's argument struct
 
 
 def kv_store_rows(x: torch.Tensor):
@@ -347,9 +401,52 @@ def kv_store_rows(x: torch.Tensor):
     x = x.contiguous()
     q = torch.empty((R, D), dtype=torch.int8, device=x.device)
     s = torch.empty((R,), dtype=torch.float32, device=x.device)
-    fresh = torch.empty_like(x)
     lib = build.load_library()
     build.check(lib, lib.qt_kv_store_rows(build.ptr(x), R, D, build.ptr(q), build.ptr(s),
-                                          build.ptr(fresh), build.stream_handle()),
-                "kv store kernel")
+                                          build.stream_handle()), "kv store kernel")
     return q, s
+
+
+def engine_gemm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                paired: bool = False) -> torch.Tensor:
+    """The layer engine's quantiser and GEMM stage alone: x (B <= 32, K) bf16
+    is quantised per row and multiplied with wq (N, K) int8 (a column slice of a wider
+    matrix is taken through its row stride), out (B, N) f32 = `mm8(x, wq,
+    ws)`, bit for bit: the int32 sums are exact in any order. `paired` runs
+    the gate_up tiling (rows [0, N/2) and [N/2, N) share each mma tile). No
+    decode path calls it: it holds the stage to the twin on its own. CPU
+    tensors run `mm8`."""
+    if x.device.type == "cpu":
+        return mm8(x, wq, ws)
+    B, K = x.shape
+    N = wq.shape[0]
+    build.require(x.dtype == torch.bfloat16 and x.is_cuda and x.stride(1) == 1
+                  and 1 <= B <= build.ENGINE_MAX_ROWS and x.stride(0) % 8 == 0,
+                  f"engine_gemm: want (B <= 32, K) bf16 CUDA rows, got {tuple(x.shape)} {x.dtype}")
+    build.require(wq.dtype == torch.int8 and tuple(wq.shape) == (N, K) and wq.stride(1) == 1
+                  and wq.stride(0) % 16 == 0 and K % 256 == 0 and K <= 4096
+                  and N % (16 if paired else 8) == 0,
+                  f"engine_gemm: want (N, K) int8 rows, K % 256 == 0, K <= 4096, got "
+                  f"{tuple(wq.shape)}")
+    build.same_device(x.device, wq=wq, ws=ws)
+    ws = build.f32(ws)
+    out = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    bar = torch.zeros((2,), dtype=torch.int32, device=x.device)
+    xq_g = torch.empty((B, K), dtype=torch.int8, device=x.device)
+    xs_g = torch.empty((B,), dtype=torch.float32, device=x.device)
+    args = build.GemmProbeArgs(B=B, N=N, K=K, ldx=x.stride(0), ldw=wq.stride(0),
+                               paired=int(paired), x=build.ptr(x), wq=build.ptr(wq),
+                               ws=build.ptr(ws), out=build.ptr(out), bar=build.ptr(bar),
+                               xq_g=build.ptr(xq_g), xs_g=build.ptr(xs_g))
+    lib = build.load_library()
+    build.check(lib, lib.qt_gemm_probe(args, build.stream_handle()), "engine GEMM stage")
+    return out
+
+
+def grid_barriers(n: int, device) -> None:
+    """Launch the engine's cooperative grid (one block per SM) through `n`
+    grid barriers and nothing else: what one barrier costs on the card."""
+    bar = torch.zeros((2,), dtype=torch.int32, device=device)
+    lib = build.load_library()
+    build.check(lib, lib.qt_barrier_probe(build.BarrierProbeArgs(n=n, bar=build.ptr(bar)),
+                                          build.stream_handle()), "barrier probe")
