@@ -1,4 +1,5 @@
-"""A/B of the two decode kernels between checkouts, on one NVIDIA H100.
+"""A/B of the decode kernels and the flash prefill between checkouts, on one
+NVIDIA H100.
 
     python3 chip_ab.py ROOT [ROOT ...] [--rounds N]
 
@@ -9,7 +10,11 @@ clone call's buffer (a 2304-token prefill plus 49 slots in whole 128-slot
 chunks: 2432 slots, slot 2328), with random 1.7B int8 weights from a seed;
 bf16 KV and, where the checkout has it, int8 KV. Then
 `subtalker_frame_fused`, one sampled frame (top-k 50, temperature 0.9) at
-B in {1, 8, 32} (keys `subtalker/B<n>`). Each reading is a fresh process of one
+B in {1, 8, 32} (keys `subtalker/B<n>`). Then `flash_prefill` at the clone
+call's prefill (B=2, T=2304, starts 24 and 414, q/k/v as views into one
+fused qkv tensor, as the prefill hands them over) and at B=4, T=4096
+(starts 0/333/1400/3000), bf16 at the 1.7B widths (keys `flash/<shape>`).
+Each reading is a fresh process of one
 checkout (the packages share a name), and each round runs the checkouts
 forward then backward (A B B A for two), so drift of the card's clocks
 falls on every side alike. Prints every reading, then one JSON line with
@@ -28,6 +33,7 @@ SEED = 0
 SHAPES = {"B8_S256": (8, 256, 128), "B32_S256": (32, 256, 128),
           "B2_S2432": (2, 2432, 2328)}   # (B, S_buf, slot)
 SUBTALKER_B = (1, 8, 32)
+FLASH_SHAPES = {"B2_T2304": (2304, (24, 414)), "B4_T4096": (4096, (0, 333, 1400, 3000))}
 
 
 def child(root: str) -> None:
@@ -102,6 +108,16 @@ def child(root: str) -> None:
         reps = [cuda_ms(lambda: frame(cp, cp_cfg, h, c0, sampled, gumbel=g))
                 for _ in range(5)]
         out[f"subtalker/B{B}"] = float(np.median(reps))
+    from qwen3_tts_tpu_torch.ops.cuda.prefill_attention import flash_prefill
+
+    Hq = cfg.num_attention_heads
+    for shape, (T, starts) in FLASH_SHAPES.items():
+        qkv = torch.randn((len(starts), T, (Hq + 2 * Hkv) * D), generator=gen, device=dev
+                          ).to(torch.bfloat16)
+        q, k, v = (x.unflatten(-1, (-1, D)) for x in qkv.split([Hq * D, Hkv * D, Hkv * D], -1))
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        reps = [cuda_ms(lambda: flash_prefill(q, k, v, start)) for _ in range(5)]
+        out[f"flash/{shape}"] = float(np.median(reps))
     print(json.dumps(out), flush=True)
 
 

@@ -13,13 +13,17 @@ Phases, each printing one line (any failure raises and exits non-zero):
    column-sum sideband exact), then `utils/dma_peak.py`'s sweep in GB/s
    with each reading's share of the data-sheet rate (a reading above 105%
    fails: an L2 hit or skipped bytes, not bandwidth);
-3. the sub-talker and talker-step kernels (each one persistent cooperative
+3. the flash prefill kernel's two products alone (`flash_tile_products`:
+   TMA from strided views, the wgmma descriptors, the fragment layouts)
+   against torch.matmul in fp32;
+   the sub-talker and talker-step kernels (each one persistent cooperative
    launch on the layer engine of csrc/common.cuh) against their plain
    PyTorch twins on the card, at the 1.7B shapes with random int8 weights,
-   B in {1, 8, 32}: max errors, code agreement, kernel and twin times (CUDA
-   events); each launch's grid and shared memory, and what one grid barrier
-   costs; the engine's GEMM stage alone, bit for bit against `mm8` at the
-   main path's eight (N, K) shapes and B in {1, 8, 32};
+   B in {1, 8, 32} and past one launch's 32 rows as row tiles (48 for both,
+   64 for the talker step): max errors, code agreement, kernel and twin
+   times (CUDA events); each launch's grid and shared memory, and what one
+   grid barrier costs; the engine's GEMM stage alone, bit for bit against
+   `mm8` at the main path's eight (N, K) shapes and B in {1, 8, 32};
 4. kernel 2's int8-KV mode against its twin at B in {1, 8, 32} over the
    main path's 256-slot buffer and at B in {1, 8, 2} over the clone call's
    KV buffer; the split-K attention there (B=2, both KV modes) against the
@@ -42,14 +46,20 @@ Phases, each printing one line (any failure raises and exits non-zero):
    requests, half streamed, one cancelled mid-stream, one with a zero frame
    budget: every other request completes, the cancelled one yields nothing
    after its cancel; requests/s, audio s per wall s, first-packet p50/p95;
+   the server's serve step A/B: the same 6 requests (3 streamed, 16 frames)
+   on the plain route, then on kernel 2, requests/s and first-packet p50 of
+   each; the server's default must be the route that wins both; a
+   48-slot server (both kernels as row tiles) drains 52 requests;
 8. the clone model (the same talker as a base model, the speaker encoder at
    the released widths, the default-width Mimi encoder): a 10 s reference
    clip's codes and speaker embedding on the card against the host twins;
-9. the flash prefill kernel against its twin at B in {1, 4}, T in {2048,
-   4096}, ragged starts, one sliding window, and at the clone's own prefill
-   shape with q/k/v as strided views into one fused qkv tensor (as
-   `decoder_stack` hands them over); its time beside the twin's, the bound's and SDPA's; the dense
-   plain prefill attention's time at T in {1024, 2048, 4096};
+9. the flash prefill kernel against its twin at FLASH_CASES (B up to 4, T
+   from 256 to 4096, ragged starts, a ragged T, windows of 512 and of 100
+   keys) and at the clone's own prefill shape with q/k/v as strided views
+   into one fused qkv tensor (as `decoder_stack` hands them over); its time
+   beside the twin's, the bound's and SDPA's; whole `talker_prefill` calls,
+   dense against flash, at B=4 and T in {256, 512, 1024, 2048}: where the
+   route should switch (`FLASH_PREFILL_MIN_T`);
 10. slice 2: `generate_voice_clone` (non-streaming ICL, B=2 texts of
    different lengths, so the prompt pads to T >= 2048 with ragged left
    padding), bf16 then int8 KV, must launch the flash prefill once per
@@ -57,6 +67,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
    `stream_voice_clone` with the clip as vocoder context; a clone
    `TTSServer` (prefill bucket 512) streams two ICL requests, each first
    packet the vocoder over its own reference frames;
+11. the 0.6B talker (`TALKER_0B6`, random int8 weights): kernel 1 without
+   the small_to_mtp projection and kernel 2 at hidden 1024 against their
+   twins at B=8, then `generate_custom_voice` of the smoke's texts;
 then the roofline of the custom-voice call (`utils/roofline.py`
 `decode_roofline` with the rate `shaped_bw` measured above) and each decode
 kernel's achievable floor beside its data-sheet bound; one JSON line with
@@ -81,6 +94,8 @@ from qwen3_tts_tpu_torch.utils.roofline import Peaks
 
 SEED = 0
 B_SET = (1, 8, 32)    # the decode kernels against their twins, and their times
+# ... and past one launch's 32 rows (row tiles: 48 = 2 x 24, 64 = 2 x 32)
+SUB_B_SET, STEP_B_SET = B_SET + (48,), B_SET + (48, 64)
 B_MAIN = 8            # the batch whose numbers go into the JSON rows (the server's slots)
 B_TWIN_ONCE = 32      # from here on the (slow) twins run one case per kernel
 TEXTS = ["Hello from the port.", "A second sentence, a little longer.",
@@ -121,9 +136,27 @@ FLASH_CASES = [  # (B, T, starts, sliding window)
     (1, 2048, (0,), None),
     (4, 2048, (0, 129, 700, 1500), None),
     (4, 2048, (0, 129, 700, 1500), 512),
+    (4, 2048, (0, 129, 700, 1500), 100),     # a window smaller than one 128-key tile
+    (3, 2100, (0, 77, 2050), None),          # T not a multiple of 128
+    (4, 256, (0, 9, 60, 130), None),         # the flash/dense threshold's range
+    (4, 512, (0, 33, 200, 400), None),
+    (4, 1024, (0, 65, 300, 900), None),
     (1, 4096, (0,), None),
     (4, 4096, (0, 333, 1400, 3000), None),
 ]
+# The kernel's two products alone (`flash_tile_products`: TMA from strided
+# views, the wgmma descriptors, the fragment layouts) against torch.matmul
+# in fp32 on the same bf16 tiles: within bf16 rounding of the largest value
+# (the products are exact in fp32; only the order of the fp32 sums differs).
+FLASH_TILE_REL_TOL = 2 ** -8
+FLASH_TILE_CASES = [(0, 0, 0, 0), (1, 5, 64, 128), (1, 15, 256, 256), (0, 9, 192, 128)]
+# The flash/dense threshold: whole talker_prefill calls at B=4 (ragged
+# left padding), dense against flash, in one run.
+PREFILL_AB_T = (256, 512, 1024, 2048)
+# The server's route A/B: the same short mix served plain, then fused.
+ROUTE_SLOTS, ROUTE_REQUESTS, ROUTE_FRAMES = 8, 6, 16
+# A server past one launch's rows: every slot busy, drained.
+WIDE_SLOTS, WIDE_REQUESTS, WIDE_FRAMES = 48, 52, 12
 # Kernel vs twin. The twin (plain PyTorch, the reference's exact math) is
 # chaotic in sum order: bf16 activations re-quantised to int8 at every
 # matmul turn a one-ulp difference into a one-bucket step that the next
@@ -269,7 +302,7 @@ def to_host(tree):
     return map_tensors(tree, lambda t: t.cpu())
 
 
-def phase_subtalker(params, cfg, device) -> dict:
+def phase_subtalker(params, cfg, device, b_set=SUB_B_SET, label="") -> dict:
     from qwen3_tts_tpu_torch.ops.cuda.subtalker import (subtalker_frame_fused,
                                                         subtalker_frame_ref)
     from qwen3_tts_tpu_torch.ops.sampling import SamplingParams, gumbel_noise
@@ -281,7 +314,7 @@ def phase_subtalker(params, cfg, device) -> dict:
     out = {"agree": [], "agree_card_twin": [], "twin_spread": [], "err": 0.0,
            "ms": {}, "plain_ms": {}}
     sampled = SamplingParams(do_sample=True, top_k=50, temperature=0.9)
-    for B in B_SET:
+    for B in b_set:
         once = B >= B_TWIN_ONCE
         h = (torch.randn((B, 1, cfg.hidden_size), generator=gen, device=device) * 0.5
              ).to(torch.bfloat16)
@@ -337,12 +370,12 @@ def phase_subtalker(params, cfg, device) -> dict:
     # positions (78 MB at 1.7B fits neither the L2 nor shared memory)
     out["streamed_bytes"] = nbytes + (Q - 1) * layer_elems
     agree = float(np.mean(out["agree"]))
-    line("kernel subtalker", code_agreement_vs_host_twin=f"{agree:.4f}",
+    line("kernel subtalker" + label, code_agreement_vs_host_twin=f"{agree:.4f}",
          code_agreement_vs_card_twin=f"{np.mean(out['agree_card_twin']):.4f}",
          twin_card_vs_host_disagreement=f"{np.mean(out['twin_spread']):.4f}",
          emb_sum_max_abs_err=f"{out['err']:.3g}",
-         **{f"ms_B{b}": f"{out['ms'][b]:.3f}" for b in B_SET},
-         **{f"plain_ms_B{b}": f"{out['plain_ms'][b]:.3f}" for b in B_SET},
+         **{f"ms_B{b}": f"{out['ms'][b]:.3f}" for b in b_set},
+         **{f"plain_ms_B{b}": f"{out['plain_ms'][b]:.3f}" for b in b_set},
          **{f"bound_ms_B{B_MAIN}": f"{out['bound_ms']:.4f}"})
     if agree < MIN_CODE_AGREEMENT:
         raise AssertionError(f"sub-talker kernel/twin code agreement {out['agree']}")
@@ -420,7 +453,7 @@ def talker_step_bound(params, cfg, B: int, slots: int, kv_bytes: int) -> tuple:
                           (4 * cfg.num_attention_heads * D * slots * L, PEAK_FP32_FLOPS)])
 
 
-def phase_talker_step(params, cfg, device, S_buf: int) -> dict:
+def phase_talker_step(params, cfg, device, S_buf: int, b_set=STEP_B_SET, label="") -> dict:
     from qwen3_tts_tpu_torch.ops.cuda.talker_step import (talker_step_fused_cache,
                                                           talker_step_ref)
     from qwen3_tts_tpu_torch.weights import map_tensors
@@ -432,7 +465,7 @@ def phase_talker_step(params, cfg, device, S_buf: int) -> dict:
     params1 = dict(params, layers=map_tensors(params["layers"], lambda t: t[:1].contiguous()))
     out = {"err": 0.0, "one_layer": 0.0, "full": 0.0, "spread": 0.0, "ms": {},
            "plain_ms": {}}
-    for B in B_SET:
+    for B in b_set:
         state = decode_state(cfg, B, S_buf, ci, device, gen)
         # (a) one layer at full widths: nothing accumulates, hold tight
         state1 = tuple(t[:1] if i < 2 else t for i, t in enumerate(state))
@@ -480,13 +513,13 @@ def phase_talker_step(params, cfg, device, S_buf: int) -> dict:
         del state, k, v
         torch.cuda.empty_cache()
     out["geometry"] = engine_geometry("talker_step_fused_cache", talker_step_fused_cache)
-    line("kernel talker_step", S_buf=S_buf,
+    line("kernel talker_step" + label, S_buf=S_buf,
          one_layer_max_rel_err=f"{out['one_layer']:.3g}",
          full_depth_max_rel_err=f"{out['full']:.3g}",
          twin_card_vs_host_rel_spread=f"{out['spread']:.3g}",
          logits_max_abs_err=f"{out['err']:.3g}",
-         **{f"ms_B{b}": f"{out['ms'][b]:.3f}" for b in B_SET},
-         **{f"plain_ms_B{b}": f"{out['plain_ms'][b]:.3f}" for b in B_SET},
+         **{f"ms_B{b}": f"{out['ms'][b]:.3f}" for b in b_set},
+         **{f"plain_ms_B{b}": f"{out['plain_ms'][b]:.3f}" for b in b_set},
          **{f"bound_ms_B{B_MAIN}": f"{out['bound_ms']:.4f}"})
     return out
 
@@ -763,7 +796,7 @@ class StandInTokenizer:
         return {"input_ids": np.asarray([ids], dtype=np.int64)}
 
 
-def build_model(params, cfg, device):
+def build_model(params, cfg, device, size="1b7"):
     from qwen3_tts_tpu_torch.config import CodecV2Config, CodecV2DecoderConfig, TTSModelConfig
     from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel
     from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer
@@ -772,7 +805,7 @@ def build_model(params, cfg, device):
     tc = dataclasses.replace(cfg, spk_id={"vivian": 3000},
                              codec_language_id={"english": 1000})
     tts_cfg = TTSModelConfig(talker_config=tc, tts_model_type="custom_voice",
-                             tts_model_size="1b7")
+                             tts_model_size=size)
     dec_cfg = CodecV2DecoderConfig()
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     tok = Qwen3TTSTokenizer.from_params(CodecV2Config(decoder_config=dec_cfg),
@@ -952,29 +985,85 @@ def phase_flash(cfg, device, main_shape) -> dict:
     return out
 
 
-def phase_dense_crossover(cfg, device) -> None:
-    """The dense plain prefill attention (what T < FLASH_PREFILL_MIN_T runs)
-    against the flash kernel at B=4 without padding, T in {1024, 2048,
-    4096}: where the route should switch on this card."""
-    from qwen3_tts_tpu_torch.ops.attention import attention, mask_to_bias
-    from qwen3_tts_tpu_torch.ops.cuda.prefill_attention import _mask, flash_prefill
+def phase_flash_tiles(cfg, device) -> dict:
+    """The flash kernel's two products alone (`flash_tile_products`), from
+    q/k/v as strided views into one fused qkv tensor with a ragged T: s =
+    Q K^T and o = bf16(s) V against torch.matmul in fp32 on the same bf16
+    tiles (rows and keys past T zeros), within FLASH_TILE_REL_TOL of the
+    largest value."""
+    from qwen3_tts_tpu_torch.ops.cuda.prefill_attention import (FP_BK, FP_BQ,
+                                                                flash_tile_products)
 
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    B, T = 2, 300
+    q, k, v = (x.unflatten(-1, (-1, D)) for x in torch.randn(
+        (B, T, (Hq + 2 * Hkv) * D), generator=gen, device=device
+    ).to(torch.bfloat16).split([Hq * D, Hkv * D, Hkv * D], dim=-1))
+
+    def tile(x, b, h, lo, n):
+        t = torch.zeros((n, D), device=device)
+        rows = x[b, lo:lo + n, h].float()
+        t[:rows.shape[0]] = rows
+        return t
+
+    worst = {"s": 0.0, "o": 0.0}
+    for b, hq, q_lo, k0 in FLASH_TILE_CASES:
+        s, o = flash_tile_products(q, k, v, b, hq, q_lo, k0)
+        want_s = torch.matmul(tile(q, b, hq, q_lo, FP_BQ), tile(k, b, hq // 2, k0, FP_BK).T)
+        want_o = torch.matmul(s.to(torch.bfloat16).float(), tile(v, b, hq // 2, k0, FP_BK))
+        for name, got, want in (("s", s, want_s), ("o", o, want_o)):
+            rel = max_abs(got, want) / float(want.abs().max().clamp_min(1e-30))
+            worst[name] = max(worst[name], rel)
+    line("kernel flash_prefill tile products", cases=len(FLASH_TILE_CASES), T=T,
+         s_max_err_over_max=f"{worst['s']:.3g}", o_max_err_over_max=f"{worst['o']:.3g}",
+         bar=f"{FLASH_TILE_REL_TOL:.3g}")
+    if max(worst.values()) > FLASH_TILE_REL_TOL:
+        raise AssertionError(f"flash tile products off torch.matmul: {worst}")
+    return worst
+
+
+def phase_prefill_ab(params, cfg, device) -> dict:
+    """Whole `talker_prefill` calls at B=4 with ragged left padding, the
+    dense plain attention against the flash kernel, at each T of
+    PREFILL_AB_T, in turns (dense, flash, flash, dense); the least T from
+    which flash wins at every measured point is where the route should
+    switch on this card (`FLASH_PREFILL_MIN_T`)."""
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.models.talker import KVCache, talker_prefill
+
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     B, res = 4, {}
-    for T in (1024, 2048, 4096):
-        q, k, v = (torch.randn((B, T, h, D), generator=gen, device=device).to(torch.bfloat16)
-                   for h in (Hq, Hkv, Hkv))
-        start = torch.zeros((B,), dtype=torch.int32, device=device)
-        bias = mask_to_bias(_mask(T, start, None)[:, None])
-        dense = cuda_ms(lambda: attention(q, k, v, bias), 3)
-        flash = cuda_ms(lambda: flash_prefill(q, k, v, start), 10)
-        res[T] = (dense, flash)
-        del q, k, v, bias
-        torch.cuda.empty_cache()
-    line("dense vs flash prefill attention", B=B,
-         **{f"T{T}": f"dense_ms={d:.3f},flash_ms={f:.4f},ratio={d / f:.1f}"
-            for T, (d, f) in res.items()})
+    L, Hkv, D = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.resolved_head_dim
+    threshold = talker.FLASH_PREFILL_MIN_T
+    try:
+        for T in PREFILL_AB_T:
+            embeds = (torch.randn((B, T, cfg.hidden_size), generator=gen, device=device) * 0.3
+                      ).to(torch.bfloat16)
+            starts = torch.tensor([0, T // 16, T // 4, T // 2], device=device)
+            mask = (torch.arange(T, device=device)[None, :] >= starts[:, None]).to(torch.int32)
+            cache = KVCache.zeros(L, B, T, Hkv, D, device=device)
+
+            def run(flash):
+                talker.FLASH_PREFILL_MIN_T = 0 if flash else 1 << 30
+                with torch.no_grad():
+                    talker_prefill(params, cfg, embeds, mask, cache, allow_flash=flash)
+
+            ms = {"dense": [], "flash": []}
+            for route in ("dense", "flash", "flash", "dense"):
+                ms[route].append(cuda_ms(lambda: run(route == "flash"), 3))
+            res[T] = (float(np.mean(ms["dense"])), float(np.mean(ms["flash"])))
+            del embeds, cache
+            torch.cuda.empty_cache()
+    finally:
+        talker.FLASH_PREFILL_MIN_T = threshold
+    wins = [T for T in PREFILL_AB_T if all(res[t][1] < res[t][0] for t in PREFILL_AB_T if t >= T)]
+    out = {"ms": res, "least_t": min(wins) if wins else None}
+    line("prefill dense vs flash", B=B, layers=L,
+         **{f"T{T}": f"dense_ms={d:.3f},flash_ms={f:.3f},ratio={d / f:.2f}"
+            for T, (d, f) in res.items()},
+         flash_wins_from_T=out["least_t"], FLASH_PREFILL_MIN_T=threshold)
+    return out
 
 
 def run_codes(model, specs, **kw) -> list:
@@ -1028,8 +1117,8 @@ def phase_clone(model, front, kv_quant: bool = False, base=None) -> dict:
         frames.append(g)
     L = model.config.talker_config.num_hidden_layers
     step_key = "talker_step_int8_kv" if kv_quant else "talker_step"
-    if launches["flash_prefill"] < L or min(launches["subtalker"], launches[step_key]) <= 0:
-        raise AssertionError(f"clone main path launches {launches}: want flash_prefill >= {L} "
+    if launches["flash_prefill"] != L or min(launches["subtalker"], launches[step_key]) <= 0:
+        raise AssertionError(f"clone main path launches {launches}: want flash_prefill = {L} "
                              f"and both decode kernels ({step_key})")
     audio_s = sum(frames) * up / sr
     out = {"launches": launches, "codes": codes, "rtf": wall / audio_s}
@@ -1043,7 +1132,7 @@ def phase_clone(model, front, kv_quant: bool = False, base=None) -> dict:
     return out
 
 
-def phase_slice(model, kv_quant: bool = False, base=None) -> dict:
+def phase_slice(model, kv_quant: bool = False, base=None, label="") -> dict:
     """generate_custom_voice, bf16 or int8 KV (then beside the bf16 run
     `base`)."""
     mode = "int8_kv" if kv_quant else "bf16_kv"
@@ -1077,7 +1166,7 @@ def phase_slice(model, kv_quant: bool = False, base=None) -> dict:
     extra = {} if base is None else dict(bf16_kv_rtf=f"{base['rtf']:.4f}",
                                          code_agreement_vs_bf16_kv=
                                          f"{code_agreement(codes, base['codes']):.4f}")
-    line(f"slice {mode}", texts=len(TEXTS), frames=frames, wall_s=f"{wall:.3f}",
+    line(f"slice{label} {mode}", texts=len(TEXTS), frames=frames, wall_s=f"{wall:.3f}",
          frames_per_s=f"{sum(frames) / wall:.2f}", rtf=f"{out['rtf']:.4f}", **extra,
          launches=launches)
     return out
@@ -1224,6 +1313,81 @@ def phase_serve(model) -> dict:
          first_packet_p50_s=f"{out['first_packet_p50']:.3f}",
          first_packet_p95_s=f"{out['first_packet_p95']:.3f}", launches=launches)
     return out
+
+
+def _serve_mix(model, overrides, slots, n, frames, tag) -> dict:
+    """Serve n custom-voice requests (every other one streamed) on a fresh
+    TTSServer with `overrides` (None: the server's own defaults) after one
+    warm-up request; every request must complete. Returns the server, its
+    launches, requests/s and the streamed requests' first-packet p50."""
+    from qwen3_tts_tpu_torch.runtime.server import AudioPacket, AudioResult, TTSServer
+
+    srv = TTSServer(model, num_slots=slots, overrides=overrides, max_new_tokens=frames,
+                    seed=SEED)
+    serve_all(srv, [lambda: srv.submit_custom_voice(f"{tag}-w", text=TEXTS[0], speaker="vivian",
+                                                    language="english", stream=True)])
+    ids = [f"{tag}{i}" for i in range(n)]
+    submits = [lambda rid=rid, i=i: srv.submit_custom_voice(
+        rid, text=f"{TEXTS[i % len(TEXTS)]} Request {i}.", speaker="vivian",
+        language="english", stream=i % 2 == 0) for i, rid in enumerate(ids)]
+    reset_launches()
+    torch.cuda.synchronize()
+    events, first, wall = serve_all(srv, submits)
+    launches = read_launches()
+    for i, rid in enumerate(ids):
+        mine = [e for e in events if e.request_id == rid]
+        done = (mine and mine[-1].final and all(isinstance(e, AudioPacket) for e in mine)
+                if i % 2 == 0 else len(mine) == 1 and isinstance(mine[0], AudioResult))
+        if not (done and all(np.isfinite(e.wav).all() for e in mine)):
+            raise AssertionError(f"{tag}: request {rid} did not complete: {mine}")
+    fp = [first[rid] for i, rid in enumerate(ids) if i % 2 == 0]
+    return {"srv": srv, "launches": launches, "requests_per_s": n / wall, "wall": wall,
+            "first_packet_p50": float(np.percentile(fp, 50))}
+
+
+def phase_serve_routes(model) -> dict:
+    """The server's serve step on the card: the same short mix served on the
+    plain route (eager torch decode step), then on kernel 2, each on a fresh
+    server; requests/s and first-packet p50 of each. The server's default
+    (no override) must be the route that wins both metrics, and the plain
+    one unless the fused route wins both."""
+    from qwen3_tts_tpu_torch.runtime.server import TTSServer
+
+    res = {}
+    for route in ("plain", "fused"):
+        r = _serve_mix(model, {"fused_talker_step": route == "fused"}, ROUTE_SLOTS,
+                       ROUTE_REQUESTS, ROUTE_FRAMES, route)
+        want = {"plain": 0, "fused": 1}[route]
+        if (r["launches"]["talker_step"] > 0) != bool(want):
+            raise AssertionError(f"{route} route launches {r['launches']}")
+        res[route] = r
+    fused_wins = (res["fused"]["requests_per_s"] > res["plain"]["requests_per_s"]
+                  and res["fused"]["first_packet_p50"] < res["plain"]["first_packet_p50"])
+    default = TTSServer(model, num_slots=ROUTE_SLOTS).gen_cfg.fused_talker_step
+    line("serve route A/B", slots=ROUTE_SLOTS, requests=ROUTE_REQUESTS, streamed=ROUTE_REQUESTS // 2,
+         frames=ROUTE_FRAMES,
+         **{f"{k}_requests_per_s": f"{r['requests_per_s']:.3f}" for k, r in res.items()},
+         **{f"{k}_first_packet_p50_s": f"{r['first_packet_p50']:.3f}" for k, r in res.items()},
+         fused_wins_both=fused_wins, server_default="fused" if default else "plain")
+    if default != fused_wins:
+        raise AssertionError(f"the server defaults to the {'fused' if default else 'plain'} "
+                             f"route; this run's A/B says {'fused' if fused_wins else 'plain'}")
+    return {k: {m: r[m] for m in ("requests_per_s", "first_packet_p50")} for k, r in res.items()}
+
+
+def phase_serve_wide(model) -> dict:
+    """A TTSServer of WIDE_SLOTS slots (past one launch's 32 rows: both
+    decode kernels run as row tiles) on its defaults, with more requests
+    than slots: it must drain with every request complete, through the
+    kernels."""
+    r = _serve_mix(model, None, WIDE_SLOTS, WIDE_REQUESTS, WIDE_FRAMES, "wide")
+    if r["srv"].num_slots != WIDE_SLOTS or min(r["launches"]["subtalker"],
+                                              r["launches"]["talker_step"]) <= 0:
+        raise AssertionError(f"wide server launches {r['launches']}")
+    line("serve wide", slots=WIDE_SLOTS, requests=WIDE_REQUESTS, frames=WIDE_FRAMES,
+         wall_s=f"{r['wall']:.3f}", requests_per_s=f"{r['requests_per_s']:.3f}",
+         first_packet_p50_s=f"{r['first_packet_p50']:.3f}", launches=r["launches"])
+    return r
 
 
 def phase_serve_clone(model, front) -> None:
@@ -1389,10 +1553,31 @@ def phase_roofline(cfg, cv, S_buf: int, probe: dict, kernels: list, sub: dict) -
          ms=f"{sub['ms'][B_MAIN]:.4f}")
 
 
+def phase_0b6(device) -> dict:
+    """The 0.6B talker (`TALKER_0B6`, random int8 weights from the seed): at
+    0.6B the talker's hidden size is the code predictor's, so kernel 1 runs
+    without the small_to_mtp projection and kernel 2 at hidden 1024. Both
+    against their twins at B_MAIN by the 1.7B bars, then
+    generate_custom_voice of the smoke's texts through both kernels."""
+    from qwen3_tts_tpu_torch.utils.testing import TALKER_0B6
+
+    cfg = TALKER_0B6
+    params = model_params(cfg, device)
+    if params["code_predictor"]["proj"] is not None:
+        raise AssertionError("0.6B: the code predictor should have no projection")
+    sub = phase_subtalker(params, cfg, device, b_set=(B_MAIN,), label=" 0.6B")
+    step = phase_talker_step(params, cfg, device, 256, b_set=(B_MAIN,), label=" 0.6B")
+    cv = phase_slice(build_model(params, cfg, device, size="0b6"), label=" 0.6B")
+    line("model 0.6B", hidden=cfg.hidden_size, has_proj=False, rtf=f"{cv['rtf']:.4f}",
+         subtalker_ms_B8=f"{sub['ms'][B_MAIN]:.3f}", talker_step_ms_B8=f"{step['ms'][B_MAIN]:.3f}")
+    return {"sub": sub, "step": step, "rtf": cv["rtf"]}
+
+
 def run(cfg, device) -> list:
     """Every phase after the build, at talker config `cfg`; returns the
     kernels' JSON rows."""
     probe = phase_probe(device)
+    phase_flash_tiles(cfg, device)
     t0 = time.time()
     params = model_params(cfg, device)
     line("weights", seconds=f"{time.time() - t0:.1f}",
@@ -1413,6 +1598,8 @@ def run(cfg, device) -> list:
         model, model._specs_custom_voice(TEXTS, "vivian", "english", None, False),
         kv_quant=True, max_new_tokens=MAX_NEW_TOKENS), up, MAX_NEW_TOKENS - 1)
     phase_serve(model)
+    phase_serve_routes(model)
+    phase_serve_wide(model)
     t0 = time.time()
     clone_model = build_clone_model(params, cfg, device)
     line("clone weights", seconds=f"{time.time() - t0:.1f}",
@@ -1426,7 +1613,7 @@ def run(cfg, device) -> list:
     phase_split_attention(params, cfg, device, clone_buf,
                           front["T"] + CLONE_MAX_NEW_TOKENS // 2)
     flash = phase_flash(cfg, device, front)
-    phase_dense_crossover(cfg, device)
+    phase_prefill_ab(params, cfg, device)
     clone = phase_clone(clone_model, front)
     phase_clone(clone_model, front, kv_quant=True, base=clone)
     phase_stream("voice clone int8_kv", lambda: clone_model.stream_voice_clone(
@@ -1437,6 +1624,9 @@ def run(cfg, device) -> list:
                                                     False, front["items"], False)[0],
         kv_quant=True, max_new_tokens=CLONE_MAX_NEW_TOKENS), up, CLONE_MAX_NEW_TOKENS - 1)
     phase_serve_clone(clone_model, front)
+    del model, clone_model
+    torch.cuda.empty_cache()
+    phase_0b6(device)
     row8 = next(r for r in step8["rows"] if r["B"] == B_MAIN and r["S_buf"] == S_buf)
     kernels = [
         {"name": "subtalker_frame_fused", "route": "cuda",

@@ -45,6 +45,7 @@
 struct TalkerStepArgs {
   int B, H, heads, kvh, D, inter, nseg, L, S_buf, S_att, window, ld_valid;
   int kv_splits, kv_cps;   // window splits, 128-slot chunks per split
+  int cache_rows;          // rows of the caches kv points into (>= B: a row tile's launch)
   float eps, scale;
   const bf16* embed;       // (B, H)
   const float* cosr;       // (B, D)
@@ -53,7 +54,8 @@ struct TalkerStepArgs {
   const uint8_t* valid;    // (B, ld_valid) bool
   LayerWeights w;          // stacked (L, ...) tensors
   const float* fnw;        // (H,) final norm
-  KVPtrs kv;               // (L, B, kvh, S_buf, D) bf16, or int8 + (L, B, kvh, S_buf) scales
+  KVPtrs kv;               // row 0 of this launch in (L, cache_rows, kvh, S_buf, D) bf16, or
+                           // int8 + (L, cache_rows, kvh, S_buf) scales
   EngineScratch t;         // amax: (L, B, nseg)
   long long zero_bytes;    // of the zeroed region that starts at t.bar
   bf16* x;                 // (B, H) residual scratch
@@ -70,7 +72,7 @@ static __global__ void __launch_bounds__(ENG_THREADS, 1) k_talker_step(TalkerSte
   const EngSmem sm = eng_smem(smem_raw);
   const LayerShape s{a.B, a.H, a.heads, a.kvh, a.D, a.inter, a.nseg, a.eps};
   const int nqkv = (a.heads + 2 * a.kvh) * a.D;
-  const size_t layer_slots = (size_t)a.B * a.kvh * a.S_buf;
+  const size_t layer_slots = (size_t)a.cache_rows * a.kvh * a.S_buf;
   AttnParams ap{};
   ap.B = a.B;
   ap.heads = a.heads;

@@ -32,10 +32,12 @@ from ..weights import matmul_t, numeric_children, stack_layers, weight_rows
 Params = Dict[str, Any]
 
 # Prefills of this many tokens or more attend through the flash prefill
-# kernel (ops/cuda/prefill_attention.py) instead of the dense masked path,
-# the JAX package's routing. Tests lower it to run the kernel's path at
-# small shapes.
-FLASH_PREFILL_MIN_T = 2048
+# kernel (ops/cuda/prefill_attention.py) instead of the dense masked path.
+# Set from the H100's A/B of whole 1.7B prefills at B=4 (chip_smoke.py
+# `phase_prefill_ab`): flash won at every measured T from 256 to 2048 (the
+# JAX package keeps 2048, a TPU measurement). Tests lower it to run the
+# kernel's path at small shapes.
+FLASH_PREFILL_MIN_T = 256
 
 
 @dataclass(frozen=True)

@@ -107,7 +107,7 @@ class TalkerStepArgs(ctypes.Structure):
     """Mirror of `TalkerStepArgs` in csrc/talker_step.cu."""
     _fields_ = ([(n, ctypes.c_int) for n in (
         "B", "H", "heads", "kvh", "D", "inter", "nseg", "L", "S_buf", "S_att",
-        "window", "ld_valid", "kv_splits", "kv_cps")]
+        "window", "ld_valid", "kv_splits", "kv_cps", "cache_rows")]
         + [("eps", ctypes.c_float), ("scale", ctypes.c_float)]
         + [(n, ctypes.c_void_p) for n in ("embed", "cosr", "sinr", "ci", "valid")]
         + [("w", LayerWeights), ("fnw", ctypes.c_void_p), ("kv", KVPtrs),
@@ -145,11 +145,19 @@ class BarrierProbeArgs(ctypes.Structure):
 
 class FlashPrefillArgs(ctypes.Structure):
     """Mirror of `FlashPrefillArgs` in csrc/prefill_attention.cu."""
-    _fields_ = ([(n, ctypes.c_int) for n in ("B", "T", "Hq", "Hkv", "D", "window")]
+    _fields_ = ([(n, ctypes.c_int) for n in ("B", "T", "Hq", "Hkv", "D", "window", "grid")]
                 + [("scale", ctypes.c_float)]
                 + [(n, ctypes.c_longlong) for n in (
                     "sqb", "sqt", "sqh", "skb", "skt", "skh", "svb", "svt", "svh")]
-                + [(n, ctypes.c_void_p) for n in ("q", "k", "v", "start", "out")])
+                + [(n, ctypes.c_void_p) for n in ("q", "k", "v", "out", "items", "item_off")])
+
+
+class FlashProbeArgs(ctypes.Structure):
+    """Mirror of `FlashProbeArgs` in csrc/prefill_attention.cu."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("B", "T", "Hq", "Hkv", "b", "hq", "q_lo", "k0")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "sqb", "sqt", "sqh", "skb", "skt", "skh", "svb", "svt", "svh")]
+                + [(n, ctypes.c_void_p) for n in ("q", "k", "v", "s", "o")])
 
 
 class StreamArgs(ctypes.Structure):
@@ -175,6 +183,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.qt_flash_prefill.argtypes = [ctypes.POINTER(FlashPrefillArgs), ctypes.c_void_p]
     lib.qt_flash_prefill.restype = ctypes.c_int
+    lib.qt_flash_probe.argtypes = [ctypes.POINTER(FlashProbeArgs), ctypes.c_void_p]
+    lib.qt_flash_probe.restype = ctypes.c_int
     lib.qt_talker_step.argtypes = [ctypes.POINTER(TalkerStepArgs), ctypes.c_void_p]
     lib.qt_talker_step.restype = ctypes.c_int
     lib.qt_kv_store_rows.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -375,9 +385,22 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def row_tiles(B: int, max_rows: int = ENGINE_MAX_ROWS) -> list:
+    """Row slices of equal size covering B rows: ceil(B / max_rows) tiles
+    of ceil(B / tiles) rows (48 -> 2 x 24, 64 -> 2 x 32). Where the tiles do
+    not divide B the last one ends at row B and repeats a few rows of the
+    one before, which compute the same values again (rows are independent
+    in both decode kernels). Equal tiles let one `launch_state`, keyed by
+    the tile's rows, serve every tile."""
+    n = -(-B // max_rows)
+    t = -(-B // n)
+    return [slice(min(i * t, B - t), min(i * t, B - t) + t) for i in range(n)]
+
+
 def check_layer_shapes(B: int, H: int, heads: int, kvh: int, D: int, inter: int,
                        nseg: int) -> None:
-    """What the layer engine accepts (csrc/common.cuh): at most 32 rows, a
+    """What one launch of the layer engine accepts (csrc/common.cuh; the
+    wrappers run larger batches as `row_tiles`): at most 32 rows, a
     head_dim of 64 or 128, at most 2 query heads per kv head, every GEMM's K
     in whole 256-column warp loads (at most 16 of them) and its N in whole
     8-row units."""

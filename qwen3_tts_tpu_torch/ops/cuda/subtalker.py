@@ -194,6 +194,23 @@ def subtalker_frame_ref(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
     return torch.stack(codes_all, dim=1), emb_sum[:, None, :]
 
 
+def check_frame_shapes(B: int, Ht: int, cp_cfg, V: int, Qm1: int, has_proj: bool) -> None:
+    """What one launch of the kernel accepts: the layer engine's shapes
+    (`build.check_layer_shapes`) at the code predictor's widths, both hidden
+    sizes in whole 256-column loads, a logits row that fits shared memory,
+    at most 16 positions, and a talker width equal to the code predictor's
+    where there is no small_to_mtp projection (the 0.6B talker)."""
+    Hc = cp_cfg.hidden_size
+    build.check_layer_shapes(B, Hc, cp_cfg.num_attention_heads, cp_cfg.num_key_value_heads,
+                             cp_cfg.head_dim, cp_cfg.intermediate_size, 1)
+    build.require(Ht % 256 == 0 and Hc % 256 == 0,
+                  f"talker hidden {Ht} and hidden {Hc} must be multiples of 256")
+    build.require(V <= build.MAX_SMEM_ROW and V % 4 == 0,
+                  f"vocab {V}: want a multiple of 4, at most {build.MAX_SMEM_ROW}")
+    build.require(Qm1 + 1 <= 16, f"{Qm1 + 1} positions: the kernel's attention holds 16 slots")
+    build.require(has_proj or Hc == Ht, "without a projection Hc must equal Ht")
+
+
 def _launch_state(cp: Dict[str, Any], cp_cfg, B: int, Ht: int, V: int, Qm1: int, L: int,
                   dev) -> "build.LaunchState":
     """What the wrapper keeps between frames for these weights, this batch
@@ -250,8 +267,9 @@ def subtalker_frame_fused(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
     """One fused sub-talker frame. cp: code-predictor params with int8 layer
     weights; past_hidden/code0_embed: (B, 1, Ht). Returns (codes (B, Q-1)
     int32, emb_sum (B, 1, Ht) bf16). CPU tensors run `subtalker_frame_ref`;
-    CUDA tensors launch the kernel (each launch adds one to
-    `subtalker_frame_fused.launches`)."""
+    CUDA tensors launch the kernel, once per row tile of at most 32 rows
+    (`frame_row_tiles`), each launch adding one to
+    `subtalker_frame_fused.launches`."""
     if not is_int8(cp["layers"]["self_attn"]["qkv_proj"]["weight"]):
         raise ValueError("fused sub-talker requires int8-quantized params")
     if past_hidden.device.type == "cpu":
@@ -260,26 +278,57 @@ def subtalker_frame_fused(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
     if past_hidden.device.type != "cuda":
         raise ValueError(f"fused sub-talker: unsupported device {past_hidden.device}")
     _check_sampling(sampling, rows)
+    B, Ht = past_hidden.shape[0], past_hidden.shape[-1]
+    build.require(tuple(code0_embed.shape) == (B, 1, Ht),
+                  f"code0_embed: want {(B, 1, Ht)}, got {tuple(code0_embed.shape)}")
+    return frame_row_tiles(_frame_launch, cp, cp_cfg, past_hidden, code0_embed, sampling,
+                           rows=rows, gumbel=gumbel, generator=generator)
 
+
+def frame_row_tiles(frame, cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
+                    code0_embed: torch.Tensor, sampling, rows: Optional[torch.Tensor] = None,
+                    gumbel: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    max_rows: int = build.ENGINE_MAX_ROWS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`frame` (one kernel launch, or the twin) over the equal row tiles of
+    `build.row_tiles(B, max_rows)`, one after another: each tile gets its
+    rows of past_hidden, code0_embed and the sampling rows, and its slice
+    (axis 1) of the Gumbel noise, drawn once for the whole batch where none
+    is passed (the same draw an untiled frame makes); its codes and emb_sum
+    land in the batch's outputs."""
+    B = past_hidden.shape[0]
+    tiles = build.row_tiles(B, max_rows)
+    if len(tiles) == 1:
+        return frame(cp, cp_cfg, past_hidden, code0_embed, sampling, rows=rows,
+                     gumbel=gumbel, generator=generator)
+    Qm1, V = cp["lm_heads"].shape[:2]
+    if gumbel is None and (rows is not None or sampling.do_sample):
+        gumbel = gumbel_noise((Qm1, B, V), generator, past_hidden.device)
+    codes = emb = None
+    for sl in tiles:
+        c, e = frame(cp, cp_cfg, past_hidden[sl], code0_embed[sl], sampling,
+                     rows=None if rows is None else rows[sl],
+                     gumbel=None if gumbel is None else gumbel[:, sl])
+        if codes is None:
+            codes = c.new_empty((B,) + c.shape[1:])
+            emb = e.new_empty((B,) + e.shape[1:])
+        codes[sl], emb[sl] = c, e
+    return codes, emb
+
+
+def _frame_launch(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
+                  code0_embed: torch.Tensor, sampling, rows: Optional[torch.Tensor] = None,
+                  gumbel: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel over B <= 32 rows."""
     dev = past_hidden.device
     B, Ht = past_hidden.shape[0], past_hidden.shape[-1]
-    Hc = cp_cfg.hidden_size
-    heads, kvh, D = (cp_cfg.num_attention_heads, cp_cfg.num_key_value_heads,
-                     cp_cfg.head_dim)
-    inter = cp_cfg.intermediate_size
     Qm1, V = cp["lm_heads"].shape[:2]
     L = cp["layers"]["self_attn"]["qkv_proj"]["weight"]["q"].shape[0]
     has_proj = cp.get("proj") is not None
-    build.check_layer_shapes(B, Hc, heads, kvh, D, inter, 1)
-    build.require(Ht % 256 == 0 and Hc % 256 == 0,
-                  f"talker hidden {Ht} and hidden {Hc} must be multiples of 256")
-    build.require(V <= build.MAX_SMEM_ROW and V % 4 == 0,
-                  f"vocab {V}: want a multiple of 4, at most {build.MAX_SMEM_ROW}")
-    build.require(Qm1 + 1 <= 16, f"{Qm1 + 1} positions: the kernel's attention holds 16 slots")
+    check_frame_shapes(B, Ht, cp_cfg, V, Qm1, has_proj)
     build.require(B <= build.sm_count(dev), f"batch {B}: sampling takes one block per row")
-    build.require(has_proj or Hc == Ht, "without a projection Hc must equal Ht")
-    build.require(tuple(code0_embed.shape) == (B, 1, Ht),
-                  f"code0_embed: want {(B, 1, Ht)}, got {tuple(code0_embed.shape)}")
     build.same_device(dev, code0_embed=code0_embed, lm_heads=cp["lm_heads"],
                       embeddings=cp["embeddings"], norm=cp["norm"]["weight"],
                       proj=cp["proj"]["weight"] if has_proj else None)

@@ -294,12 +294,13 @@ def talker_step_fused_cache(params: Dict[str, Any], cfg: TalkerConfig,
 
     Returns (logits (B, V) f32, hidden (B, 1, H), k_cache, v_cache), the new
     slot written in place, plus (k_scale, v_scale) in int8-KV mode. CPU
-    tensors run `talker_step_ref`; CUDA tensors launch the kernel, each
-    launch adding one to `talker_step_fused_cache.launches` (bf16 KV) or
-    `.launches_int8_kv` (int8 KV). An int slot is checked on the host; a
-    per-row slot tensor is not (that would cost a sync per step): a slot
-    outside the buffer makes the kernel trap, and the next sync raises, as
-    the twin raises IndexError. The serving engine never hands one over
+    tensors run `talker_step_ref`; CUDA tensors launch the kernel, once per
+    row tile of at most 32 rows (`step_row_tiles`), each launch adding one
+    to `talker_step_fused_cache.launches` (bf16 KV) or `.launches_int8_kv`
+    (int8 KV). An int slot is checked on the host; a per-row slot tensor is
+    not (that would cost a sync per step): a slot outside the buffer makes
+    the kernel trap, and the next sync raises, as the twin raises
+    IndexError. The serving engine never hands one over
     (`ContinuousBatchingEngine` caps every budget to its buffer).
     """
     layers = params["layers"]
@@ -307,14 +308,68 @@ def talker_step_fused_cache(params: Dict[str, Any], cfg: TalkerConfig,
         raise ValueError("fused talker step requires int8-quantized params")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("int8-KV mode takes both k_scale and v_scale")
-    quant_kv = k_scale is not None
     if embed.device.type == "cpu":
         return talker_step_ref(params, cfg, embed, position, cache_index,
                                kv_valid, k_cache, v_cache, attend_len,
                                k_scale=k_scale, v_scale=v_scale)
     if embed.device.type != "cuda":
         raise ValueError(f"fused talker step: unsupported device {embed.device}")
+    return step_row_tiles(_step_launch, params, cfg, embed, position, cache_index, kv_valid,
+                          k_cache, v_cache, attend_len, k_scale, v_scale)
 
+
+def step_row_tiles(step, params: Dict[str, Any], cfg: TalkerConfig, embed: torch.Tensor,
+                   position: torch.Tensor, cache_index, kv_valid: torch.Tensor,
+                   k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   attend_len: Optional[int] = None, k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None,
+                   max_rows: int = build.ENGINE_MAX_ROWS):
+    """`step` (one kernel launch, or the twin) over the equal row tiles of
+    `build.row_tiles(B, max_rows)`, one after another: each tile gets its
+    rows of embed, position, per-row slots and kv_valid and views of its
+    rows of the caches and scales, which it writes in place (rows are
+    independent in the step). Returns what `step` returns for the batch."""
+    tiles = build.row_tiles(embed.shape[0], max_rows)
+    if len(tiles) == 1:
+        return step(params, cfg, embed, position, cache_index, kv_valid, k_cache, v_cache,
+                    attend_len, k_scale=k_scale, v_scale=v_scale)
+    ci = cache_index
+    per_row = not isinstance(ci, int) and torch.as_tensor(ci).ndim == 1
+    logits = hidden = None
+    for sl in tiles:
+        lg, h = step(params, cfg, embed[sl], position[sl], ci[sl] if per_row else ci,
+                     kv_valid[sl], k_cache[:, sl], v_cache[:, sl], attend_len,
+                     k_scale=None if k_scale is None else k_scale[:, sl],
+                     v_scale=None if v_scale is None else v_scale[:, sl])[:2]
+        if logits is None:
+            logits = lg.new_empty((embed.shape[0],) + lg.shape[1:])
+            hidden = h.new_empty((embed.shape[0],) + h.shape[1:])
+        logits[sl], hidden[sl] = lg, h
+    out = (logits, hidden, k_cache, v_cache)
+    return out + (k_scale, v_scale) if k_scale is not None else out
+
+
+def _cache_rows(c: torch.Tensor) -> int:
+    """Rows of the contiguous (L, rows, ...) tensor of which `c` is a slice
+    of rows (its own rows when it is contiguous); 0 when it is neither."""
+    if c.is_contiguous():
+        return c.shape[1]
+    row = c[0, 0]
+    if row.is_contiguous() and c.stride(1) == row.numel() and c.stride(0) % c.stride(1) == 0:
+        return c.stride(0) // c.stride(1)
+    return 0
+
+
+def _step_launch(params: Dict[str, Any], cfg: TalkerConfig, embed: torch.Tensor,
+                 position: torch.Tensor, cache_index, kv_valid: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 attend_len: Optional[int] = None, k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None):
+    """One launch of the kernel over B <= 32 rows. The caches (and scales)
+    are contiguous or a slice of rows of contiguous ones (a row tile): the
+    kernel takes the rows of the whole cache for its layer stride."""
+    layers = params["layers"]
+    quant_kv = k_scale is not None
     B, _, H = embed.shape
     dev = embed.device
     heads, kvh, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -325,19 +380,19 @@ def talker_step_fused_cache(params: Dict[str, Any], cfg: TalkerConfig,
     S = S_buf if attend_len is None else attend_len
     C = pick_mlp_chunks(inter)
     build.check_layer_shapes(B, H, heads, kvh, D, inter, C)
+    rows = _cache_rows(k_cache)
     kv_dtype = torch.int8 if quant_kv else torch.bfloat16
-    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        build.require(c.dtype == kv_dtype and c.is_contiguous() and c.is_cuda
-                      and tuple(c.shape) == (L, B, kvh, S_buf, D),
-                      f"{name}: want contiguous {kv_dtype} CUDA (L, B, Hkv, S, D) = "
-                      f"{(L, B, kvh, S_buf, D)}, got {tuple(c.shape)} {c.dtype}")
+    caches = (("k_cache", k_cache), ("v_cache", v_cache))
+    scales = (("k_scale", k_scale), ("v_scale", v_scale)) if quant_kv else ()
+    for name, c in caches + scales:
+        want = (L, B, kvh, S_buf, D) if name.endswith("cache") else (L, B, kvh, S_buf)
+        dtype = kv_dtype if name.endswith("cache") else torch.float32
+        build.require(c.dtype == dtype and c.is_cuda and tuple(c.shape) == want
+                      and rows >= B and _cache_rows(c) == rows,
+                      f"{name}: want {dtype} CUDA {want}, rows of one contiguous cache, "
+                      f"got {tuple(c.shape)} {c.dtype}")
     if quant_kv:
         build.require(D % 16 == 0, f"int8 KV: head_dim {D} must be a multiple of 16")
-        for name, c in (("k_scale", k_scale), ("v_scale", v_scale)):
-            build.require(c.dtype == torch.float32 and c.is_contiguous() and c.is_cuda
-                          and tuple(c.shape) == (L, B, kvh, S_buf),
-                          f"{name}: want contiguous float32 CUDA (L, B, Hkv, S) = "
-                          f"{(L, B, kvh, S_buf)}, got {tuple(c.shape)} {c.dtype}")
     build.require(0 < S <= S_buf and tuple(kv_valid.shape) == (B, S_buf)
                   and kv_valid.dtype == torch.bool,
                   "kv_valid: want (B, S_buf) bool and 0 < attend_len <= S_buf")
@@ -362,7 +417,7 @@ def talker_step_fused_cache(params: Dict[str, Any], cfg: TalkerConfig,
     x0 = build.bf16(embed[:, 0, :])
     h = torch.empty((B, H), dtype=torch.bfloat16, device=dev)
     args = st.args
-    args.S_buf, args.S_att, args.ld_valid = S_buf, S, S_buf
+    args.S_buf, args.S_att, args.ld_valid, args.cache_rows = S_buf, S, S_buf, rows
     args.kv_splits = pick_kv_splits(B, kvh, S, build.sm_count(dev))
     args.kv_cps = -(-(-(-S // KV_CHUNK)) // args.kv_splits)
     args.embed, args.cosr, args.sinr = build.ptr(x0), build.ptr(cos), build.ptr(sin)

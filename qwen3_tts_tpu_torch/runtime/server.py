@@ -146,12 +146,12 @@ class TTSServer:
         kw = model._merge_generate_kwargs(**(overrides or {}))
         if max_new_tokens is not None:
             kw["max_new_tokens"] = max_new_tokens
-        # The server's serve step defaults to the plain route unless
-        # `overrides` names fused_talker_step, whatever the model's own
-        # default: the JAX package chose that for first-packet latency on
-        # its TPU (part of the API; whether it holds on the H100 is open).
-        if "fused_talker_step" not in (overrides or {}):
-            kw["fused_talker_step"] = False
+        # The serve step is the model's own default (kernel 2 on an int8
+        # load on CUDA) unless `overrides` names fused_talker_step. The JAX
+        # package serves the plain route unless asked, from a first-packet
+        # measurement on its TPU; on the H100 the fused route won both
+        # requests/s and first-packet p50 (chip_smoke.py's serve-route A/B),
+        # so the port departs from that rule.
         self.gen_cfg: GenerationConfig = model._generation_config(kw)
         self.dec_params = tok.dec_params
         self.dec_cfg = tok.config.decoder_config

@@ -332,7 +332,22 @@ def mimi_encoder_state(cfg: MimiEncoderConfig, seed: int) -> Dict[str, Any]:
     }
 
 
-# The released 1.7B talker's widths (the JAX package's TALKER_1B7 preset).
+# The released talkers' widths (the JAX package's TALKER_0B6 and TALKER_1B7
+# presets). At 0.6B the talker's hidden size equals the code predictor's, so
+# the sub-talker runs without the small_to_mtp projection.
+TALKER_0B6 = TalkerConfig(
+    vocab_size=6400, hidden_size=1024, intermediate_size=3072,
+    num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=8,
+    head_dim=128, text_hidden_size=1024, text_vocab_size=151936,
+    num_code_groups=16,
+    rope_scaling={"rope_type": "default", "mrope_section": [24, 20, 20],
+                  "interleaved": True},
+    code_predictor_config=CodePredictorConfig(
+        vocab_size=2048, hidden_size=1024, intermediate_size=3072,
+        num_hidden_layers=5, num_attention_heads=16, num_key_value_heads=8,
+        head_dim=128, num_code_groups=16),
+)
+
 TALKER_1B7 = TalkerConfig(
     vocab_size=6400, hidden_size=2048, intermediate_size=6144,
     num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=8,

@@ -296,7 +296,7 @@ def test_long_prefill_raises_and_cuda_request_checked(checkpoint, monkeypatch):
     tm = TModel.from_pretrained(checkpoint[0], dtype=torch.float32, device="cpu")
     tc = tm.config.talker_config
     B, T = 2, ttalker.FLASH_PREFILL_MIN_T
-    starts = [0, 301]
+    starts = [0, min(301, T // 2)]   # both rows hold valid tokens at any threshold
     gen = torch.Generator().manual_seed(0)
     embeds = 0.3 * torch.randn((B, T, tc.hidden_size), generator=gen)
     mask = (torch.arange(T)[None, :] >= torch.tensor(starts)[:, None]).to(torch.int32)

@@ -5,6 +5,13 @@
   tests/test_pallas_kernels.py with that file's tolerances: fp32 rtol/atol
   2e-5 on valid rows (the sums run in another order), bf16 3e-2 (bf16
   outputs); padded rows are zeros in both.
+- `flash_plan`, the kernel's work list, against `_mask` over a sweep of
+  (T, starts, window): the visited tiles hold exactly the keys some row of
+  the query tile sees, unmasked tiles are wholly visible and masked ones
+  are not, padding-only query tiles are zero writes, and every item is
+  dealt to one CTA once;
+- `flash_tile_products`' plain version (the kernel's two products on one
+  tile) against numpy, rows and keys past T read as zeros;
 - `talker_prefill` with the flash route forced on at small shapes (both
   packages' FLASH_PREFILL_MIN_T lowered to 8) against the JAX package's,
   on one fp32 parameter tree: logits, valid hiddens and valid cache slots
@@ -81,6 +88,72 @@ def test_flash_prefill_twin_matches_dense_attention():
         for b in range(B):
             torch.testing.assert_close(got[b, start[b]:], want[b, start[b]:],
                                        rtol=1e-5, atol=1e-5)
+
+
+PLAN_CASES = [  # (T, starts, window)
+    (2304, (24, 414), None),            # the clone prefill
+    (2100, (0, 77, 2050), None),        # T not a multiple of 128, a row of padding tiles
+    (2048, (0, 129, 700, 1500), 512),   # a window of several tiles
+    (1000, (0, 300), 100),              # a window smaller than one tile
+    (300, (5, 0, 299), 24),
+    (64, (0, 63), None),
+    (130, (129,), 1),
+]
+
+
+@pytest.mark.parametrize("T,starts,window", PLAN_CASES)
+def test_flash_plan_covers_exactly_the_visible_keys(T, starts, window):
+    Hkv, ctas = 2, 7
+    items, offsets = tpa.flash_plan(T, starts, window, Hkv, ctas)
+    nq = -(-T // tpa.FP_BQ)
+    assert items.shape == (len(starts) * Hkv * nq, len(tpa.ITEM_FIELDS))
+    assert offsets[0] == 0 and offsets[-1] == len(items)
+    assert len(offsets) == min(len(items), ctas) + 1
+    assert (np.diff(offsets) > 0).all()
+    assert len({(b, hk, q) for b, hk, q in items[:, :3].tolist()}) == len(items)
+    mask = tpa._mask(T, torch.tensor(starts), window).numpy()
+    for b, hk, q_lo, kt_lo, kt_hi, um_lo, um_hi, s in items.tolist():
+        assert s == starts[b] and q_lo % tpa.FP_BQ == 0
+        vis = mask[b, q_lo:min(q_lo + tpa.FP_BQ, T)]        # valid rows of the tile
+        visited = np.zeros(T, bool)
+        visited[kt_lo * tpa.FP_BK:(kt_hi + 1) * tpa.FP_BK] = kt_lo <= kt_hi
+        assert not (vis.any(0) & ~visited).any()             # every visible key is visited
+        assert (kt_lo > kt_hi) == (not vis.any())            # a zero write iff all padding
+        for kt in range(kt_lo, kt_hi + 1):
+            tile = vis[:, kt * tpa.FP_BK:(kt + 1) * tpa.FP_BK]
+            assert tile.any()                                # no tile visited for nothing
+            whole = tile.all() and (kt + 1) * tpa.FP_BK <= T
+            assert whole == (um_lo <= kt <= um_hi)           # masks on edge tiles only
+
+
+def test_device_plan_is_kept_per_start_tensor():
+    start = torch.tensor([3, 200], dtype=torch.int32)
+    items, offsets = tpa.device_plan(start, 640, None, 2, 5)
+    want_items, want_offsets = tpa.flash_plan(640, [3, 200], None, 2, 5)
+    assert np.array_equal(items.numpy(), want_items)
+    assert np.array_equal(offsets.numpy(), want_offsets)
+    assert tpa.device_plan(start, 640, None, 2, 5)[0] is items
+    start[1] = 0   # written in place: a new plan
+    again = tpa.device_plan(start, 640, None, 2, 5)[0]
+    assert again is not items and (again[:, 7] == 0).any()
+
+
+@pytest.mark.parametrize("q_lo,k0", [(0, 0), (64, 128), (192, 128)])
+def test_flash_tile_products_plain_version(q_lo, k0):
+    B, T, Hq, Hkv, D = 2, 250, 4, 2, 128
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(B, T, Hq, Hkv, D, 5))
+    s, o = tpa.flash_tile_products(q, k, v, 1, 3, q_lo, k0)
+
+    def tile(x, h, lo, n):
+        t = np.zeros((n, D), np.float32)
+        rows = x[1, lo:lo + n, h].float().numpy()
+        t[:len(rows)] = rows
+        return t
+
+    want_s = tile(q, 3, q_lo, 64) @ tile(k, 1, k0, 128).T
+    np.testing.assert_allclose(s.numpy(), want_s, rtol=1e-5, atol=1e-4)
+    p = s.to(torch.bfloat16).float().numpy()
+    np.testing.assert_allclose(o.numpy(), p @ tile(v, 1, k0, 128), rtol=1e-5, atol=1e-4)
 
 
 def test_flash_prefill_refuses_other_devices():

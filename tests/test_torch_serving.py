@@ -318,14 +318,19 @@ def test_server_clone_context_is_per_request(ckpt):  # noqa: F811
 
 
 def test_server_fused_talker_step_default(checkpoint):  # noqa: F811
-    """The server's serve step is the plain route unless `overrides` names
-    fused_talker_step, even where the model itself defaults onto kernel 2
-    (an int8 model on a CUDA device); the opt-in carries the kernel into the
-    engine and whole 128-slot KV chunks."""
+    """The server's serve step follows the model's own default: kernel 2 on
+    an int8 model on a CUDA device (the port departs here from the JAX
+    rule, which serves the plain route unless asked, on the card's A/B of
+    the two routes), the plain route on the CPU; `overrides` still chooses
+    either, and the fused step carries whole 128-slot KV chunks into the
+    engine."""
     _, tm = _models(checkpoint, jnp.bfloat16, torch.bfloat16, quantize="int8")
+    assert _server(tm).gen_cfg.fused_talker_step is False
     tm.device = torch.device("cuda")   # the default is decided by the device type
     assert tm._generation_config(tm._merge_generate_kwargs()).fused_talker_step
-    assert _server(tm).gen_cfg.fused_talker_step is False
+    srv = _server(tm)
+    assert srv.gen_cfg.fused_talker_step and srv.engine.max_len % 128 == 0
+    assert _server(tm, overrides={"fused_talker_step": False}).gen_cfg.fused_talker_step is False
     srv = _server(tm, overrides={"fused_talker_step": True, "kv_quant": True})
     assert srv.gen_cfg.fused_talker_step and srv.gen_cfg.kv_quant
     assert srv.engine.max_len % 128 == 0 and srv.engine.state.cache.quantized
