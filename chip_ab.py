@@ -14,6 +14,10 @@ B in {1, 8, 32} (keys `subtalker/B<n>`). Then `flash_prefill` at the clone
 call's prefill (B=2, T=2304, starts 24 and 414, q/k/v as views into one
 fused qkv tensor, as the prefill hands them over) and at B=4, T=4096
 (starts 0/333/1400/3000), bf16 at the 1.7B widths (keys `flash/<shape>`).
+Then the frame loop: device ms per frame of `decode_chunk` (8 frames a
+call, sampled, both kernels) at B=4 after a 32-token prefill, as CUDA graph
+replays where the checkout has them (`loop/graph`, runtime/graphs.py) and
+on the eager loop (`loop/eager`).
 Each reading is a fresh process of one
 checkout (the packages share a name), and each round runs the checkouts
 forward then backward (A B B A for two), so drift of the card's clocks
@@ -34,6 +38,7 @@ SHAPES = {"B8_S256": (8, 256, 128), "B32_S256": (32, 256, 128),
           "B2_S2432": (2, 2432, 2328)}   # (B, S_buf, slot)
 SUBTALKER_B = (1, 8, 32)
 FLASH_SHAPES = {"B2_T2304": (2304, (24, 414)), "B4_T4096": (4096, (0, 333, 1400, 3000))}
+LOOP_B, LOOP_T, LOOP_FRAMES = 4, 32, 8
 
 
 def child(root: str) -> None:
@@ -118,7 +123,57 @@ def child(root: str) -> None:
         start = torch.tensor(starts, dtype=torch.int32, device=dev)
         reps = [cuda_ms(lambda: flash_prefill(q, k, v, start)) for _ in range(5)]
         out[f"flash/{shape}"] = float(np.median(reps))
+    out.update(loop_ms(params, cfg, gen, dev))
     print(json.dumps(out), flush=True)
+
+
+def loop_ms(params, cfg, gen, dev) -> dict:
+    """Device ms per frame of decode_chunk, graphed (where the checkout has
+    runtime/graphs.py) and eager: the median of 5 chunks after one that
+    captures."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.sampling import SamplingParams
+    from qwen3_tts_tpu_torch.runtime import generate as G
+
+    try:
+        from qwen3_tts_tpu_torch.runtime import graphs
+    except ImportError:
+        graphs = None
+    sp = SamplingParams(do_sample=True, top_k=50, temperature=0.9)
+    gcfg = G.GenerationConfig(max_new_tokens=128, sampling=sp, subtalker=sp,
+                              fused_subtalker=True, fused_talker_step=True)
+    B, T, H, K = LOOP_B, LOOP_T, cfg.hidden_size, LOOP_FRAMES
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+
+    embeds, trailing, pad = rnd(B, T, H), rnd(B, 16, H), rnd(1, 1, H)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    modes = {"loop/eager": graphs.eager if graphs else contextlib.nullcontext}
+    if graphs:
+        modes["loop/graph"] = contextlib.nullcontext
+    out = {}
+    for key, ctx in modes.items():
+        with ctx(), torch.no_grad():
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            state, const = G.init_decode_state(params, cfg, gcfg, embeds, mask, trailing, pad,
+                                               g, G.kv_capacity(gcfg, T))
+            state = G.decode_chunk(params, cfg, gcfg, const, state, K, g)[0]
+            reps = []
+            for _ in range(5):
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                torch.cuda.synchronize()
+                a.record()
+                state = G.decode_chunk(params, cfg, gcfg, const, state, K, g)[0]
+                b.record()
+                torch.cuda.synchronize()
+                reps.append(a.elapsed_time(b) / K)
+        out[key] = float(np.median(reps))
+    return out
 
 
 def main() -> int:

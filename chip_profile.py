@@ -9,9 +9,12 @@ Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
    prefill on the flash and on the dense route);
 3. torch.profiler over one voice-clone call (bf16 and int8 KV), one
    custom-voice call, one int8-KV custom-voice stream and one int8-KV
-   serving run (chip_smoke's 12 requests over 8 slots): device time by
-   kernel (top rows) and the busy share (device kernel time over the
-   unprofiled wall of the same call); each call's Chrome trace goes to
+   serving run (chip_smoke's 12 requests over 8 slots), the last three with
+   the frame loop as CUDA graph replays and again on the eager loop
+   (`runtime/graphs.py` `eager()`): device time by kernel (top rows) and
+   the busy share (device kernel time over the unprofiled wall of the same
+   call); the custom-voice call's tick (wall over the longest row's frames)
+   and RTF, graphed and eager; each call's Chrome trace goes to
    build/traces/<call>/trace.json (`utils/profiling.py` `device_trace`).
 
 4. the decode kernels' stages: the kernel library built once more with
@@ -110,33 +113,56 @@ def phase_profile(model, front, custom_voice_model) -> None:
              prefill_dense_s=wall(lambda: prefill(False)))
     kw = dict(language="english", ref_audio=ref, ref_text=CLONE_REF_TEXT,
               non_streaming_mode=True, seed=SEED)
+    from qwen3_tts_tpu_torch.runtime import graphs
     from qwen3_tts_tpu_torch.runtime.server import TTSServer
 
-    srv = TTSServer(custom_voice_model, num_slots=SERVE_SLOTS, overrides=SERVE_OVERRIDES,
-                    max_new_tokens=MAX_NEW_TOKENS, seed=SEED)
+    def server():
+        return TTSServer(custom_voice_model, num_slots=SERVE_SLOTS, overrides=SERVE_OVERRIDES,
+                         max_new_tokens=MAX_NEW_TOKENS, seed=SEED)
+
+    srv = server()
+    with graphs.eager():   # an engine takes its route when it is built
+        srv_eager = server()
     runs = iter(range(10**6))
 
-    def serve():
+    def serve(srv):
         n = next(runs)
         serve_all(srv, [lambda i=i: srv.submit_custom_voice(
             f"{n}-{i}", text=f"{TEXTS[i % len(TEXTS)]} Request {i}.", speaker="vivian",
             language="english", stream=i % 2 == 0) for i in range(SERVE_REQUESTS)])
+
+    def custom_voice():
+        return custom_voice_model.generate_custom_voice(
+            TEXTS, speaker="vivian", language="english", seed=SEED,
+            max_new_tokens=MAX_NEW_TOKENS)
+
+    def stream():
+        return list(custom_voice_model.stream_custom_voice(
+            TEXTS, speaker="vivian", language="english", seed=SEED, kv_quant=True,
+            max_new_tokens=MAX_NEW_TOKENS))
+
+    def eager(fn):
+        def run():
+            with graphs.eager():
+                return fn()
+        return run
 
     calls = {
         "clone": lambda: model.generate_voice_clone(
             CLONE_TEXTS, max_new_tokens=CLONE_MAX_NEW_TOKENS, **kw),
         "clone int8_kv": lambda: model.generate_voice_clone(
             CLONE_TEXTS, max_new_tokens=CLONE_MAX_NEW_TOKENS, kv_quant=True, **kw),
-        "custom_voice": lambda: custom_voice_model.generate_custom_voice(
-            TEXTS, speaker="vivian", language="english", seed=SEED,
-            max_new_tokens=MAX_NEW_TOKENS),
-        "stream custom_voice int8_kv": lambda: list(custom_voice_model.stream_custom_voice(
-            TEXTS, speaker="vivian", language="english", seed=SEED, kv_quant=True,
-            max_new_tokens=MAX_NEW_TOKENS)),
-        "serve custom_voice int8_kv": serve,
+        "custom_voice": custom_voice,
+        "custom_voice eager": eager(custom_voice),
+        "stream custom_voice int8_kv": stream,
+        "stream custom_voice int8_kv eager": eager(stream),
+        "serve custom_voice int8_kv": lambda: serve(srv),
+        "serve custom_voice int8_kv eager": lambda: serve(srv_eager),
     }
+    unprofiled = {}
     for name, fn in calls.items():
         walls = wall(fn, 2)
+        unprofiled[name] = min(walls)
         # no `annotate` around the call: a record_function range comes back
         # among the CUDA events (a device-side annotation as long as the
         # call) and would count as kernel time
@@ -153,6 +179,14 @@ def phase_profile(model, front, custom_voice_model) -> None:
              busy_share=f"{total / 1e3 / min(walls):.3f}")
         for kname, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
             print(f"  {t:9.2f} ms {n:6d} launches  {kname}", flush=True)
+    wavs, sr = custom_voice()
+    up = custom_voice_model.speech_tokenizer.get_decode_upsample_rate()
+    frames, audio_s = max(w.shape[0] for w in wavs) // up, sum(w.shape[0] for w in wavs) / sr
+    line("profile custom_voice tick", frames=frames,
+         **{f"{k}_tick_ms": f"{unprofiled[n] / frames * 1e3:.3f}"
+            for k, n in (("graph", "custom_voice"), ("eager", "custom_voice eager"))},
+         **{f"{k}_rtf": f"{unprofiled[n] / audio_s:.4f}"
+            for k, n in (("graph", "custom_voice"), ("eager", "custom_voice eager"))})
 
 
 def phase_engine_stages(params, cfg, device) -> None:

@@ -37,19 +37,37 @@ Phases, each printing one line (any failure raises and exits non-zero):
 5. slice 1: an in-memory 1.7B int8 custom-voice model (random weights from
    a seed, default-width 12 Hz vocoder, stand-in text tokenizer) synthesises
    a few texts through `generate_custom_voice`, with a bf16 and then an int8
-   KV cache; the kernels' launch counters must move, the waveforms must be
-   finite, 24 kHz, whole 1920-sample frames;
+   KV cache, its frame loop as CUDA graph replays (runtime/graphs.py; each
+   timed call after a warm-up call of its shape, which captures); the
+   kernels' launch counters (which count every replayed launch) must move,
+   the waveforms must be finite, 24 kHz, whole 1920-sample frames; then the
+   graphed frame loop against the eager one (`graphs.eager()`), greedy and
+   sampled from one seeded generator, bf16 and int8 KV: codes, lengths and
+   hidden states equal, and the API call's wall, tick and RTF on each;
 6. streaming: `stream_custom_voice(..., kv_quant=True)`: first-packet
    latency, packets, frames; the audio's samples must be the longest row's
-   active frames x 1920;
+   active frames x 1920; graphed against eager: the same chunks' codes and
+   the same packets;
 7. serving: a `TTSServer` (8 slots, kernel 2 in int8-KV mode) serves 12
    requests, half streamed, one cancelled mid-stream, one with a zero frame
    budget: every other request completes, the cancelled one yields nothing
    after its cancel; requests/s, audio s per wall s, first-packet p50/p95;
+   its serve ticks as graph replays, then the same run on the eager loop:
+   every request's codes equal;
    the server's serve step A/B: the same 6 requests (3 streamed, 16 frames)
    on the plain route, then on kernel 2, requests/s and first-packet p50 of
    each; the server's default must be the route that wins both; a
    48-slot server (both kernels as row tiles) drains 52 requests;
+   the graph layer: graphs captured and replayed, decode contexts, static
+   and pool bytes; an eviction of every context while a stream is held
+   after its first packet: a generate call re-captures and gives its
+   earlier codes, the held stream finishes with an uninterrupted stream's
+   codes; `warmup_model` over B in {1, 4} x prefill buckets {32, 64}, after
+   which live calls of those shapes capture nothing; the front door:
+   `ThreadedTTSServer` behind `_HttpDemo` on a localhost port, 8 concurrent
+   POST /tts and 4 POST /tts_stream from worker threads, all audio of whole
+   frames and together the frames the engine generated, a stream closed
+   after its first packet frees its slot, the engine route serving all;
 8. the clone model (the same talker as a base model, the speaker encoder at
    the released widths, the default-width Mimi encoder): a 10 s reference
    clip's codes and speaker embedding on the card against the host twins;
@@ -81,6 +99,7 @@ Imports nothing of JAX: the port runs on hosts that have no JAX installed.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -188,8 +207,12 @@ PROBE_SHAPED_CASES = [dict(L=3, B=5, Hkv=7, Sc=128, S_buf=384, Wr=600, H=2048),
 PROBE_MAX_SHARE = 1.05        # of the data-sheet rate: above it, not bandwidth
 
 
+T_START = time.time()
+
+
 def line(phase: str, **kw) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items())
+          + f" at_s={time.time() - T_START:.1f}", flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1086,7 +1109,8 @@ def phase_clone(model, front, kv_quant: bool = False, base=None) -> dict:
     mode = "int8_kv" if kv_quant else "bf16_kv"
     kw = dict(language="english", ref_audio=(front["wav"], front["sr"]),
               ref_text=CLONE_REF_TEXT, non_streaming_mode=True, seed=SEED, kv_quant=kv_quant)
-    model.generate_voice_clone(CLONE_TEXTS, max_new_tokens=2, **kw)   # warm-up
+    # warm-up at the timed call's shape: the graphs it replays are captured here
+    model.generate_voice_clone(CLONE_TEXTS, max_new_tokens=CLONE_MAX_NEW_TOKENS, **kw)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1137,7 +1161,11 @@ def phase_slice(model, kv_quant: bool = False, base=None, label="") -> dict:
     `base`)."""
     mode = "int8_kv" if kv_quant else "bf16_kv"
     kw = dict(speaker="vivian", language="english", seed=SEED, kv_quant=kv_quant)
-    model.generate_custom_voice(TEXTS[:1], max_new_tokens=4, **kw)   # warm-up
+    # warm-up at the timed call's shape: the graphs it replays are captured here
+    model.generate_custom_voice(TEXTS, max_new_tokens=MAX_NEW_TOKENS, **kw)
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    g0 = graphs.stats(model.device)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1145,6 +1173,9 @@ def phase_slice(model, kv_quant: bool = False, base=None, label="") -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches()
+    counts = graph_counts(model.device, g0)
+    if counts["graphs_replayed"] <= 0 or counts["graphs_captured"]:
+        raise AssertionError(f"the frame loop after its warm-up call: {counts}")
     specs = model._specs_custom_voice(TEXTS, "vivian", "english", None, True)
     codes = run_codes(model, specs, max_new_tokens=MAX_NEW_TOKENS, kv_quant=kv_quant)
     if sr != 24000:
@@ -1168,7 +1199,7 @@ def phase_slice(model, kv_quant: bool = False, base=None, label="") -> dict:
                                          f"{code_agreement(codes, base['codes']):.4f}")
     line(f"slice{label} {mode}", texts=len(TEXTS), frames=frames, wall_s=f"{wall:.3f}",
          frames_per_s=f"{sum(frames) / wall:.2f}", rtf=f"{out['rtf']:.4f}", **extra,
-         launches=launches)
+         **counts, launches=launches)
     return out
 
 
@@ -1196,7 +1227,12 @@ def phase_stream(name: str, stream, active_frames, up: int, max_frames: int) -> 
     packets, frames. The audio must be finite 24 kHz, and its samples the
     longest row's active frames x `up` (`active_frames()`: the per-row
     active frames of the same stream, with which the API trims and
-    silences)."""
+    silences). A first pass of the same stream captures its graphs."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    for _ in stream():
+        pass
+    g0 = graphs.stats(torch.device("cuda"))
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1208,6 +1244,9 @@ def phase_stream(name: str, stream, active_frames, up: int, max_frames: int) -> 
         chunks.append(wav)
     wall = time.time() - t0
     launches = read_launches()
+    counts = graph_counts(torch.device("cuda"), g0)
+    if counts["graphs_replayed"] <= 0:
+        raise AssertionError(f"{name}: the stream replayed no graph ({counts})")
     active = active_frames()
     samples = sum(c.shape[1] for c in chunks)
     if not (chunks and samples == int(active.max()) * up and active.max() <= max_frames):
@@ -1216,7 +1255,7 @@ def phase_stream(name: str, stream, active_frames, up: int, max_frames: int) -> 
         raise AssertionError(f"{name}: launches {launches}")
     line(f"stream {name}", first_packet_s=f"{first:.3f}", packets=len(chunks),
          frames=active.tolist(), wall_s=f"{wall:.3f}",
-         rtf=f"{wall / (active.sum() * up / 24000):.4f}", launches=launches)
+         rtf=f"{wall / (active.sum() * up / 24000):.4f}", **counts, launches=launches)
     return {"first_packet_s": first, "launches": launches}
 
 
@@ -1254,20 +1293,25 @@ def serve_all(srv, submits, cancel_id=None) -> tuple:
     return events, first, time.time() - t0
 
 
-def phase_serve(model) -> dict:
-    """TTSServer over the custom-voice model on kernel 2's int8-KV mode:
-    more requests than slots (staging and installs mid-chunk), half of them
-    streamed, one cancelled mid-stream, one with a zero frame budget."""
+def _serve_run(model, eager: bool) -> dict:
+    """One TTSServer over the custom-voice model on kernel 2's int8-KV mode,
+    its serve chunks as graph replays (or, `eager`, the eager loop), warmed
+    with one streamed request, then the 12-request mix: more requests than
+    slots (staging and installs mid-chunk), half of them streamed, one
+    cancelled mid-stream, one with a zero frame budget. Returns the checked
+    run's numbers and every request's codes (the server's code sink)."""
+    from qwen3_tts_tpu_torch.runtime import graphs
     from qwen3_tts_tpu_torch.runtime.server import AudioPacket, AudioResult, TTSServer
 
-    def server(max_new_tokens):
-        return TTSServer(model, num_slots=SERVE_SLOTS, overrides=SERVE_OVERRIDES,
-                         max_new_tokens=max_new_tokens, seed=SEED)
-
-    warm = server(8)
-    serve_all(warm, [lambda: warm.submit_custom_voice("w", text=TEXTS[0], speaker="vivian",
-                                                      language="english", stream=True)])
-    srv = server(MAX_NEW_TOKENS)
+    codes = {}
+    with graphs.eager() if eager else contextlib.nullcontext():
+        srv = TTSServer(model, num_slots=SERVE_SLOTS, overrides=SERVE_OVERRIDES,
+                        max_new_tokens=MAX_NEW_TOKENS, seed=SEED,
+                        code_sink=lambda rid, fr: codes.setdefault(rid, []).extend(fr))
+    if (srv.engine._graphs is None) != eager:
+        raise AssertionError(f"serve route: graphs {srv.engine._graphs}, eager={eager}")
+    serve_all(srv, [lambda: srv.submit_custom_voice("w", text=TEXTS[0], speaker="vivian",
+                                                    language="english", stream=True)])
     ids = [f"r{i}" for i in range(SERVE_REQUESTS)]
     stream = {rid: i % 2 == 0 for i, rid in enumerate(ids)}
     zero, cancel = ids[1], ids[2]
@@ -1275,10 +1319,12 @@ def phase_serve(model) -> dict:
         rid, text=f"{TEXTS[i % len(TEXTS)]} Request {i}.", speaker="vivian",
         language="english", stream=stream[rid], max_frames=0 if rid == zero else None)
         for i, rid in enumerate(ids)]
+    stats0 = graphs.stats(model.device)
     reset_launches()
     torch.cuda.synchronize()
     events, first, wall = serve_all(srv, submits, cancel_id=cancel)
     launches = read_launches()
+    stats1 = graphs.stats(model.device)
     audio, done = 0, set()
     for rid in ids:
         mine = [e for e in events if e.request_id == rid]
@@ -1301,18 +1347,42 @@ def phase_serve(model) -> dict:
         done.add(rid)
     if min(launches["subtalker"], launches["talker_step_int8_kv"]) <= 0:
         raise AssertionError(f"serving launches {launches}")
+    replays = stats1["replays"] - stats0["replays"]
+    if (replays > 0) == eager:
+        raise AssertionError(f"serving with eager={eager} replayed {replays} graphs")
     fp = np.array([first[rid] for rid in ids if stream[rid] and rid in first])
-    out = {"launches": launches, "requests_per_s": len(done) / wall,
-           "audio_s_per_s": audio / 24000 / wall,
-           "first_packet_p50": float(np.percentile(fp, 50)),
-           "first_packet_p95": float(np.percentile(fp, 95))}
-    line("serve custom voice", slots=SERVE_SLOTS, requests=len(ids),
-         completed=len(done), cancelled=cancel, zero_budget=zero, wall_s=f"{wall:.3f}",
-         requests_per_s=f"{out['requests_per_s']:.3f}",
-         audio_s_per_wall_s=f"{out['audio_s_per_s']:.3f}",
-         first_packet_p50_s=f"{out['first_packet_p50']:.3f}",
-         first_packet_p95_s=f"{out['first_packet_p95']:.3f}", launches=launches)
-    return out
+    return {"launches": launches, "requests_per_s": len(done) / wall, "wall": wall,
+            "audio_s_per_s": audio / 24000 / wall, "done": done, "cancel": cancel,
+            "zero": zero, "codes": codes, "replays": replays,
+            "captures": stats1["captures"] - stats0["captures"],
+            "first_packet_p50": float(np.percentile(fp, 50)),
+            "first_packet_p95": float(np.percentile(fp, 95))}
+
+
+def phase_serve(model) -> dict:
+    """TTSServer with its serve chunks as graph replays, then the same run on
+    the eager loop: every request's codes must be equal; requests/s, audio
+    s per wall s and first-packet p50/p95 of both."""
+    runs = {"graph": _serve_run(model, eager=False), "eager": _serve_run(model, eager=True)}
+    g, e = runs["graph"], runs["eager"]
+    if set(g["codes"]) != set(e["codes"]):
+        raise AssertionError(f"served requests differ: {sorted(g['codes'])} vs "
+                             f"{sorted(e['codes'])}")
+    for rid, fr in g["codes"].items():
+        if not np.array_equal(np.stack(fr), np.stack(e["codes"][rid])):
+            raise AssertionError(f"request {rid}: graphed and eager serving codes differ")
+    for name, r in runs.items():
+        line(f"serve custom voice {name}", slots=SERVE_SLOTS, requests=SERVE_REQUESTS,
+             completed=len(r["done"]), cancelled=r["cancel"], zero_budget=r["zero"],
+             wall_s=f"{r['wall']:.3f}", requests_per_s=f"{r['requests_per_s']:.3f}",
+             audio_s_per_wall_s=f"{r['audio_s_per_s']:.3f}",
+             first_packet_p50_s=f"{r['first_packet_p50']:.3f}",
+             first_packet_p95_s=f"{r['first_packet_p95']:.3f}",
+             graphs_captured=r["captures"], graphs_replayed=r["replays"],
+             launches=r["launches"])
+    line("serve graph vs eager", requests=len(g["codes"]), codes_equal=True,
+         frames=sum(len(v) for v in g["codes"].values()))
+    return g
 
 
 def _serve_mix(model, overrides, slots, n, frames, tag) -> dict:
@@ -1436,6 +1506,323 @@ def phase_serve_clone(model, front) -> None:
         raise AssertionError(f"clone serving context: {errs}")
     if launches["talker_step_int8_kv"] <= 0:
         raise AssertionError(f"clone serving launches {launches}")
+
+
+def frame_result(model, specs, **kw):
+    """The GenerationResult (codes, lengths, hidden) that `_run` computes for
+    `specs` with these generate kwargs and the smoke's seed: its route,
+    called directly."""
+    from qwen3_tts_tpu_torch.runtime.generate import generate_frames, generate_frames_chunked
+    from qwen3_tts_tpu_torch.runtime.prompts import assemble_prompt_specs
+
+    tc = model.config.talker_config
+    gen_cfg = model._generation_config(model._merge_generate_kwargs(**kw))
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
+    with torch.no_grad():
+        embeds, mask, trailing, pad = assemble_prompt_specs(model.talker_params, tc,
+                                                            model.config, specs, bucket=32)
+        run = generate_frames_chunked if gen_cfg.max_new_tokens > 1024 else generate_frames
+        return run(model.talker_params, tc, gen_cfg, embeds, mask, trailing, pad, gen)
+
+
+def _same_result(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def timed(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def graph_counts(device, before: dict) -> dict:
+    """Graphs captured and replayed on `device` since `graphs.stats` gave
+    `before`."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    now = graphs.stats(device)
+    return {"graphs_captured": now["captures"] - before["captures"],
+            "graphs_replayed": now["replays"] - before["replays"]}
+
+
+def phase_graph_ab(model) -> dict:
+    """The frame loop as CUDA graph replays against the eager loop, 1.7B
+    int8, the smoke's 4 texts: greedy and sampled from one seeded
+    generator, bf16 and int8 KV. Codes, lengths and hidden states must be
+    equal; the graphed call must replay graphs and the eager one none. Then
+    the API call's wall, graphed and eager (each after a warm-up): the tick
+    (wall / the longest row's frames) and the RTF."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    dev = model.device
+    specs = model._specs_custom_voice(TEXTS, "vivian", "english", None, True)
+    out = {}
+    for kv_quant in (False, True):
+        for sampled in (False, True):
+            kw = dict(max_new_tokens=MAX_NEW_TOKENS, kv_quant=kv_quant, do_sample=sampled,
+                      subtalker_dosample=sampled)
+            s0 = graphs.stats(dev)
+            g = frame_result(model, specs, **kw)
+            s1 = graphs.stats(dev)
+            with graphs.eager():
+                e = frame_result(model, specs, **kw)
+            s2 = graphs.stats(dev)
+            tag = f"{'int8' if kv_quant else 'bf16'}_kv {'sampled' if sampled else 'greedy'}"
+            if s1["replays"] == s0["replays"] or s2["replays"] != s1["replays"]:
+                raise AssertionError(f"{tag}: replays {s0['replays']} -> {s1['replays']} "
+                                     f"(graphed) -> {s2['replays']} (eager)")
+            if not _same_result(g, e):
+                raise AssertionError(f"{tag}: graphed and eager results differ: lengths "
+                                     f"{g.lengths.tolist()} vs {e.lengths.tolist()}")
+            H = model.config.talker_config.hidden_size
+            if g.hidden.shape != (len(TEXTS), MAX_NEW_TOKENS - 1, H):
+                raise AssertionError(f"{tag}: hidden {tuple(g.hidden.shape)}")
+            out[tag] = g
+            line(f"graph vs eager {tag}", lengths=g.lengths.tolist(), codes_equal=True,
+                 hidden_equal=True, graphs_captured=s1["captures"] - s0["captures"],
+                 graphs_replayed=s1["replays"] - s0["replays"])
+    up = model.speech_tokenizer.get_decode_upsample_rate()
+    lengths = out["bf16_kv sampled"].lengths
+    frames, audio_s = int(lengths.max()), float(lengths.sum()) * up / 24000
+
+    def call():
+        return model.generate_custom_voice(TEXTS, speaker="vivian", language="english",
+                                           seed=SEED, max_new_tokens=MAX_NEW_TOKENS)
+
+    walls = {}
+    for name in ("graph", "eager"):
+        with graphs.eager() if name == "eager" else contextlib.nullcontext():
+            call()
+            walls[name] = timed(call)[1]
+    line("graph vs eager wall", texts=len(TEXTS), frames=frames,
+         **{f"{k}_wall_s": f"{w:.4f}" for k, w in walls.items()},
+         **{f"{k}_tick_ms": f"{w / frames * 1e3:.3f}" for k, w in walls.items()},
+         **{f"{k}_rtf": f"{w / audio_s:.4f}" for k, w in walls.items()})
+    return {"walls": walls, "frames": frames}
+
+
+@contextlib.contextmanager
+def recorded_stream_codes():
+    """The frames (zeroed where inactive) of every chunk the streaming
+    session decodes inside the block, in order, on the host."""
+    from qwen3_tts_tpu_torch.runtime import streaming
+
+    got, real = [], streaming.decode_chunk
+
+    def rec(*a, **k):
+        state, frames, active = real(*a, **k)
+        got.append((frames * active[..., None].to(frames.dtype)).cpu())
+        return state, frames, active
+
+    streaming.decode_chunk = rec
+    try:
+        yield got
+    finally:
+        streaming.decode_chunk = real
+
+
+def _stream(model):
+    return model.stream_custom_voice(TEXTS, speaker="vivian", language="english", seed=SEED,
+                                     kv_quant=True, max_new_tokens=MAX_NEW_TOKENS)
+
+
+def phase_stream_ab(model) -> dict:
+    """stream_custom_voice (int8 KV) with its chunks as graph replays, then
+    on the eager loop: the same chunks' codes and the same packets."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    runs = {}
+    for name in ("graph", "eager"):
+        with graphs.eager() if name == "eager" else contextlib.nullcontext():
+            s0 = graphs.stats(model.device)
+            with recorded_stream_codes() as chunks:
+                (wavs, wall) = timed(lambda: [w for w, _ in _stream(model)])
+            s1 = graphs.stats(model.device)
+        runs[name] = (torch.cat(chunks, dim=1), wavs, wall, s1["replays"] - s0["replays"])
+    (gc, gw, gwall, grep), (ec, ew, ewall, erep) = runs["graph"], runs["eager"]
+    if not (grep > 0 and erep == 0):
+        raise AssertionError(f"stream replays: graphed {grep}, eager {erep}")
+    if not (torch.equal(gc, ec) and len(gw) == len(ew)
+            and all(np.array_equal(a, b) for a, b in zip(gw, ew))):
+        raise AssertionError("graphed and eager streams differ")
+    line("stream graph vs eager", packets=len(gw), frames=gc.shape[1], codes_equal=True,
+         packets_equal=True, graph_wall_s=f"{gwall:.3f}", eager_wall_s=f"{ewall:.3f}",
+         graphs_replayed=grep)
+    return {"codes": gc}
+
+
+def phase_graph_memory(model, stream_codes) -> dict:
+    """The graph layer's bookkeeping: graphs captured and replayed so far,
+    decode contexts, their static bytes and the shared pool's bytes. Then
+    an eviction: a stream is held after its first packet, every context is
+    dropped, a generate call re-captures its graphs and must give the codes
+    it gave before, and the held stream (whose evicted context lives on)
+    must finish with the codes of an uninterrupted stream."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    dev = model.device
+    st = graphs.stats(dev)
+    line("graphs", captures=st["captures"], replays=st["replays"], contexts=st["contexts"],
+         context_graphs=st["graphs"], static_mib=f"{st['static_bytes'] / 2**20:.1f}",
+         pool_mib=f"{st['pool_bytes'] / 2**20:.1f}", max_contexts=graphs.MAX_CONTEXTS,
+         max_graphs_per_context=graphs.MAX_GRAPHS_PER_CONTEXT)
+    specs = model._specs_custom_voice(TEXTS, "vivian", "english", None, True)
+    kw = dict(max_new_tokens=MAX_NEW_TOKENS)
+    first = frame_result(model, specs, **kw)
+    with recorded_stream_codes() as chunks:
+        held = _stream(model)
+        next(held)
+        graphs.clear(dev)
+        c0 = graphs.stats(dev)["captures"]
+        again = frame_result(model, specs, **kw)
+        recaptured = graphs.stats(dev)["captures"] - c0
+        for _ in held:
+            pass
+    if recaptured <= 0 or not _same_result(first, again):
+        raise AssertionError(f"after the eviction: {recaptured} graphs re-captured, results "
+                             f"equal {_same_result(first, again)}")
+    if not torch.equal(torch.cat(chunks, dim=1), stream_codes):
+        raise AssertionError("a stream held across the eviction lost its codes")
+    line("graph eviction", recaptured=recaptured, codes_equal=True,
+         held_stream_codes_equal=True)
+    return st
+
+
+def phase_warmup(model) -> float:
+    """warmup_model over B in {1, 4} and prefill buckets {32, 64}: its
+    seconds; then live calls of those shapes capture no graph."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.runtime.prompts import assemble_prompt_specs
+    from qwen3_tts_tpu_torch.runtime.warmup import warmup_model
+
+    dev = model.device
+    graphs.clear(dev)
+    before = graphs.stats(dev)
+    secs = warmup_model(model, prefill_buckets=(32, 64), batch_sizes=(1, 4),
+                        max_new_tokens=MAX_NEW_TOKENS, verbose=False)
+    warm = graphs.stats(dev)
+    buckets = []
+    for texts in (TEXTS, TEXTS[:1]):
+        specs = model._specs_custom_voice(texts, "vivian", "english", None, True)
+        with torch.no_grad():
+            buckets.append(assemble_prompt_specs(model.talker_params, model.config.talker_config,
+                                                 model.config, specs, bucket=32)[0].shape[:2])
+        model.generate_custom_voice(texts, speaker="vivian", language="english", seed=SEED,
+                                    max_new_tokens=MAX_NEW_TOKENS)
+    after = graphs.stats(dev)
+    new = after["captures"] - warm["captures"]
+    line("warmup", seconds=f"{secs:.2f}",
+         graphs_captured=warm["captures"] - before["captures"], contexts=warm["contexts"], live_calls_BT=[tuple(b) for b in buckets],
+         graphs_captured_after=new, graphs_replayed_after=after["replays"] - warm["replays"])
+    if any(tuple(b) not in {(B, L) for B in (1, 4) for L in (32, 64)} for b in buckets):
+        raise AssertionError(f"live call shapes {buckets} are not the warmed ones")
+    if new:
+        raise AssertionError(f"{new} graphs captured after the warm-up")
+    return secs
+
+
+def phase_http(model) -> dict:
+    """The front door: ThreadedTTSServer over the model (its defaults:
+    kernel 2, bf16 KV) behind `_HttpDemo` on a localhost port, driven with
+    urllib from worker threads: 8 concurrent POST /tts and 4 POST
+    /tts_stream, every response audio of whole frames, and all of it the
+    frames the engine generated; then a stream closed after its first
+    packet frees its slot. The engine route serves them all, not the static
+    path."""
+    import base64
+    import io
+    import socket
+    import threading
+    import urllib.request
+    import wave
+
+    from qwen3_tts_tpu_torch.cli.demo import _HttpDemo
+    from qwen3_tts_tpu_torch.runtime.server import ThreadedTTSServer, TTSServer
+    from qwen3_tts_tpu_torch.utils.metrics import MetricsRegistry
+
+    frames = {}
+    srv = ThreadedTTSServer(TTSServer(
+        model, num_slots=SERVE_SLOTS, max_new_tokens=MAX_NEW_TOKENS, seed=SEED,
+        metrics=MetricsRegistry(),
+        code_sink=lambda rid, fr: frames.setdefault(rid, []).extend(fr)))
+    demo = _HttpDemo(model, "custom_voice", {}, engine=srv)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    thread = threading.Thread(target=demo.serve, args=("127.0.0.1", port), daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{port}"
+    try:
+        for _ in range(100):
+            try:
+                urllib.request.urlopen(f"{url}/healthz", timeout=2).read()
+                break
+            except OSError:
+                time.sleep(0.1)
+        # one request first: the engine's graphs are captured outside the timing
+        srv.synthesize("custom_voice", text=TEXTS[0], speaker="vivian", language="english")
+        frames.clear()
+        up = model.speech_tokenizer.get_decode_upsample_rate()
+        got, errors = {}, []
+
+        def post(i, path):
+            try:
+                body = json.dumps({"task": "custom_voice", "speaker": "vivian",
+                                   "language": "english",
+                                   "text": f"{TEXTS[i % len(TEXTS)]} Over HTTP {i}."}).encode()
+                req = urllib.request.Request(f"{url}{path}", data=body,
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    data = r.read()
+                if path == "/tts":
+                    with wave.open(io.BytesIO(base64.b64decode(
+                            json.loads(data)["wavs_b64"][0]))) as w:
+                        got[(path, i)] = (w.getnframes(), w.getframerate())
+                else:
+                    got[(path, i)] = (len(data) // 2, int(r.headers["X-Sample-Rate"]))
+            except Exception as e:
+                errors.append((path, i, repr(e)))
+
+        jobs = [(i, "/tts") for i in range(8)] + [(i, "/tts_stream") for i in range(4)]
+        threads = [threading.Thread(target=post, args=job) for job in jobs]
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.time() - t0
+        if errors or len(got) != len(jobs):
+            raise AssertionError(f"HTTP requests failed: {errors}")
+        samples = [n for n, _ in got.values()]
+        if any(sr != 24000 or n <= 0 or n % up for n, sr in got.values()):
+            raise AssertionError(f"HTTP audio not whole {up}-sample frames: {got}")
+        engine_frames = sum(len(v) for v in frames.values())
+        if len(frames) != len(jobs) or sum(samples) != engine_frames * up:
+            raise AssertionError(f"HTTP audio {sum(samples)} samples vs {engine_frames} frames "
+                                 f"the engine generated for {len(frames)} requests")
+        # a stream closed after its first packet frees its slot
+        gen = srv.synthesize_stream("custom_voice", text=TEXTS[1], speaker="vivian",
+                                    language="english")
+        next(gen)
+        gen.close()
+        deadline = time.time() + 60
+        while srv.server.busy and time.time() < deadline:
+            time.sleep(0.01)
+        if srv.server.busy or srv.server.metrics.counters.get("server.cancels", 0) < 1:
+            raise AssertionError("the closed stream did not free its slot")
+        submits = srv.server.metrics.counters.get("server.submits", 0)
+    finally:
+        demo._server.shutdown()
+        thread.join(timeout=30)
+        srv.close()
+    if demo.engine is not srv or submits < len(jobs) + 2:
+        raise AssertionError(f"the engine route served {submits} requests")
+    line("http front door", port=port, tts=8, tts_stream=4, wall_s=f"{wall:.3f}",
+         requests_per_s=f"{len(jobs) / wall:.3f}", audio_frames=engine_frames,
+         closed_stream_freed_slot=True, engine_submits=submits)
+    return {"wall": wall}
 
 
 def phase_probe(device) -> dict:
@@ -1591,15 +1978,18 @@ def run(cfg, device) -> list:
     step = phase_talker_step(params, cfg, device, S_buf)
     cv = phase_slice(model)
     cv8 = phase_slice(model, kv_quant=True, base=cv)
+    phase_graph_ab(model)
     up = model.speech_tokenizer.get_decode_upsample_rate()
-    phase_stream("custom voice int8_kv", lambda: model.stream_custom_voice(
-        TEXTS, speaker="vivian", language="english", seed=SEED, kv_quant=True,
-        max_new_tokens=MAX_NEW_TOKENS), lambda: stream_active_frames(
+    phase_stream("custom voice int8_kv", lambda: _stream(model), lambda: stream_active_frames(
         model, model._specs_custom_voice(TEXTS, "vivian", "english", None, False),
         kv_quant=True, max_new_tokens=MAX_NEW_TOKENS), up, MAX_NEW_TOKENS - 1)
+    stream_ab = phase_stream_ab(model)
     phase_serve(model)
     phase_serve_routes(model)
     phase_serve_wide(model)
+    phase_graph_memory(model, stream_ab["codes"])
+    phase_warmup(model)
+    phase_http(model)
     t0 = time.time()
     clone_model = build_clone_model(params, cfg, device)
     line("clone weights", seconds=f"{time.time() - t0:.1f}",

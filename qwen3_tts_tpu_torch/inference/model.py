@@ -139,6 +139,7 @@ class Qwen3TTSModel:
             k for k in (tc.codec_language_id or {}) if "dialect" not in k]
         self.tts_model_type = config.tts_model_type
         self.tts_model_size = config.tts_model_size
+        self.tokenizer_type = config.tokenizer_type
         self.speaker_encoder_sample_rate = config.speaker_encoder_config.sample_rate
 
     @classmethod
@@ -399,6 +400,12 @@ class Qwen3TTSModel:
                                          non_streaming=False)
         kw = self._merge_generate_kwargs(**kwargs)
         return self._stream_run(specs, self._generation_config(kw), seed=seed)
+
+    def get_supported_speakers(self) -> List[str]:
+        return sorted(s.lower() for s in self.supported_speakers)
+
+    def get_supported_languages(self) -> List[str]:
+        return sorted(s.lower() for s in self.supported_languages)
 
     # -- voice design -------------------------------------------------------
 

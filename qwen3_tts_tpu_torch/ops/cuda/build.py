@@ -15,6 +15,7 @@ non-zero code into an exception.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -260,7 +261,9 @@ def same_device(device, **tensors) -> None:
 
 _CONVERTED: "OrderedDict[tuple, tuple]" = OrderedDict()
 _STATE: "OrderedDict[tuple, LaunchState]" = OrderedDict()
-MAX_CACHED = 256   # entries either cache keeps (the oldest go first)
+MAX_CACHED = 256   # entries either cache keeps (the least recently used go first)
+# lists collecting the LaunchStates used inside a graph capture (`pinning`)
+_PINNING: list = []
 
 
 def converted(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -284,10 +287,14 @@ class LaunchState:
     """What a decode wrapper keeps between calls of one (device, stream,
     shape, weights): the scratch tensors, the argument struct with every
     pointer that does not change, and what `make` added. Scratch is never
-    shared across streams: the stream is part of the key."""
+    shared across streams: the stream is part of the key. A captured CUDA
+    graph bakes the scratch pointers into its nodes, so each graph holds
+    the states it captured and counts itself in `pins`; the cache never
+    evicts a pinned state."""
 
     def __init__(self, weights):
         self.refs = [(weakref.ref(t), t._version) for t in weights]
+        self.pins = 0
 
     def holds(self, weights) -> bool:
         return (len(self.refs) == len(weights)
@@ -305,8 +312,40 @@ def launch_state(key: tuple, weights, make) -> LaunchState:
         make(state)
         _STATE[key] = state
         while len(_STATE) > MAX_CACHED:
-            _STATE.popitem(last=False)
+            victim = next((k for k, s in _STATE.items() if not s.pins), None)
+            if victim is None:
+                break
+            del _STATE[victim]
+    else:
+        _STATE.move_to_end(key)
+    for got in _PINNING:
+        got.append(state)
     return state
+
+
+@contextlib.contextmanager
+def pinning():
+    """Collect, in a list, every `LaunchState` a wrapper uses inside the
+    block (a graph capture), for `pin`."""
+    got: list = []
+    _PINNING.append(got)
+    try:
+        yield got
+    finally:
+        _PINNING.remove(got)
+
+
+def pin(states) -> "callable":
+    """Count a graph in each of `states` (so the cache keeps them) and
+    return the function that takes the count back when the graph goes."""
+    uniq = list({id(s): s for s in states}.values())
+    for s in uniq:
+        s.pins += 1
+
+    def unpin():
+        for s in uniq:
+            s.pins -= 1
+    return unpin
 
 
 def layer_weight_tensors(layers) -> dict:

@@ -406,7 +406,10 @@ def _step_launch(params: Dict[str, Any], cfg: TalkerConfig, embed: torch.Tensor,
     cos, sin = cos[:, 0].contiguous(), sin[:, 0].contiguous()
     if isinstance(cache_index, int):
         # the kernel writes slot ci of every row: a Python int is checked here
-        # without a sync, a per-row tensor by the kernel (it traps)
+        # without a sync, a per-row tensor by the kernel (it traps). A graph
+        # would bake the int into its fill: captured steps take a tensor.
+        build.require(not torch.cuda.is_current_stream_capturing(),
+                      "a captured talker step takes cache_index as a device tensor")
         build.require(0 <= cache_index < S_buf, f"cache_index must be in [0, {S_buf})")
         ci = st.ci.fill_(cache_index)
     else:
@@ -417,6 +420,9 @@ def _step_launch(params: Dict[str, Any], cfg: TalkerConfig, embed: torch.Tensor,
     x0 = build.bf16(embed[:, 0, :])
     h = torch.empty((B, H), dtype=torch.bfloat16, device=dev)
     args = st.args
+    # S_att, kv_splits and kv_cps are host values: a captured graph keeps the
+    # ones of its capture, which is right only because attend_len (and the
+    # buffer, hence S_buf) is part of every graph's key (runtime/graphs.py)
     args.S_buf, args.S_att, args.ld_valid, args.cache_rows = S_buf, S, S_buf, rows
     args.kv_splits = pick_kv_splits(B, kvh, S, build.sm_count(dev))
     args.kv_cps = -(-(-(-S // KV_CHUNK)) // args.kv_splits)

@@ -60,9 +60,9 @@ def _penalize(logits, presence, pen, suppress_mask, ban_eos, eos_id):
     if suppress_mask is not None:
         logits = logits.masked_fill(suppress_mask[None, :], NEG_INF)
     if ban_eos is not None and eos_id is not None:
-        eos_col = torch.zeros(logits.shape[-1], dtype=torch.bool,
-                              device=logits.device)
-        eos_col[eos_id] = True
+        # built by a comparison: a scalar stored by index would be a host
+        # copy, which a CUDA graph capture refuses
+        eos_col = torch.arange(logits.shape[-1], device=logits.device) == eos_id
         logits = logits.masked_fill(ban_eos[:, None] & eos_col[None, :], NEG_INF)
     return logits
 
@@ -103,7 +103,7 @@ def process_and_sample_rows(logits: torch.Tensor, rows: torch.Tensor,
         probs = torch.softmax(vals, dim=-1)
         cum = torch.cumsum(probs, dim=-1)
         keep = (cum - probs) < top_p
-        keep[..., 0] = True
+        keep[..., 0].fill_(True)
         vals = torch.where(keep, vals, torch.full_like(vals, NEG_INF))
         choice = _categorical(vals, generator, noise)
         sampled = torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)
@@ -116,7 +116,7 @@ def process_and_sample_rows(logits: torch.Tensor, rows: torch.Tensor,
         probs = torch.softmax(kvals, dim=-1)
         cum = torch.cumsum(probs, dim=-1)
         keep_sorted = ((cum - probs) < top_p) & kmask
-        keep_sorted[..., 0] = True
+        keep_sorted[..., 0].fill_(True)
         kth = torch.where(keep_sorted, sorted_logits,
                           torch.full_like(sorted_logits, float("inf"))
                           ).amin(dim=-1, keepdim=True)
@@ -133,7 +133,7 @@ def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
     probs = torch.softmax(sorted_logits, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep_sorted = (cum - probs) < p
-    keep_sorted[..., 0] = True
+    keep_sorted[..., 0].fill_(True)
     kth = torch.where(keep_sorted, sorted_logits,
                       torch.full_like(sorted_logits, float("inf"))
                       ).amin(dim=-1, keepdim=True)
@@ -162,7 +162,7 @@ def process_and_sample(logits: torch.Tensor, params: SamplingParams,
             probs = torch.softmax(vals, dim=-1)
             cum = torch.cumsum(probs, dim=-1)
             keep = (cum - probs) < params.top_p
-            keep[..., 0] = True
+            keep[..., 0].fill_(True)
             vals = torch.where(keep, vals, torch.full_like(vals, NEG_INF))
         choice = _categorical(vals, generator, noise)
         return torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)

@@ -14,14 +14,17 @@
   into free slots by tensor ops on the device (no host sync), so a slot
   refills the tick after its sequence finishes. The chunk packs its frames
   and bookkeeping into one int32 array and makes one device-to-host copy.
+  On a CUDA device each tick is one replay of a captured one-tick graph
+  (`runtime/graphs.py::ServeGraphs`, one per attend bucket and install
+  flag) that writes its tick column through a device tick index.
 - The host scheduler (`ContinuousBatchingEngine`) batches requests into
   staging calls, sizes chunks, syncs each chunk's aux one chunk behind and
   attributes frames to request ids.
 
 Not ported, being XLA compile plumbing: the AOT executable cache, the
 background prewarm of the next attend bucket, `warmup_serve` and
-`warmup_staging` (eager PyTorch compiles nothing). `mesh=` waits for the
-parallel slice.
+`warmup_staging` (a serve graph is captured at its first use). `mesh=`
+waits for the parallel slice.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from ..ops.cuda.talker_step import KV_CHUNK
 from ..ops.rope import default_inv_freq, rope_tables
 from ..ops.sampling import SamplingParams, process_and_sample_rows
 from ..weights import is_int8, matmul_t
+from . import graphs
 from .generate import GenerationConfig, attend_bucket_for, suppress_mask_for
 
 Params = Dict[str, Any]
@@ -174,7 +178,8 @@ def stage_requests(params: Params, cfg: TalkerConfig, state: SlotState,
     put("staged_sampling", sampling_rows)
     put("staged_sub_sampling", sub_sampling_rows)
     state.staged_valid[rows] = True
-    state.tts_pad = tts_pad.to(state.tts_pad.dtype)
+    # in place: the engine's serve graphs read this very tensor
+    state.tts_pad.copy_(tts_pad.reshape(state.tts_pad.shape))
 
 
 def cancel_in_state(state: SlotState, rid: int) -> None:
@@ -479,6 +484,9 @@ class ContinuousBatchingEngine:
         self.trace: Dict[int, Dict[str, float]] = {}
         from ..utils.metrics import global_metrics
         self.metrics = metrics if metrics is not None else global_metrics()
+        # the one-tick serve graphs over self.state (a CUDA device)
+        self._graphs = (graphs.ServeGraphs(self) if graphs.enabled(self.device)
+                        else None)
 
     def submit(self, req: Request) -> None:
         self.metrics.count("engine.submits")
@@ -636,9 +644,12 @@ class ContinuousBatchingEngine:
         attend = attend_bucket_for(max_idx + ticks + 1, self.max_len)
         install = self.installs_per_tick != 0 and bool(self.staged_rows_busy)
         with torch.no_grad():
-            aux = serve_chunk(self.params, self.cfg, self.state, self.gen_cfg,
-                              self.generator, ticks, self.ticks_per_sync,
-                              attend_len=attend, install=install)
+            if self._graphs is not None:
+                aux = self._graphs.chunk(ticks, attend, install, self.generator)
+            else:
+                aux = serve_chunk(self.params, self.cfg, self.state, self.gen_cfg,
+                                  self.generator, ticks, self.ticks_per_sync,
+                                  attend_len=attend, install=install)
         event = None
         if aux.is_cuda:
             host = torch.empty(aux.shape, dtype=aux.dtype, pin_memory=True)

@@ -1,0 +1,430 @@
+"""Captured CUDA graphs of the frame loop: the port's counterpart of
+`qwen3_tts_tpu/runtime/jit_options.py::decode_jit`.
+
+The JAX package compiles the frame loop into one device program per set of
+static arguments (`decode_jit` over `_decode_chunk`'s scan and
+`_generate_frames`' while_loop, keyed by cfg, gen_cfg, num_frames and
+attend_len). Eager PyTorch launches every operation of every frame from the
+host instead. Here the frames of a chunk are captured once as a
+`torch.cuda.CUDAGraph`, keyed the same way, and replayed with one launch.
+
+Two owners of graphs:
+- `DecodeGraphs`, a graph context of the batch generators and the streaming
+  session: the static buffers of one decode shape (the weights, the talker
+  config, gen_cfg.canonical() with its fused flags and KV mode, the batch B,
+  the KV buffer S, the dtypes, the device), the KV cache among them (prefill
+  writes into it, outside any graph), and one graph per (K frames,
+  attend_len) over them, at most MAX_GRAPHS_PER_CONTEXT (least recently
+  used go first). Contexts live in a per-device LRU of at most MAX_CONTEXTS
+  entries and MAX_CONTEXT_BYTES of static buffers. A context that a live
+  `DecodeState` uses is never handed to a second caller, and an evicted one
+  lives on, buffers and graphs, for as long as its state does.
+- `ServeGraphs`, the one-tick graphs of one continuous-batching engine over
+  the engine's own `SlotState`, keyed by (attend_len, install): at most
+  2 * ceil(max_len / ATTEND_BUCKET) graphs, freed with the engine.
+
+Every capture:
+- runs one eager warm-up pass on the device's side stream first (PyTorch's
+  graph rules; it also builds the kernel wrappers' launch state for that
+  stream), on copies of the small state tensors: the KV slots it writes are
+  written again by the replay before anything reads them;
+- captures on that side stream, with capture_error_mode="thread_local" (a
+  thread doing host work cannot break it), into the device's one memory
+  pool, which every graph of the device shares;
+- draws its sampling noise from the device's private generator, registered
+  with every graph; a replay copies the caller's generator state in and the
+  advanced state back, so a graph draws the numbers the eager loop draws
+  from the same state;
+- pins the kernel wrappers' `LaunchState`s it used for the graph's life
+  (`build.pin`), and counts each kernel launch it holds once per replay in
+  the wrapper's launch counter (the capture itself launches nothing);
+- raises if it fails: nothing falls back to the eager loop.
+Captures, replays and the context LRU hold one process-wide lock, so that
+callers on several threads (the demo's static path) interleave whole
+replays: a replay owns the device's private generator from the copy in to
+the copy out.
+
+`eager()` turns the graphs off, so that one process can run the graphed and
+the eager loop side by side (the smoke's and the profiler's A/B). No
+configuration, CLI flag or server option selects it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+import weakref
+from collections import OrderedDict
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..ops.cuda import build
+
+MAX_CONTEXTS = 8               # decode graph contexts per device
+MAX_CONTEXT_BYTES = 8 << 30    # their static buffers, KV caches included
+MAX_GRAPHS_PER_CONTEXT = 32
+_SMALL = ("code0", "last_hidden", "presence", "done", "lengths", "t")
+_EAGER = [False]
+_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def eager():
+    """Run the frame loop eagerly on a CUDA device inside the block (A/B
+    measurements of the graphed loop against the eager one)."""
+    prev = _EAGER[0]
+    _EAGER[0] = True
+    try:
+        yield
+    finally:
+        _EAGER[0] = prev
+
+
+def enabled(device) -> bool:
+    """Whether the frame loop on `device` runs as graphs."""
+    return torch.device(device).type == "cuda" and not _EAGER[0]
+
+
+def _counters():
+    """(wrapper, attribute) of the launch counters of the kernels a frame
+    graph holds."""
+    from ..ops.cuda.subtalker import subtalker_frame_fused
+    from ..ops.cuda.talker_step import talker_step_fused_cache
+
+    return ((subtalker_frame_fused, "launches"), (talker_step_fused_cache, "launches"),
+            (talker_step_fused_cache, "launches_int8_kv"))
+
+
+def _read_counts() -> list:
+    return [getattr(f, a) for f, a in _counters()]
+
+
+def _add_counts(delta, sign: int = 1) -> None:
+    for (f, a), d in zip(_counters(), delta):
+        setattr(f, a, getattr(f, a) + sign * d)
+
+
+class _Device:
+    """Per-device graph state: the memory pool, the capture stream, the
+    private generator and the decode contexts."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        self.gen = torch.Generator(device=device)
+        self.contexts: "OrderedDict[int, DecodeGraphs]" = OrderedDict()
+        self.captures = 0
+        self.replays = 0
+
+
+_DEVICES: Dict[int, _Device] = {}
+
+
+def _device(device) -> _Device:
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _DEVICES:
+        _DEVICES[index] = _Device(torch.device("cuda", index))
+    return _DEVICES[index]
+
+
+class _Graph:
+    """One captured graph: the launches it holds and the launch states it
+    pins."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, launches: list, states: list):
+        self.graph = graph
+        self.launches = launches
+        self.states = states
+        weakref.finalize(self, build.pin(states))
+
+    def replay(self, dev: _Device, generator: torch.Generator) -> None:
+        with _LOCK:
+            dev.gen.set_state(generator.get_state())
+            self.graph.replay()
+            generator.set_state(dev.gen.get_state())
+            _add_counts(self.launches)
+            dev.replays += 1
+
+
+class DecodeGraphs:
+    """The static buffers of one decode shape and the graphs of its chunks
+    (see the module docstring)."""
+
+    def __init__(self, dev: _Device, key: tuple, params, cfg, gen_cfg, B: int, S: int,
+                 Tcap: int, dtype, text_dtype):
+        from ..models.talker import KVCache, StackDims
+        from .generate import DecodeConst, DecodeState, suppress_mask_for
+
+        device = dev.device
+        dims = StackDims.from_talker(cfg)
+        H = cfg.hidden_size
+
+        def z(*shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        self.dev, self.key = dev, key
+        self.params, self.cfg, self.gen_cfg = params, cfg, gen_cfg
+        self.cache = KVCache.zeros(cfg.num_hidden_layers, B, S, dims.kv_heads, dims.head_dim,
+                                   dtype=dtype, device=device, quantized=gen_cfg.kv_quant)
+        self.const = DecodeConst(
+            trailing_text=z(B, Tcap, H, dt=text_dtype), tts_pad_embed=z(1, 1, H, dt=dtype),
+            valid_prefill=z(B, S, dt=torch.bool), seq_lens=z(B, dt=torch.int32),
+            prefill_len=z(dt=torch.int32), samp_row=z(5, dt=torch.float32),
+            sub_row=z(5, dt=torch.float32), suppress=suppress_mask_for(cfg, device))
+        self.state = DecodeState(
+            cache=self.cache, code0=z(B, dt=torch.int32), last_hidden=z(B, 1, H, dt=dtype),
+            presence=z(B, cfg.vocab_size, dt=torch.bool), done=z(B, dt=torch.bool),
+            lengths=z(B, dt=torch.int32), t=z(dt=torch.int32))
+        self.graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+        self._owner = None
+
+    @property
+    def busy(self) -> bool:
+        return self._owner is not None and self._owner() is not None
+
+    def nbytes(self) -> int:
+        ts = [getattr(self.cache, f) for f in ("k", "v", "k_scale", "v_scale")]
+        ts += [t for t in self.const if torch.is_tensor(t)]
+        ts += [getattr(self.state, f) for f in _SMALL]
+        ts += [t for g in self.graphs.values() for t in (g.frames, g.active, g.hidden)]
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    def fresh_cache(self):
+        """The context's KV cache, zeroed (as a new one would be) for a
+        prefill to write into."""
+        for t in (self.cache.k, self.cache.v, self.cache.k_scale, self.cache.v_scale):
+            if t is not None:
+                t.zero_()
+        return self.cache
+
+    def load(self, state, const):
+        """Copy an initialised decode state and its constants into the
+        static buffers; returns (state, const) over them. The trailing text
+        is padded with the tts_pad embedding up to the frame count, so every
+        frame reads the buffer (the loop never reaches row Tcap)."""
+        c = self.const
+        n = min(const.trailing_text.shape[1], c.trailing_text.shape[1])
+        c.trailing_text[:, :n].copy_(const.trailing_text[:, :n])
+        c.trailing_text[:, n:].copy_(const.tts_pad_embed.expand_as(c.trailing_text[:, n:]))
+        for f in ("tts_pad_embed", "valid_prefill", "seq_lens", "prefill_len", "samp_row",
+                  "sub_row"):
+            getattr(c, f).copy_(getattr(const, f))
+        for f in _SMALL:
+            getattr(self.state, f).copy_(getattr(state, f))
+        out = dataclasses.replace(self.state, graphs=self)
+        self._owner = weakref.ref(out)
+        return out, c
+
+    def run(self, params, gen_cfg, K: int, attend_len: Optional[int],
+            generator: torch.Generator):
+        """Replay the graph of (K, attend_len), captured at first use.
+        Returns its static outputs (frames (B, K, Q) int32, active (B, K),
+        hidden (B, K, H), zero on inactive frames), which the next replay
+        rewrites."""
+        if params is not self.params or gen_cfg.canonical() != self.gen_cfg:
+            raise ValueError("decode_chunk: params or gen_cfg differ from the ones the "
+                             "decode state was initialised with")
+        key = (int(K), attend_len)
+        g = self.graphs.get(key)
+        if g is None:
+            g = self._capture(int(K), attend_len, generator)
+            self.graphs[key] = g
+            while len(self.graphs) > MAX_GRAPHS_PER_CONTEXT:
+                self.graphs.popitem(last=False)
+        else:
+            self.graphs.move_to_end(key)
+        g.replay(self.dev, generator)
+        return g.frames, g.active, g.hidden
+
+    def _capture(self, K: int, attend_len: Optional[int], generator) -> _Graph:
+        from .generate import frame_loop
+
+        B, H = self.state.code0.shape[0], self.cfg.hidden_size
+        dev = self.dev.device
+        outs = (torch.empty((B, K, self.cfg.num_code_groups), dtype=torch.int32, device=dev),
+                torch.empty((B, K), dtype=torch.bool, device=dev),
+                torch.empty((B, K, H), dtype=self.state.last_hidden.dtype, device=dev))
+
+        def body(dst, gen):
+            work = dataclasses.replace(dst, graphs=None)
+            work, *got = frame_loop(self.params, self.cfg, self.gen_cfg, self.const, work, K,
+                                    gen, attend_len)
+            for o, v in zip(outs, got):
+                o.copy_(v)
+            for f in _SMALL:   # close the loop: the next replay starts from here
+                getattr(dst, f).copy_(getattr(work, f))
+
+        def warm(gen):
+            body(dataclasses.replace(self.state, **{f: getattr(self.state, f).clone()
+                                                    for f in _SMALL}), gen)
+
+        g = capture(self.dev, generator, warm, lambda gen: body(self.state, gen))
+        g.frames, g.active, g.hidden = outs
+        return g
+
+
+def capture(dev: _Device, generator: torch.Generator, warm, body) -> _Graph:
+    """`warm(gen)` eagerly on the device's side stream, then `body(gen)`
+    captured there; `gen` is the device's private generator, set from
+    `generator`'s state."""
+    gd = torch.device(generator.device)
+    if gd.type != "cuda" or (gd.index if gd.index is not None
+                             else torch.cuda.current_device()) != dev.device.index:
+        raise ValueError(f"the sampling generator is on {generator.device}; the graphs "
+                         f"of {dev.device} draw from a generator on that device")
+    with _LOCK:
+        cur = torch.cuda.current_stream(dev.device)
+        dev.stream.wait_stream(cur)
+        with torch.cuda.stream(dev.stream):
+            dev.gen.set_state(generator.get_state())
+            warm(dev.gen)
+        cur.wait_stream(dev.stream)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(dev.gen)
+        before = _read_counts()
+        try:
+            with build.pinning() as used:
+                with torch.cuda.graph(graph, pool=dev.pool, stream=dev.stream,
+                                      capture_error_mode="thread_local"):
+                    body(dev.gen)
+        finally:
+            delta = [a - b for a, b in zip(_read_counts(), before)]
+            _add_counts(delta, -1)   # a capture records launches; it makes none
+        dev.captures += 1
+        return _Graph(graph, delta, used)
+
+
+def _reserved():
+    """The owner of a context handed out and not yet loaded."""
+    return True
+
+
+def decode_context(params, cfg, gen_cfg, B: int, S: int, dtype, text_dtype,
+                   device) -> Optional[DecodeGraphs]:
+    """A free graph context for this decode shape on `device` (made on a
+    miss, evicting the least recently used past the bounds), or None where
+    the loop runs eagerly (the CPU, or inside `eager()`)."""
+    if not enabled(device):
+        return None
+    canon = gen_cfg.canonical()
+    Tcap = max(1, gen_cfg.max_new_tokens - 1)
+    key = (id(params), id(cfg), canon, B, S, Tcap, dtype, text_dtype)
+    with _LOCK:
+        dev = _device(device)
+        for i, ctx in dev.contexts.items():
+            if ctx.key == key and not ctx.busy:
+                dev.contexts.move_to_end(i)
+                ctx._owner = _reserved   # until `load` hands out its state
+                return ctx
+        ctx = DecodeGraphs(dev, key, params, cfg, canon, B, S, Tcap, dtype, text_dtype)
+        ctx._owner = _reserved
+        dev.contexts[id(ctx)] = ctx
+        while len(dev.contexts) > 1 and (
+                len(dev.contexts) > MAX_CONTEXTS
+                or sum(c.nbytes() for c in dev.contexts.values()) > MAX_CONTEXT_BYTES):
+            dev.contexts.popitem(last=False)
+        return ctx
+
+
+class ServeGraphs:
+    """One engine's one-tick serve graphs (see the module docstring). A
+    chunk of n ticks is n replays; each writes its tick column of the
+    chunk's frame, emit, request-id and finished buffers through a device
+    tick index."""
+
+    def __init__(self, engine):
+        # what the graphs read of the engine (not the engine itself: the
+        # graphs go with it)
+        self.params, self.cfg, self.gen_cfg = engine.params, engine.cfg, engine.gen_cfg
+        self.state, self.ticks = engine.state, engine.ticks_per_sync
+        self.dev = _device(engine.device)
+        B, T = engine.num_slots, engine.ticks_per_sync
+        dev = self.dev.device
+
+        def z(*shape, dt=torch.int32):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        # frames, emit, req_id, finished, tick index
+        self.outs = (z(B, T, engine.cfg.num_code_groups), z(B, T), z(B, T), z(B, T),
+                     z(dt=torch.int64))
+        self.graphs: Dict[tuple, _Graph] = {}
+
+    def chunk(self, n_ticks: int, attend_len: int, install: bool,
+              generator: torch.Generator) -> torch.Tensor:
+        """serve_chunk's packed aux for min(n_ticks, ticks_per_sync) ticks."""
+        st = self.state
+        for t in self.outs:
+            t.zero_()
+        key = (attend_len, bool(install))
+        for _ in range(min(n_ticks, self.ticks)):
+            g = self.graphs.get(key)
+            if g is None:
+                g = self.graphs[key] = self._capture(attend_len, bool(install), generator)
+            g.replay(self.dev, generator)
+        fb, eb, rb, db, _ = self.outs
+        return torch.cat([fb.reshape(-1), eb.reshape(-1), rb.reshape(-1), db.reshape(-1),
+                          st.staged_valid.to(torch.int32), st.staged_req_id.to(torch.int32),
+                          st.t.to(torch.int32)])
+
+    def _capture(self, attend_len: int, install: bool, generator) -> _Graph:
+        from .batching import serve_step
+
+        def body(dst, outs, gen):
+            work = dataclasses.replace(dst)
+            frames, emit, req_id, finished = serve_step(self.params, self.cfg, work,
+                                                        self.gen_cfg, gen, attend_len, install)
+            fb, eb, rb, db, tick = outs
+            i = tick.reshape(1)
+            for buf, v in ((fb, frames), (eb, emit), (rb, req_id), (db, finished)):
+                buf.index_copy_(1, i, v.to(torch.int32)[:, None])
+            tick.add_(1)
+            for f in dataclasses.fields(dst):   # close the loop
+                new, old = getattr(work, f.name), getattr(dst, f.name)
+                if torch.is_tensor(new) and new is not old:
+                    old.copy_(new)
+
+        def warm(gen):
+            st = self.state
+            copy = dataclasses.replace(st, **{f.name: getattr(st, f.name).clone()
+                                              for f in dataclasses.fields(st)
+                                              if torch.is_tensor(getattr(st, f.name))})
+            body(copy, tuple(t.clone() for t in self.outs), gen)
+
+        return capture(self.dev, generator, warm, lambda gen: body(self.state, self.outs, gen))
+
+
+def stats(device) -> dict:
+    """Graphs captured and replayed on `device` so far, decode contexts and
+    their graphs, their static bytes, and the bytes of the shared pool."""
+    device = torch.device(device)
+    dev = None
+    if device.type == "cuda":
+        dev = _DEVICES.get(torch.cuda.current_device() if device.index is None
+                           else device.index)
+    if dev is None:
+        return {"captures": 0, "replays": 0, "contexts": 0, "graphs": 0, "static_bytes": 0,
+                "pool_bytes": 0}
+    return {"captures": dev.captures, "replays": dev.replays, "contexts": len(dev.contexts),
+            "graphs": sum(len(c.graphs) for c in dev.contexts.values()),
+            "static_bytes": sum(c.nbytes() for c in dev.contexts.values()),
+            "pool_bytes": pool_bytes(dev)}
+
+
+def pool_bytes(dev: _Device) -> int:
+    """Bytes the caching allocator holds in the device's graph pool."""
+    want = tuple(dev.pool)
+    segs = torch.cuda.memory._snapshot(dev.device)["segments"]
+    return sum(s["total_size"] for s in segs if tuple(s.get("segment_pool_id", ())) == want)
+
+
+def clear(device=None) -> None:
+    """Drop every decode context of `device` (every device: None) from the
+    LRU. A context a live decode state still uses lives on until that state
+    goes."""
+    for index, dev in list(_DEVICES.items()):
+        if device is None or torch.device(device).index in (None, index):
+            dev.contexts.clear()

@@ -19,8 +19,9 @@
   left context; non-streaming clones decode with the reference codes
   prepended and the same share of samples cut off the front.
 
-`ThreadedTTSServer` (the thread-safe wrapper for HTTP handlers) comes with
-a later slice.
+`ThreadedTTSServer` is the thread-safe wrapper for HTTP handlers: producer
+threads submit and wait on per-request queues, one loop thread owns the
+server, and with it every CUDA operation, graph capture and replay.
 """
 
 from __future__ import annotations
@@ -537,3 +538,127 @@ class TTSServer:
             if not self.busy:
                 return out
         raise RuntimeError("server did not drain within max_steps")
+
+
+class ThreadedTTSServer:
+    """Thread-safe wrapper: producers submit from any thread; one loop
+    thread owns the server and all of its CUDA work (prefill, graph capture
+    and replay, the vocoder) and fans events out to per-request queues.
+
+    Usage (blocking):      wav, sr = srv.synthesize(task, **kwargs)
+    Usage (streaming):     for pkt in srv.synthesize_stream(task, **kwargs)
+    """
+
+    def __init__(self, server: TTSServer):
+        import queue
+        import threading
+
+        self.server = server
+        self._submit_q: "queue.Queue" = queue.Queue()
+        self._sinks: Dict[Any, "queue.Queue"] = {}
+        self._lock = threading.Lock()
+        self._next_id = 0
+        self._stop = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self._stop = True
+        self._thread.join(timeout=30)
+
+    def _loop(self) -> None:
+        import queue as _queue
+
+        while not self._stop:
+            worked = False
+            while True:
+                try:
+                    task, rid, kwargs, sink = self._submit_q.get_nowait()
+                except _queue.Empty:
+                    break
+                if task == "__cancel__":
+                    # the client went away: stop spending card time on it
+                    self.server.cancel(rid)
+                    with self._lock:
+                        self._sinks.pop(rid, None)
+                    worked = True
+                    continue
+                try:
+                    submit = getattr(self.server, f"submit_{task}")
+                    submit(rid, **kwargs)
+                    with self._lock:
+                        self._sinks[rid] = sink
+                except Exception as e:  # surfaced per request; the server stays up
+                    sink.put(e)
+                worked = True
+            if self.server.busy:
+                try:
+                    events = self.server.step()
+                except Exception as e:
+                    # a poisoned step fails every in-flight request: deliver
+                    # the error instead of hanging their sinks, and clear the
+                    # server's state so busy does not stay True
+                    with self._lock:
+                        sinks, self._sinks = self._sinks, {}
+                    for sink in sinks.values():
+                        sink.put(e)
+                    self.server.abort_all()
+                    events = []
+                for ev in events:
+                    with self._lock:
+                        sink = self._sinks.get(ev.request_id)
+                    if sink is not None:
+                        sink.put(ev)
+                        if isinstance(ev, AudioResult) or (
+                                isinstance(ev, AudioPacket) and ev.final):
+                            sink.put(None)        # end-of-stream marker
+                            with self._lock:
+                                self._sinks.pop(ev.request_id, None)
+                worked = True
+            if not worked:
+                time.sleep(0.002)
+
+    def _submit(self, task: str, stream: bool, kwargs):
+        import queue
+
+        with self._lock:
+            rid = self._next_id
+            self._next_id += 1
+        sink: "queue.Queue" = queue.Queue()
+        self._submit_q.put((task, rid, dict(kwargs, stream=stream), sink))
+        return rid, sink
+
+    def cancel(self, rid) -> None:
+        """Enqueue a cancel of a request `_submit` returned; the loop thread
+        runs it."""
+        self._submit_q.put(("__cancel__", rid, None, None))
+
+    def synthesize(self, task: str, timeout: float = 600.0, **kwargs):
+        """Blocking non-streaming synthesis -> (wav, sample_rate)."""
+        _, sink = self._submit(task, stream=False, kwargs=kwargs)
+        ev = sink.get(timeout=timeout)
+        if isinstance(ev, Exception):
+            raise ev
+        if not isinstance(ev, AudioResult):
+            raise RuntimeError(f"expected an AudioResult, got {ev!r}")
+        sink.get(timeout=timeout)   # end-of-stream marker
+        return ev.wav, ev.sample_rate
+
+    def synthesize_stream(self, task: str, timeout: float = 600.0, **kwargs):
+        """Generator of AudioPacket for one request. Closing it early (the
+        HTTP client disconnected) cancels the request."""
+        rid, sink = self._submit(task, stream=True, kwargs=kwargs)
+        done = False
+        try:
+            while True:
+                ev = sink.get(timeout=timeout)
+                if ev is None:
+                    done = True
+                    return
+                if isinstance(ev, Exception):
+                    done = True
+                    raise ev
+                yield ev
+        finally:
+            if not done:
+                self.cancel(rid)

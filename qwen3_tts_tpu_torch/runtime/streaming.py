@@ -8,7 +8,8 @@ vocoding (counterpart of `qwen3_tts_tpu/runtime/streaming.py`).
   resumable decode state; a warm-up schedule (1, 2, 4, 8, 16 frames) keeps
   the first packet early, then chunks of 25 frames amortize the vocoder
   calls. Each chunk attends the KV window its last frame needs, rounded up
-  to a multiple of 256 slots.
+  to a multiple of 256 slots. On a CUDA device each chunk is one replay of
+  the captured graph of (chunk frames, attend bucket) (runtime/graphs.py).
 - The vocoder re-decodes up to 25 frames of left context per chunk, the
   reference's chunked-decode approximation at streaming granularity, with
   PER-ROW context so a batch mixing voice-clone rows (reference codes as

@@ -14,6 +14,7 @@ import base64
 import io
 import math
 import struct
+import wave
 from typing import List, Tuple, Union
 
 import numpy as np
@@ -86,6 +87,19 @@ def read_wav(path_or_bytes) -> Tuple[np.ndarray, int]:
     if channels > 1:
         x = x.reshape(-1, channels)
     return x, int(sr)
+
+
+def write_wav(path: str, audio: np.ndarray, sr: int) -> None:
+    """Write a float waveform in [-1, 1] as 16-bit PCM WAV."""
+    audio = np.asarray(audio)
+    if audio.ndim > 1:
+        audio = audio.reshape(audio.shape[0], -1)
+    pcm = np.round(np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1 if pcm.ndim == 1 else pcm.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
 
 
 def read_audio(path_or_bytes) -> Tuple[np.ndarray, int]:
