@@ -1,6 +1,6 @@
 """Where the time of the port's calls goes on one NVIDIA H100.
 
-    python3 chip_profile.py [--stages]
+    python3 chip_profile.py [--stages | --sft]
 
 Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
 (random weights from its seed), then prints:
@@ -25,6 +25,14 @@ Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
    and the copy of the int8 rows that follow it), GEMM stage, attention
    and grid barrier, and of the sub-talker's projection, lm head and
    sampling per step (`--stages` runs this part alone).
+
+`--sft` instead profiles the SFT step at 1.7B in bf16 (chip_smoke's `sft`
+phase shapes: B=2, T=256, grad_accum 2, the speaker encoder): the ms of an
+optimizer cycle with the stacked layers walked by `unbind_layers` (as
+shipped) and by indexing layer by layer (the first design, whose backward
+builds a whole stacked gradient per layer), in the order A B B A in one
+process; then torch.profiler over one cycle: device time by kernel and the
+busy share.
 
 A diagnostic beside the smoke; it checks nothing that chip_smoke.py does not.
 """
@@ -279,12 +287,99 @@ def phase_engine_stages(params, cfg, device) -> None:
         build.load_library.cache_clear()
 
 
+def phase_sft_profile(device) -> None:
+    """SFT cycles, layers unbound against layers indexed, then one profiled
+    cycle (see the module docstring)."""
+    import numpy as np
+
+    from chip_smoke import SFT_ACCUM, SFT_B, SFT_T, reference_clip, sft_batch
+    from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig, TTSModelConfig
+    from qwen3_tts_tpu_torch.finetune import train
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.models.speaker_encoder import speaker_encoder_forward
+    from qwen3_tts_tpu_torch.ops.stft import mel_spectrogram
+    from qwen3_tts_tpu_torch.utils.testing import (TALKER_1B7, random_talker_params,
+                                                   speaker_encoder_state)
+    from qwen3_tts_tpu_torch.weights import from_jax_tree, map_tensors
+
+    cfg = TALKER_1B7
+    spk_cfg = SpeakerEncoderConfig(enc_dim=cfg.hidden_size)
+    spk_params = map_tensors(from_jax_tree(speaker_encoder_state(spk_cfg, SEED + 12), device),
+                             lambda t: t.to(torch.bfloat16))
+    ref_mel = mel_spectrogram(torch.from_numpy(reference_clip(24000)[None, :3 * 24000]),
+                              n_fft=1024, num_mels=128, sampling_rate=24000, hop_size=256,
+                              win_size=1024, fmin=0, fmax=12000).permute(0, 2, 1).numpy()
+    rng = np.random.default_rng(SEED + 11)
+    tts_cfg = TTSModelConfig(talker_config=cfg, speaker_encoder_config=spk_cfg)
+    batches = [sft_batch(tts_cfg, rng, SFT_T, SFT_B, ref_mel) for _ in range(SFT_ACCUM)]
+    unbound = talker.unbind_layers
+
+    def indexed(stacked):
+        n = stacked["input_layernorm"]["weight"].shape[0]
+        return [map_tensors(stacked, lambda t, i=i: t[i]) for i in range(n)]
+
+    def cycle(params, step):
+        for b in batches:
+            tb = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+            with torch.no_grad():
+                spk = speaker_encoder_forward(spk_params, spk_cfg,
+                                              tb.pop("ref_mels").to(torch.bfloat16))
+            step(params, tb, spk)
+
+    def trained(route):
+        talker.unbind_layers = unbound if route == "unbind" else indexed
+        params = train.trainable(random_talker_params(
+            cfg, torch.Generator(device=device).manual_seed(SEED + 13), dtype=torch.bfloat16))
+        return params, train.make_train_step(cfg, train.default_optimizer(
+            params, lr=2e-5, grad_accum=SFT_ACCUM))
+
+    try:
+        for route in ("indexed", "unbind", "unbind", "indexed"):
+            params, step = trained(route)
+            ms = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                cycle(params, step)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.time() - t0))
+            line("sft cycles", route=route, ms_per_cycle=f"{np.mean(ms[1:]):.1f}",
+                 cycles_ms=[f"{x:.1f}" for x in ms])
+            del params, step
+            torch.cuda.empty_cache()
+        params, step = trained("unbind")
+        cycle(params, step)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cycle(params, step)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        with device_trace(str(TRACE_DIR / "sft_cycle")) as prof:
+            cycle(params, step)
+    finally:
+        talker.unbind_layers = unbound
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name[:60], [0.0, 0])
+            k[0] += e.device_time / 1e3
+            k[1] += 1
+    total = sum(t for t, _ in kernels.values())
+    line("profile sft cycle", unprofiled_wall_s=f"{wall:.4f}", device_kernel_ms=f"{total:.1f}",
+         busy_share=f"{total / 1e3 / wall:.3f}")
+    for kname, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {t:9.2f} ms {n:6d} launches  {kname}", flush=True)
+
+
 def main() -> int:
     from qwen3_tts_tpu_torch.utils.testing import TALKER_1B7
 
     phase_device()
-    phase_build()
     device = torch.device("cuda")
+    if sys.argv[1:] == ["--sft"]:      # the SFT step only (no kernel runs in it)
+        phase_sft_profile(device)
+        return 0
+    phase_build()
     if sys.argv[1:] == ["--stages"]:   # the decode kernels' stages only
         phase_engine_stages(model_params(TALKER_1B7, device), TALKER_1B7, device)
         return 0

@@ -88,6 +88,22 @@ Phases, each printing one line (any failure raises and exits non-zero):
 11. the 0.6B talker (`TALKER_0B6`, random int8 weights): kernel 1 without
    the small_to_mtp projection and kernel 2 at hidden 1024 against their
    twins at B=8, then `generate_custom_voice` of the smoke's texts;
+12. slice 8, the 25 Hz (V1) tokenizer at its released widths (no kernel:
+   plain PyTorch in fp32, TF32 off): a checkpoint directory of random
+   weights written under build/ (config.json, model.safetensors,
+   campplus.onnx) loaded through `Qwen3TTSTokenizer.from_pretrained`; a
+   10 s clip encoded and decoded (encode s, decode s, decode RTF, peak
+   memory); the mel, the encoder's codes (the share equal to the host's,
+   every mismatch a near-tie of the 32768-way search), the x-vector, the
+   reference mel, one DiT velocity evaluation and BigVGAN on a short mel,
+   each against the same code on the host;
+13. slice 8, SFT: four optimizer cycles of `make_train_step` at 1.7B in
+   bf16 with the speaker encoder (ms per cycle, tokens/s, peak memory; the
+   loss finite, the params and AdamW states moved); the loss and every
+   gradient at full widths and 2 layers in fp32 against the host; then
+   `sft.main` end to end on a 0.6B base checkpoint under build/, whose
+   epoch checkpoint reloads as an int8 custom-voice model with the new
+   speaker and speaks;
 then the roofline of the custom-voice call (`utils/roofline.py`
 `decode_roofline` with the rate `shaped_bw` measured above) and each decode
 kernel's achievable floor beside its data-sheet bound; one JSON line with
@@ -820,22 +836,29 @@ class StandInTokenizer:
 
 
 def build_model(params, cfg, device, size="1b7"):
-    from qwen3_tts_tpu_torch.config import CodecV2Config, CodecV2DecoderConfig, TTSModelConfig
+    from qwen3_tts_tpu_torch.config import TTSModelConfig
     from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel
-    from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer
-    from qwen3_tts_tpu_torch.utils.testing import random_vocoder_params
 
     tc = dataclasses.replace(cfg, spk_id={"vivian": 3000},
                              codec_language_id={"english": 1000})
     tts_cfg = TTSModelConfig(talker_config=tc, tts_model_type="custom_voice",
                              tts_model_size=size)
+    return Qwen3TTSModel(tts_cfg, params, None, smoke_vocoder(device), StandInTokenizer(), {},
+                         quantized="int8", device=device)
+
+
+def smoke_vocoder(device):
+    """The default-width 12 Hz vocoder, random from the seed, as a tokenizer."""
+    from qwen3_tts_tpu_torch.config import CodecV2Config, CodecV2DecoderConfig
+    from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer
+    from qwen3_tts_tpu_torch.utils.testing import random_vocoder_params
+
     dec_cfg = CodecV2DecoderConfig()
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     tok = Qwen3TTSTokenizer.from_params(CodecV2Config(decoder_config=dec_cfg),
                                         dec_params=random_vocoder_params(dec_cfg, gen))
     tok.chunk_size = 64
-    return Qwen3TTSModel(tts_cfg, params, None, tok, StandInTokenizer(), {},
-                         quantized="int8", device=device)
+    return tok
 
 
 def build_clone_model(params, cfg, device):
@@ -1960,6 +1983,392 @@ def phase_0b6(device) -> dict:
     return {"sub": sub, "step": step, "rtf": cv["rtf"]}
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: the 25 Hz (V1) tokenizer and SFT (plain PyTorch; no kernel)
+# ---------------------------------------------------------------------------
+
+V1_DIR = "build/v1_tokenizer"
+V1_MIN_CODE_MATCH = 0.98      # encoder codes, card against the host run of the same code
+V1_NEAR_TIE_REL = 1e-4        # a mismatch must be a near-tie: squared-distance gap / distance
+V1_MEL_TOL = 1e-4             # whisper log-mel (log10, floored), max abs
+V1_REF_MEL_TOL = 1e-3         # reference mel, max abs: a natural log of |STFT| down to 1e-5
+V1_XVEC_REL_TOL = 1e-4        # CAM++ x-vector, relative L2
+V1_DIT_REL_TOL = 1e-4         # one DiT velocity evaluation, relative L2
+V1_BIGVGAN_TOL = 1e-4         # BigVGAN on a short mel, max abs
+V1_DIT_CODES = 24             # the host-side DiT evaluation: 24 codes (48 frames)
+V1_BIGVGAN_FRAMES = 20
+SFT_B, SFT_T, SFT_ACCUM, SFT_CYCLES = 2, 256, 2, 4
+SFT_HOST_T = 64               # the 2-layer card-vs-host check's sequence length
+SFT_LOSS_REL_TOL = 1e-5
+SFT_GRAD_REL_TOL = 1e-3       # relative L2 per leaf, fp32 with TF32 off
+SFT_DIR = "build/sft"
+
+
+def v1_config_json(cfg) -> dict:
+    """A 25 Hz tokenizer's config.json from a CodecV1Config."""
+    d = {k: getattr(cfg, k) for k in ("model_type", "input_sample_rate", "output_sample_rate",
+                                      "decode_upsample_rate", "encode_downsample_rate")}
+    d["encoder_config"] = dataclasses.asdict(cfg.encoder_config)
+    d["decoder_config"] = {"dit_config": dataclasses.asdict(cfg.dit_config),
+                           "bigvgan_config": dataclasses.asdict(cfg.bigvgan_config)}
+    return d
+
+
+def phase_codec25(device, cfg=None) -> dict:
+    """The 25 Hz tokenizer at the released widths (CodecV1Config(),
+    CAMPPlusConfig()), random weights from the fabricators written as a
+    checkpoint directory under build/ and loaded through
+    `Qwen3TTSTokenizer.from_pretrained` (the card by default): a 10 s 24 kHz
+    clip encoded and decoded back (each timed after one warm-up call), then
+    every stage held to the same port code on the host in fp32, on the
+    same 10 s clip (encoder, x-vector, reference mel) or a short input (one
+    DiT velocity evaluation over V1_DIT_CODES codes, BigVGAN over
+    V1_BIGVGAN_FRAMES mel frames)."""
+    import os
+
+    from qwen3_tts_tpu_torch.config import CodecV1Config
+    from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer
+    from qwen3_tts_tpu_torch.models.codec25 import bigvgan, dit, encoder
+    from qwen3_tts_tpu_torch.models.codec25.campplus import CAMPPlusConfig
+    from qwen3_tts_tpu_torch.models.codec25.mel import get_mel_audio
+    from qwen3_tts_tpu_torch.models.codec25.model import XVectorExtractor
+    from qwen3_tts_tpu_torch.utils.audio import resample
+    from qwen3_tts_tpu_torch.utils.onnx_weights import write_onnx_initializers
+    from qwen3_tts_tpu_torch.utils.testing import campplus_state, codec_v1_state
+    from qwen3_tts_tpu_torch.weights import from_jax_tree, save_safetensors, unflatten_state_dict
+
+    cfg = cfg or CodecV1Config()
+    t0 = time.time()
+    flat = codec_v1_state(cfg, SEED + 8)
+    os.makedirs(V1_DIR, exist_ok=True)
+    with open(os.path.join(V1_DIR, "config.json"), "w") as f:
+        json.dump(v1_config_json(cfg), f)
+    save_safetensors(os.path.join(V1_DIR, "model.safetensors"), flat)
+    onnx_path = os.path.join(V1_DIR, "campplus.onnx")
+    write_onnx_initializers(onnx_path, campplus_state(CAMPPlusConfig(), SEED + 9))
+    write_s = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.time()
+    tok = Qwen3TTSTokenizer.from_pretrained(V1_DIR, device=device)
+    load_s = time.time() - t0
+    if tok.v1_model is None or tok.v1_model.device.type != device.type:
+        raise AssertionError(f"the 25 Hz tokenizer did not load onto {device}")
+    weights_gib = (torch.cuda.memory_allocated() - base_mem) / 2**30
+
+    clip = reference_clip(24000)
+    tok.encode((clip, 24000))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    enc = tok.encode((clip, 24000))
+    encode_s = time.time() - t0
+    tok.decode(enc)
+    t0 = time.time()
+    wavs, sr = tok.decode(enc)
+    decode_s = time.time() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30   # the tokenizer's own
+    n = len(enc.audio_codes[0])
+    dcfg, bcfg = cfg.dit_config, cfg.bigvgan_config
+    card = tok.v1_model.params
+    with torch.no_grad():   # the decode's two stages apart, on its inputs
+        ins = [torch.as_tensor(x[None], device=device)
+               for x in (enc.audio_codes[0], enc.xvectors[0], enc.ref_mels[0])]
+        noise = torch.randn((1, n * dcfg.repeats, dcfg.mel_dim), device=device,
+                            generator=torch.Generator(device=device).manual_seed(0))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        mel = dit.dit_sample(card["decoder"]["dit"], dcfg, *ins, noise)
+        torch.cuda.synchronize()
+        dit_s = time.time() - t0
+        bigvgan.bigvgan_forward(card["decoder"]["bigvgan"], bcfg, mel)
+        torch.cuda.synchronize()
+        bigvgan_s = time.time() - t0 - dit_s
+    up = dcfg.repeats * int(np.prod(bcfg.upsample_rates))
+    wav = wavs[0]
+    if sr != cfg.output_sample_rate or wav.shape != (n * up,) or not np.isfinite(wav).all():
+        raise AssertionError(f"decode: sr {sr}, shape {wav.shape} for {n} codes")
+    if n != CLONE_REF_SECONDS * 25:
+        raise AssertionError(f"{n} codes for a {CLONE_REF_SECONDS} s clip at 25 Hz")
+    audio_s = wav.shape[0] / sr
+
+    # every stage against the same code on the host, fp32 (TF32 is off)
+    host = from_jax_tree(unflatten_state_dict(flat))
+    ecfg = cfg.encoder_config
+    wav16 = resample(clip, 24000, 16000)
+    with torch.no_grad():
+        mels = {d: get_mel_audio(wav16, padding=True, audio_vq_ds_rate=ecfg.audio_vq_ds_rate,
+                                 n_mels=ecfg.n_mels, device=d) for d in (device, "cpu")}
+        mel_err = max_abs(mels[device].cpu(), mels["cpu"])
+        codes_card = encoder.encode_mel_to_codes(card["encoder"]["tokenizer"], ecfg,
+                                                 mels[device]).cpu()
+        x_host = encoder.vq_features(host["encoder"]["tokenizer"], ecfg, mels["cpu"])
+        d_host = encoder.code_distances(host["encoder"]["tokenizer"], x_host)
+    codes_host = d_host.argmin(dim=-1)
+    if not np.array_equal(enc.audio_codes[0], codes_card[:n].numpy()):
+        raise AssertionError("the tokenizer's codes are not its encoder's")
+    miss = (codes_card != codes_host).nonzero()[:, 0]
+    rows = torch.arange(len(codes_host))
+    sq = (x_host.float() ** 2).sum(-1) + d_host[rows, codes_host]   # the host's squared distance
+    gaps = (d_host[miss, codes_card[miss]] - d_host[miss, codes_host[miss]]) / sq[miss]
+    match = 1.0 - len(miss) / len(codes_host)
+    worst_gap = float(gaps.max()) if len(miss) else 0.0
+    xv_host, rm_host = XVectorExtractor(onnx_path, device="cpu").extract_code(wav16)
+    xv_err = rel_err(torch.from_numpy(enc.xvectors[0]), torch.from_numpy(xv_host))
+    rm_err = max_abs(torch.from_numpy(enc.ref_mels[0]), torch.from_numpy(rm_host))
+
+    rng = np.random.default_rng(SEED + 10)
+    T = V1_DIT_CODES * dcfg.repeats
+    table = host["decoder"]["dit"]["text_embed"]["codec_embed"]["weight"]
+    code = table[torch.as_tensor(enc.audio_codes[0][:V1_DIT_CODES])].repeat_interleave(
+        dcfg.repeats, dim=0)
+    ins = [torch.from_numpy(rng.standard_normal((2, T, dcfg.mel_dim), dtype=np.float32)),
+           torch.from_numpy(np.stack([enc.xvectors[0]] * 2))[:, None].expand(2, T, -1),
+           torch.from_numpy(np.stack([enc.ref_mels[0], rm_host])),
+           torch.stack([code, torch.zeros_like(code)]),
+           torch.tensor([0.3, 0.3])]
+    mel_in = torch.from_numpy(rng.normal(-5, 1.5, (1, bcfg.mel_dim, V1_BIGVGAN_FRAMES))
+                              .astype(np.float32))
+    with torch.no_grad():
+        v_card = dit.dit_forward(card["decoder"]["dit"], dcfg, *(t.to(device) for t in ins))
+        v_host = dit.dit_forward(host["decoder"]["dit"], dcfg, *ins)
+        w_card = bigvgan.bigvgan_forward(card["decoder"]["bigvgan"], bcfg, mel_in.to(device))
+        w_host = bigvgan.bigvgan_forward(host["decoder"]["bigvgan"], bcfg, mel_in)
+    dit_err = rel_err(v_card.cpu(), v_host)
+    big_err = max_abs(w_card.cpu(), w_host)
+    errs = dict(mel=(mel_err, V1_MEL_TOL), xvector=(xv_err, V1_XVEC_REL_TOL),
+                ref_mel=(rm_err, V1_REF_MEL_TOL), dit=(dit_err, V1_DIT_REL_TOL),
+                bigvgan=(big_err, V1_BIGVGAN_TOL))
+    out = dict(encode_s=encode_s, decode_s=decode_s, rtf=decode_s / audio_s, peak_gib=peak_gib)
+    line("codec25", widths="released" if cfg == CodecV1Config() else "cut", codes=n, audio_s=f"{audio_s:.2f}",
+         write_s=f"{write_s:.1f}", load_s=f"{load_s:.1f}", weights_gib=f"{weights_gib:.2f}",
+         encode_s=f"{encode_s:.4f}", decode_s=f"{decode_s:.4f}", dit_s=f"{dit_s:.4f}",
+         bigvgan_s=f"{bigvgan_s:.4f}", decode_rtf=f"{out['rtf']:.4f}", peak_gib=f"{peak_gib:.2f}", host_clip_s=CLONE_REF_SECONDS,
+         code_match=f"{match:.4f}", mismatches=len(miss), worst_gap=f"{worst_gap:.2e}",
+         mel_err=f"{mel_err:.2e}", xvector_rel=f"{xv_err:.2e}", ref_mel_err=f"{rm_err:.2e}",
+         dit_rel=f"{dit_err:.2e}", dit_codes=V1_DIT_CODES, bigvgan_err=f"{big_err:.2e}",
+         bigvgan_frames=V1_BIGVGAN_FRAMES)
+    bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"25 Hz stages off the host run: {bad}")
+    if match < V1_MIN_CODE_MATCH or worst_gap > V1_NEAR_TIE_REL:
+        raise AssertionError(f"encoder codes: {match:.4f} equal, worst mismatch gap {worst_gap}")
+    del tok, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def sft_batch(tts_cfg, rng, T: int, B: int, ref_mel) -> dict:
+    """A collated SFT batch of B rows whose text and codes fill T - 8
+    positions, all sharing one reference mel (1, frames, mel)."""
+    from qwen3_tts_tpu_torch.finetune.data import TTSDataset
+
+    text = (T - 8) // 5
+    items = [{"text_ids": rng.integers(3, 1000, (1, text)),
+              "audio_codes": rng.integers(0, 2048, (T - 8 - text, 16)),
+              "ref_mel": ref_mel} for _ in range(B)]
+    batch = TTSDataset([], None, tts_cfg, num_code_groups=16).collate(items, pad_to_multiple=64)
+    if batch["input_ids"].shape[1] != T:
+        raise AssertionError(f"batch length {batch['input_ids'].shape[1]} != {T}")
+    return batch
+
+
+def phase_sft(device, cfg=None, cfg_main=None) -> dict:
+    """SFT on the card, three parts:
+    1. four optimizer cycles of `make_train_step` at TALKER_1B7 in bf16 with
+       the speaker encoder (B=SFT_B, T=SFT_T, grad_accum SFT_ACCUM): the
+       loss finite, the params and the AdamW states moved, a state for
+       every leaf (a leaf the loss does not reach gets a zero gradient, as
+       jax.grad gives it); ms per cycle (after the first), tokens/s, peak;
+    2. TALKER_1B7's widths at 2 layers (talker and code predictor) in fp32,
+       TF32 off: the loss and every leaf's gradient on the card against the
+       same code on the host (T=SFT_HOST_T);
+    3. `sft.main` end to end at TALKER_0B6 on a base checkpoint directory
+       written under build/ (bf16, with the speaker encoder): the epoch
+       checkpoint reloads as an int8 custom-voice model whose new speaker
+       row is the speaker encoder's x-vector, and speaks one line."""
+    import os
+
+    from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig, TTSModelConfig
+    from qwen3_tts_tpu_torch.finetune import sft, train
+    from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.models.speaker_encoder import speaker_encoder_forward
+    from qwen3_tts_tpu_torch.ops.stft import mel_spectrogram
+    from qwen3_tts_tpu_torch.utils.audio import load_audio, write_wav
+    from qwen3_tts_tpu_torch.utils.testing import (TALKER_0B6, TALKER_1B7, random_talker_params,
+                                                   speaker_encoder_state)
+    from qwen3_tts_tpu_torch.weights import (flatten_state_dict, from_jax_tree, map_tensors,
+                                             save_safetensors, talker_params_to_state_dict)
+
+    cfg, cfg_main = cfg or TALKER_1B7, cfg_main or TALKER_0B6
+    rng = np.random.default_rng(SEED + 11)
+    os.makedirs(SFT_DIR, exist_ok=True)
+    ref_path = os.path.join(SFT_DIR, "ref.wav")
+    write_wav(ref_path, reference_clip(24000)[:3 * 24000], 24000)
+    # the reference mel as the SFT dataset computes it (from the WAV file)
+    ref_mel = mel_spectrogram(torch.from_numpy(load_audio(ref_path)[0][None]), n_fft=1024,
+                              num_mels=128, sampling_rate=24000, hop_size=256, win_size=1024,
+                              fmin=0, fmax=12000).permute(0, 2, 1).numpy()
+
+    # 1. four optimizer cycles at 1.7B, bf16
+    spk_cfg = SpeakerEncoderConfig(enc_dim=cfg.hidden_size)
+    tts_cfg = TTSModelConfig(talker_config=cfg, speaker_encoder_config=spk_cfg)
+    spk_params = map_tensors(from_jax_tree(speaker_encoder_state(spk_cfg, SEED + 12), device),
+                             lambda t: t.to(torch.bfloat16))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    params = train.trainable(random_talker_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED + 13), dtype=torch.bfloat16))
+    opt = train.default_optimizer(params, lr=2e-5, grad_accum=SFT_ACCUM)
+    step = train.make_train_step(cfg, opt)
+    watch = {k: v.detach().clone() for k, v in flatten_state_dict(params).items()
+             if k in ("codec_head", "layers.mlp.down_proj.weight",
+                      "code_predictor.lm_heads", "text_embedding")}
+    T = SFT_T
+    batches = [sft_batch(tts_cfg, rng, T, SFT_B, ref_mel) for _ in range(SFT_ACCUM)]
+    losses, cycle_ms = [], []
+    for cycle in range(SFT_CYCLES):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for b in batches:
+            tb = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+            with torch.no_grad():
+                spk = speaker_encoder_forward(spk_params, spk_cfg,
+                                              tb.pop("ref_mels").to(torch.bfloat16))
+            m = step(params, tb, spk)
+            losses.append(float(m["loss"]))
+        if not m["updated"]:
+            raise AssertionError("a cycle of grad_accum steps did not update")
+        torch.cuda.synchronize()
+        cycle_ms.append(1e3 * (time.time() - t0))
+    peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30   # the training's own
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"SFT losses {losses}")
+    flat = flatten_state_dict(params)
+    moved = {k: bool((flat[k].detach() != v).any()) for k, v in watch.items()}
+    states = opt.adamw.state
+    if len(states) != len(opt.leaves) or not all(moved.values()):
+        raise AssertionError(f"SFT: {len(states)} AdamW states for {len(opt.leaves)} leaves, "
+                             f"moved {moved}")
+    if (any(int(s["step"]) != SFT_CYCLES for s in states.values())
+            or not all(states[flat[k]]["exp_avg_sq"].any() for k in watch)):
+        raise AssertionError("an AdamW state did not advance")
+    ms = float(np.mean(cycle_ms[1:]))
+    tokens = SFT_B * T * SFT_ACCUM
+    # where a cycle goes: one mini-step's forward + backward, one update
+    tb = {k: torch.as_tensor(v, device=device) for k, v in batches[0].items()}
+    with torch.no_grad():
+        spk = speaker_encoder_forward(spk_params, spk_cfg, tb.pop("ref_mels").to(torch.bfloat16))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    train.sft_loss(params, cfg, tb, spk)[0].backward()
+    torch.cuda.synchronize()
+    fwd_bwd_ms = 1e3 * (time.time() - t0)
+    grads = [p.grad for p in opt.leaves]
+    for p in opt.leaves:
+        p.grad = None
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(opt.leaves, grads)]
+    opt.accumulate(grads)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    opt.accumulate(grads)
+    torch.cuda.synchronize()
+    update_ms = 1e3 * (time.time() - t0)
+    del params, opt, step, watch, states, flat, grads
+    torch.cuda.empty_cache()
+
+    # 2. full widths at 2 layers, fp32: the card against the host
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2, code_predictor_config=dataclasses.replace(
+        cfg.code_predictor_config, num_hidden_layers=2))
+    host = random_talker_params(cfg2, torch.Generator().manual_seed(SEED + 14),
+                                dtype=torch.float32)
+    b = sft_batch(TTSModelConfig(talker_config=cfg2), rng, SFT_HOST_T, SFT_B, ref_mel)
+    b.pop("ref_mels")
+    spk = torch.from_numpy(rng.normal(0, 0.05, (SFT_B, cfg.hidden_size)).astype(np.float32))
+    res = {}
+    for name, dev in (("card", device), ("host", torch.device("cpu"))):
+        p = train.trainable(map_tensors(host, lambda t: t.to(dev)))
+        loss, _ = train.sft_loss(p, cfg2, {k: torch.as_tensor(v, device=dev)
+                                           for k, v in b.items()}, spk.to(dev))
+        loss.backward()
+        res[name] = (float(loss.detach()), {k: v.grad.cpu() for k, v in
+                                            flatten_state_dict(p).items()
+                                            if v is not None and v.grad is not None})
+        del p
+    loss_rel = abs(res["card"][0] - res["host"][0]) / abs(res["host"][0])
+    if set(res["card"][1]) != set(res["host"][1]):
+        raise AssertionError("card and host gradients differ in their leaves")
+    grad_rel = {k: rel_err(res["card"][1][k], g) for k, g in res["host"][1].items() if g.any()}
+    worst = max(grad_rel, key=grad_rel.get)
+    if loss_rel > SFT_LOSS_REL_TOL or grad_rel[worst] > SFT_GRAD_REL_TOL:
+        raise AssertionError(f"SFT card vs host: loss rel {loss_rel}, {worst} {grad_rel[worst]}")
+    del host, res
+    torch.cuda.empty_cache()
+
+    # 3. sft.main end to end at 0.6B
+    base = os.path.join(SFT_DIR, "base")
+    os.makedirs(base, exist_ok=True)
+    spk06 = SpeakerEncoderConfig(enc_dim=cfg_main.hidden_size)
+    cfg06 = TTSModelConfig(talker_config=dataclasses.replace(
+        cfg_main, codec_language_id={"english": 1000}), speaker_encoder_config=spk06,
+        tts_model_type="base", tts_model_size="0b6")
+    with open(os.path.join(base, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg06), f)
+    sd = talker_params_to_state_dict(random_talker_params(
+        cfg_main, torch.Generator(device=device).manual_seed(SEED + 15)), cfg_main)
+    spk_state = speaker_encoder_state(spk06, SEED + 16)
+    sd.update(flatten_state_dict(spk_state, "speaker_encoder"))
+    save_safetensors(os.path.join(base, "model.safetensors"), sd)
+    del sd
+    with open(os.path.join(SFT_DIR, "train.jsonl"), "w") as f:
+        for i in range(4):
+            f.write(json.dumps({"text": f"{TEXTS[i % len(TEXTS)]} {i}",
+                                "audio_codes": rng.integers(0, 2048, (60 + 10 * i, 16)).tolist(),
+                                "ref_audio": ref_path}) + "\n")
+    out = os.path.join(SFT_DIR, "out")
+    t0 = time.time()
+    sft.main(["--init_model_path", base, "--train_jsonl", os.path.join(SFT_DIR, "train.jsonl"),
+              "--output_model_path", out, "--batch_size", "2", "--grad_accum", "2",
+              "--num_epochs", "1", "--speaker_name", "smoke_voice", "--speaker_row", "3000",
+              "--device", str(device)],
+             processor=StandInTokenizer(max_ids=None))
+    main_s = time.time() - t0
+    # the epoch checkpoint has no speech_tokenizer/: the smoke's vocoder speaks
+    model = Qwen3TTSModel.from_pretrained(os.path.join(out, "checkpoint-epoch-0"),
+                                          quantize="int8", device=device)
+    model.speech_tokenizer, model.processor = smoke_vocoder(device), StandInTokenizer()
+    if model.get_supported_speakers() != ["smoke_voice"] or model.tts_model_type != "custom_voice":
+        raise AssertionError("the SFT checkpoint is not a custom-voice model of its speaker")
+    with torch.no_grad():   # the x-vector sft.main wrote into row 3000
+        want = speaker_encoder_forward(map_tensors(from_jax_tree(spk_state, device),
+                                                   lambda t: t.to(torch.bfloat16)), spk06,
+                                       torch.from_numpy(ref_mel).to(device, torch.bfloat16))[0]
+    row_err = rel_err(model.talker_params["codec_embedding"][3000], want)
+    if row_err > 1e-2:
+        raise AssertionError(f"speaker row off the speaker encoder's x-vector: {row_err}")
+    wavs, sr = model.generate_custom_voice(TEXTS[0], speaker="smoke_voice", language="english",
+                                           seed=SEED, max_new_tokens=32)
+    w = wavs[0]
+    if sr != 24000 or w.shape[0] == 0 or w.shape[0] % 1920 or not np.isfinite(w).all():
+        raise AssertionError(f"SFT model speech: sr {sr}, shape {w.shape}")
+    line("sft", model="1.7B" if cfg == TALKER_1B7 else "cut", dtype="bf16", B=SFT_B, T=T, grad_accum=SFT_ACCUM,
+         cycles=SFT_CYCLES, ms_per_cycle=f"{ms:.1f}", tokens_per_s=f"{tokens / ms * 1e3:.0f}",
+         fwd_bwd_ms=f"{fwd_bwd_ms:.1f}", update_ms=f"{update_ms:.1f}",
+         peak_gib=f"{peak_gib:.2f}", losses=[f"{x:.4f}" for x in losses],
+         fp32_2layer_loss_rel=f"{loss_rel:.2e}", fp32_2layer_worst_grad=worst,
+         fp32_2layer_grad_rel=f"{grad_rel[worst]:.2e}", main_0b6_s=f"{main_s:.1f}",
+         speaker_row_rel=f"{row_err:.2e}", frames=w.shape[0] // 1920)
+    del model
+    torch.cuda.empty_cache()
+    return dict(ms=ms, tokens_per_s=tokens / ms * 1e3, peak_gib=peak_gib)
+
+
+
+
 def run(cfg, device) -> list:
     """Every phase after the build, at talker config `cfg`; returns the
     kernels' JSON rows."""
@@ -2017,6 +2426,8 @@ def run(cfg, device) -> list:
     del model, clone_model
     torch.cuda.empty_cache()
     phase_0b6(device)
+    phase_codec25(device)
+    phase_sft(device)
     row8 = next(r for r in step8["rows"] if r["B"] == B_MAIN and r["S_buf"] == S_buf)
     kernels = [
         {"name": "subtalker_frame_fused", "route": "cuda",

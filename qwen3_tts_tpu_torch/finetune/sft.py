@@ -1,0 +1,133 @@
+"""Single-speaker SFT driver (counterpart of `qwen3_tts_tpu/finetune/sft.py`,
+which rebuilds finetuning/sft_12hz.py):
+
+    python -m qwen3_tts_tpu_torch.finetune.sft --init_model_path BASE \\
+        --train_jsonl data.jsonl --output_model_path out [--device cuda]
+
+- the base checkpoint loads in bf16 on `--device` (the card unless the
+  caller passes `--device cpu`); one train step per full batch, gradient
+  accumulation over `--grad_accum` steps (`finetune/train.py`);
+- `--dp` / `--tp` above 1 raise NotImplementedError: the DP / TP plans
+  (`parallel/mesh.py`) are not ported yet;
+- the per-epoch save mirrors the reference (sft_12hz.py:126-158): copy the
+  base directory to `checkpoint-epoch-N`, drop sharded-checkpoint remnants,
+  rewrite config.json to custom_voice with spk_id {name: row}, write the
+  learned speaker embedding into codec_embedding row `--speaker_row`, and
+  save the talker (fp32) as model.safetensors.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import shutil
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def main(argv=None, processor=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--init_model_path", type=str, required=True)
+    parser.add_argument("--output_model_path", type=str, default="output")
+    parser.add_argument("--train_jsonl", type=str, required=True)
+    parser.add_argument("--batch_size", type=int, default=2)
+    parser.add_argument("--lr", type=float, default=2e-5)
+    parser.add_argument("--num_epochs", type=int, default=3)
+    parser.add_argument("--speaker_name", type=str, default="speaker_test")
+    parser.add_argument("--speaker_row", type=int, default=3000,
+                        help="codec_embedding row that stores the learned "
+                             "speaker (reference uses 3000)")
+    parser.add_argument("--grad_accum", type=int, default=4)
+    parser.add_argument("--dp", type=int, default=1)
+    parser.add_argument("--tp", type=int, default=1)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+    if args.dp > 1 or args.tp > 1:
+        raise NotImplementedError(
+            "--dp/--tp > 1: the data- and tensor-parallel plans (parallel/mesh.py) "
+            "are not ported yet (ROADMAP queue 1 item 6); the port trains on one device")
+
+    from ..inference.model import Qwen3TTSModel
+    from ..models.speaker_encoder import speaker_encoder_forward
+    from ..weights import save_safetensors, talker_params_to_state_dict
+    from .data import TTSDataset
+    from .train import default_optimizer, make_train_step, trainable
+
+    model = Qwen3TTSModel.from_pretrained(args.init_model_path, dtype=torch.bfloat16,
+                                          device=args.device)
+    if processor is not None:
+        model.processor = processor
+    cfg = model.config
+    tc = cfg.talker_config
+    device = model.device
+
+    with open(args.train_jsonl) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    dataset = TTSDataset(rows, model._tokenize, cfg, num_code_groups=tc.num_code_groups)
+
+    params = trainable(model.talker_params)
+    model.talker_params = None          # the trainable copy replaces the load
+    optimizer = default_optimizer(params, lr=args.lr, grad_accum=args.grad_accum)
+    train_step = make_train_step(tc, optimizer)
+
+    target_speaker_embedding: Optional[torch.Tensor] = None
+    rng = np.random.default_rng(args.seed)
+    order = np.arange(len(dataset))
+
+    for epoch in range(args.num_epochs):
+        rng.shuffle(order)
+        for start in range(0, len(order) - args.batch_size + 1, args.batch_size):
+            idxs = order[start:start + args.batch_size]
+            batch = dataset.collate([dataset[i] for i in idxs], pad_to_multiple=64)
+            ref_mels = torch.as_tensor(batch.pop("ref_mels"), device=device).to(torch.bfloat16)
+            with torch.no_grad():   # stop_gradient in the JAX driver
+                spk = speaker_encoder_forward(model.speaker_encoder_params,
+                                              cfg.speaker_encoder_config, ref_mels)
+            if target_speaker_embedding is None:
+                target_speaker_embedding = spk[0].detach().cpu()
+            tbatch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+            metrics = train_step(params, tbatch, spk)
+            step = start // args.batch_size
+            if step % 10 == 0:
+                print(f"Epoch {epoch} | Step {step} | Loss: {float(metrics['loss']):.4f}")
+
+        # ---- per-epoch checkpoint (reference sft_12hz.py:126-158) ----
+        out_dir = os.path.join(args.output_model_path, f"checkpoint-epoch-{epoch}")
+        shutil.copytree(args.init_model_path, out_dir, dirs_exist_ok=True)
+        # sharded remnants of the base would shadow the model.safetensors
+        # written below (load_safetensors_dir prefers the index file)
+        for stale in ([os.path.join(out_dir, "model.safetensors.index.json")]
+                      + glob.glob(os.path.join(out_dir, "model-*-of-*.safetensors"))):
+            if os.path.exists(stale):
+                os.remove(stale)
+        with open(os.path.join(args.init_model_path, "config.json")) as f:
+            config_dict = json.load(f)
+        config_dict["tts_model_type"] = "custom_voice"
+        talker_cfg = config_dict.get("talker_config", {})
+        talker_cfg["spk_id"] = {args.speaker_name: args.speaker_row}
+        talker_cfg["spk_is_dialect"] = {args.speaker_name: False}
+        config_dict["talker_config"] = talker_cfg
+        with open(os.path.join(out_dir, "config.json"), "w", encoding="utf-8") as f:
+            json.dump(config_dict, f, indent=2, ensure_ascii=False)
+
+        if target_speaker_embedding is None:
+            raise ValueError(
+                f"no training step ran: dataset has {len(dataset)} rows, "
+                f"batch_size={args.batch_size} (full batches only, matching "
+                "the reference loop) — reduce batch_size or add data")
+        sd = talker_params_to_state_dict(params, tc)
+        emb = sd["talker.model.codec_embedding.weight"].clone()
+        emb[args.speaker_row] = target_speaker_embedding.to(emb.dtype)
+        sd["talker.model.codec_embedding.weight"] = emb
+        save_safetensors(os.path.join(out_dir, "model.safetensors"),
+                         {k: v.to(torch.float32) for k, v in sd.items()})
+        print(f"saved {out_dir}")
+
+
+if __name__ == "__main__":
+    main()

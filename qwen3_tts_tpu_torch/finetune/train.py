@@ -1,0 +1,228 @@
+"""Single-speaker SFT loss and optimizer step (counterpart of
+`qwen3_tts_tpu/finetune/train.py`, which rebuilds finetuning/sft_12hz.py):
+torch autograd where the JAX package takes `jax.value_and_grad`.
+
+Loss (sft_12hz.py:69-124):
+- embedding fusion: text_embedding * text_mask + codec_embedding *
+  codec_mask, the speaker embedding at slot 6, plus the per-codebook
+  sub-code embeddings over codec frames (85-98);
+- talker cross entropy on codec_0_labels shifted by one (100-105);
+- sub-talker cross entropy over frame positions, each frame's codes
+  conditioned on the talker hidden at the frame's own position, dense over
+  every position and masked to the frames (107-111);
+- total = talker + 0.3 * sub-talker (113).
+
+The talker runs its training route (`talker_prefill(..., cache=None,
+allow_flash=False)`): attention over the call's fresh K/V, no cache write,
+no flash kernel (it has no backward). The optimizer is the JAX package's
+`optax.MultiSteps(chain(clip_by_global_norm(1.0), adamw(lr,
+weight_decay=0.01)), k)`: gradients averaged over k calls (a running mean in
+the params' dtype, as MultiSteps keeps it), the average clipped by optax's
+rule (scaled by max / norm only when norm >= max), then `torch.optim.AdamW`
+(eps 1e-8, decoupled decay; states in the params' dtype).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..config import TalkerConfig
+from ..models.talker import StackDims, _cp_project, decoder_stack, talker_prefill, text_project
+from ..ops.attention import mask_to_bias
+from ..ops.rope import default_inv_freq, rope_tables
+
+Params = Dict[str, Any]
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                   ignore_index: int = -100) -> torch.Tensor:
+    """Mean cross entropy over the labels that are not ignored (HF loss
+    semantics)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def fuse_embeddings(params: Params, cfg: TalkerConfig, batch: Dict[str, torch.Tensor],
+                    speaker_embedding: torch.Tensor) -> torch.Tensor:
+    """sft_12hz.py:86-98 embedding fusion. Returns (B, T, H)."""
+    input_ids = batch["input_ids"].long()            # (B, T, 2)
+    text_emb = params["text_embedding"][input_ids[..., 0]]
+    if text_emb.shape[-1] != cfg.hidden_size:
+        # the reference SFT adds raw text embeddings (sft_12hz.py:88), which
+        # assumes text_hidden == hidden; project where a config has them differ
+        text_emb = text_project(params, cfg, text_emb)
+    text_emb = text_emb * batch["text_embedding_mask"].to(text_emb.dtype)
+    codec_emb = params["codec_embedding"][input_ids[..., 1]]
+    codec_emb = codec_emb * batch["codec_embedding_mask"].to(codec_emb.dtype)
+    codec_emb = torch.cat([codec_emb[:, :6], speaker_embedding.to(codec_emb.dtype)[:, None],
+                           codec_emb[:, 7:]], dim=1)
+    emb = text_emb + codec_emb
+    cp_tables = params["code_predictor"]["embeddings"]
+    cmask = batch["codec_mask"][..., None].to(emb.dtype)
+    codec_ids = batch["codec_ids"].long()
+    for i in range(1, cfg.num_code_groups):
+        emb = emb + cp_tables[i - 1][codec_ids[..., i]] * cmask
+    return emb
+
+
+def _sub_talker_dense(params: Params, cfg: TalkerConfig, hidden: torch.Tensor,
+                      codec_ids: torch.Tensor) -> torch.Tensor:
+    """Dense code-predictor teacher forcing. hidden: (N, H_talker)
+    conditioning vectors; codec_ids: (N, Q). Returns logits (N, Q-1, V)
+    for codes 1..Q-1."""
+    cp_cfg = cfg.code_predictor_config
+    cp = params["code_predictor"]
+    dims = StackDims.from_code_predictor(cp_cfg)
+    N, Q = hidden.shape[0], cfg.num_code_groups
+    dtype, dev = hidden.dtype, hidden.device
+    codec_ids = codec_ids.long()
+    seq = [hidden[:, None, :], params["codec_embedding"][codec_ids[:, 0]][:, None, :].to(dtype)]
+    for i in range(1, Q - 1):
+        seq.append(cp["embeddings"][i - 1][codec_ids[:, i]][:, None, :].to(dtype))
+    x = _cp_project(cp, torch.cat(seq, dim=1))      # (N, Q, Hc)
+    pos = torch.arange(Q, device=dev)[None, :].expand(N, Q)
+    cos, sin = rope_tables(pos, default_inv_freq(dims.head_dim, cp_cfg.rope_theta, device=dev))
+    ok = torch.arange(Q, device=dev)[None, :] <= torch.arange(Q, device=dev)[:, None]
+    bias = mask_to_bias(ok)[None, None].expand(N, 1, Q, Q)
+    h = decoder_stack(cp["layers"], cp["norm"], dims, x, cos, sin, bias, None, 0)
+    # code i's logits from position i through lm_head[i-1] (reference 1235-1238)
+    return torch.einsum("nqh,qvh->nqv", h[:, 1:].to(torch.float32),
+                        cp["lm_heads"].to(torch.float32))
+
+
+def sft_loss(params: Params, cfg: TalkerConfig, batch: Dict[str, torch.Tensor],
+             speaker_embedding: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    emb = fuse_embeddings(params, cfg, batch, speaker_embedding)
+    B, T, H = emb.shape
+    # allow_flash=False: SFT batches are right-padded and differentiated,
+    # both outside the flash kernel's contract
+    _, hidden, _ = talker_prefill(params, cfg, emb[:, :-1], batch["attention_mask"][:, :-1],
+                                  None, allow_flash=False)
+    logits = torch.einsum("bth,vh->btv", hidden.to(torch.float32),
+                          params["codec_head"].to(torch.float32))
+    talker_loss = _cross_entropy(logits, batch["codec_0_labels"][:, 1:])
+
+    # the dense sub-talker over all positions, masked to the frame positions
+    cmask = batch["codec_mask"][:, :T - 1]
+    flat_hidden = hidden.reshape(B * (T - 1), H)
+    flat_codes = batch["codec_ids"][:, :T - 1].reshape(B * (T - 1), -1)
+    sub_logits = _sub_talker_dense(params, cfg, flat_hidden, flat_codes)
+    sub_labels = torch.where(cmask.reshape(-1, 1), flat_codes[:, 1:],
+                             torch.full_like(flat_codes[:, 1:], -100))
+    sub_loss = _cross_entropy(sub_logits, sub_labels)
+    loss = talker_loss + 0.3 * sub_loss
+    return loss, {"talker_loss": talker_loss, "sub_talker_loss": sub_loss}
+
+
+def param_leaves(params: Params) -> List[torch.Tensor]:
+    """The tensors of a parameter tree in a fixed (sorted-key) order; None
+    leaves (an absent projection) skipped."""
+    if isinstance(params, dict):
+        return [t for k in sorted(params) for t in param_leaves(params[k])]
+    return [] if params is None else [params]
+
+
+def trainable(params: Params) -> Params:
+    """A copy of `params` whose leaves are fresh tensors that require grad
+    (each a leaf of its own, not a view of a fused or stacked load)."""
+    if isinstance(params, dict):
+        return {k: trainable(v) for k, v in params.items()}
+    if params is None:
+        return None
+    return params.detach().clone().requires_grad_(True)
+
+
+class SFTOptimizer:
+    """optax.MultiSteps(chain(clip_by_global_norm(clip_norm),
+    adamw(lr, weight_decay)), every_k_schedule=grad_accum) over the leaves of
+    a parameter tree, with `torch.optim.AdamW` as its inner update.
+
+    `accumulate(grads)` folds one call's gradients into the running mean;
+    on every grad_accum-th call it clips the mean, steps AdamW and returns
+    True (the params changed). `last_norm` is the global norm of the mean
+    the last update clipped (before clipping)."""
+
+    def __init__(self, params: Params, lr: float = 2e-5, weight_decay: float = 0.01,
+                 clip_norm: float = 1.0, grad_accum: int = 1):
+        self.leaves = param_leaves(params)
+        self.adamw = torch.optim.AdamW(self.leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=weight_decay)
+        self.clip_norm = float(clip_norm)
+        self.grad_accum = int(grad_accum)
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.leaves]
+        self.last_norm: Optional[float] = None
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        return torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))
+
+    def accumulate(self, grads: List[torch.Tensor]) -> bool:
+        n = self.mini_step
+        with torch.no_grad():
+            for a, g in zip(self.acc, grads):   # Welford mean, MultiSteps' rule
+                a.add_((g.to(a.dtype) - a) / (n + 1))
+        if n + 1 < self.grad_accum:
+            self.mini_step = n + 1
+            return False
+        with torch.no_grad():
+            norm = self.global_norm(self.acc)
+            self.last_norm = float(norm)
+            clip = self.last_norm >= self.clip_norm
+            for p, a in zip(self.leaves, self.acc):
+                p.grad = ((a / norm.to(a.dtype)) * self.clip_norm) if clip else a.clone()
+            self.adamw.step()
+            for p, a in zip(self.leaves, self.acc):
+                p.grad = None
+                a.zero_()
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"adamw": self.adamw.state_dict(), "mini_step": self.mini_step,
+                "acc": [a.detach().cpu() for a in self.acc]}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.mini_step = int(state["mini_step"])
+        for a, s in zip(self.acc, state["acc"]):
+            a.copy_(s)
+
+
+def default_optimizer(params: Params, lr: float = 2e-5, weight_decay: float = 0.01,
+                      clip_norm: float = 1.0, grad_accum: int = 1) -> SFTOptimizer:
+    """AdamW + global-norm clipping (sft_12hz.py:60, 117-118), accumulating
+    `grad_accum` calls per update (the JAX driver's MultiSteps)."""
+    return SFTOptimizer(params, lr=lr, weight_decay=weight_decay, clip_norm=clip_norm,
+                        grad_accum=grad_accum)
+
+
+def make_train_step(cfg: TalkerConfig, optimizer: SFTOptimizer):
+    """(params, batch, speaker_embedding) -> metrics. One call is one
+    mini-step: forward and backward, then the optimizer folds the gradients
+    in (and updates the params in place on every grad_accum-th call).
+    `params` are the optimizer's leaves (`trainable`); a leaf the loss does
+    not reach gets a zero gradient, as `jax.grad` gives it, so AdamW still
+    decays it. The speaker embedding carries no gradient."""
+
+    def train_step(params: Params, batch: Dict[str, torch.Tensor],
+                   speaker_embedding: torch.Tensor) -> Dict[str, Any]:
+        for p in optimizer.leaves:
+            p.grad = None
+        with torch.enable_grad():
+            loss, metrics = sft_loss(params, cfg, batch, speaker_embedding.detach())
+            loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in optimizer.leaves]
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        metrics["updated"] = optimizer.accumulate(grads)
+        for p in optimizer.leaves:
+            p.grad = None
+        return metrics
+
+    return train_step

@@ -9,7 +9,10 @@
   it with `from_jax_tree`.
 - Speaker encoder and Mimi encoder: numpy trees from a seed, in the
   checkpoint's state-dict layout (`speaker_encoder.*` and the speech
-  tokenizer's `encoder.*`, unflattened). Both packages take the same numpy
+  tokenizer's `encoder.*`, unflattened); the 25 Hz tokenizer and CAM++:
+  flat numpy state dicts (`encoder.tokenizer.*`, `decoder.dit.*`,
+  `decoder.bigvgan.*`; CAM++ `head.*` and `xvector.*`) with non-trivial
+  batch-norm running statistics. Both packages take the same numpy
   tree (the JAX package as is, the port through `from_jax_tree`), so a test
   feeds them identical weights; conv weights are drawn with a 1/sqrt(fan_in)
   scale so activations stay O(1) at the released widths.
@@ -22,8 +25,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..config import (CodecV2DecoderConfig, CodePredictorConfig, MimiEncoderConfig,
-                      SpeakerEncoderConfig, TalkerConfig)
+from ..config import (CodecV1Config, CodecV2DecoderConfig, CodePredictorConfig,
+                      MimiEncoderConfig, SpeakerEncoderConfig, TalkerConfig)
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
@@ -330,6 +333,167 @@ def mimi_encoder_state(cfg: MimiEncoderConfig, seed: int) -> Dict[str, Any]:
             "acoustic_residual_vector_quantizer": rvq(
                 cfg.num_quantizers - cfg.num_semantic_quantizers)},
     }
+
+
+def _np_normal(rng: np.random.Generator, shape, std: float, mean: float = 0.0) -> np.ndarray:
+    return (mean + std * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
+
+
+def _np_linear(rng: np.random.Generator, o: int, i: int, bias: bool = True) -> Dict[str, Any]:
+    out = {"weight": _np_normal(rng, (o, i), 1 / np.sqrt(i))}
+    if bias:
+        out["bias"] = _np_normal(rng, (o,), 0.02)
+    return out
+
+
+def _np_conv32(rng: np.random.Generator, o: int, i: int, k: int, bias: bool = True):
+    """_np_conv drawn in float32 (the 25 Hz tree is ~0.6G values)."""
+    out = {"weight": _np_normal(rng, (o, i, k), 1 / np.sqrt(i * k))}
+    if bias:
+        out["bias"] = _np_normal(rng, (o,), 0.02)
+    return out
+
+
+def _np_norm(rng: np.random.Generator, n: int) -> Dict[str, Any]:
+    return {"weight": _np_normal(rng, (n,), 0.1, 1.0), "bias": _np_normal(rng, (n,), 0.02)}
+
+
+def codec_v1_state(cfg: CodecV1Config, seed: int) -> Dict[str, np.ndarray]:
+    """A random 25 Hz tokenizer state dict (flat, numpy float32): the
+    Whisper-VQ encoder's first `audio_vq_layers` blocks, downsample and
+    codebook (`encoder.tokenizer.*`), the DiT with its ECAPA
+    (`decoder.dit.*`) and BigVGAN (`decoder.bigvgan.*`): every key the 25 Hz
+    modules read. Linear and conv weights have a 1/sqrt(fan_in) scale."""
+    from ..models.codec25.dit import speaker_config
+    from ..weights import flatten_state_dict
+
+    rng = np.random.default_rng(seed)
+    ec, dc, bc = cfg.encoder_config, cfg.dit_config, cfg.bigvgan_config
+    D = ec.n_state
+    blocks = {str(i): {
+        "attn_ln": _np_norm(rng, D),
+        "attn": {"query": _np_linear(rng, D, D), "key": _np_linear(rng, D, D, bias=False),
+                 "value": _np_linear(rng, D, D), "out": _np_linear(rng, D, D)},
+        "mlp_ln": _np_norm(rng, D),
+        "mlp": {"0": _np_linear(rng, 4 * D, D), "2": _np_linear(rng, D, 4 * D)},
+    } for i in range(ec.audio_vq_layers)}
+    encoder = {
+        "conv1": _np_conv32(rng, D, ec.n_mels, 3), "conv2": _np_conv32(rng, D, D, 3),
+        "blocks": blocks,
+        "audio_vq_downsample": _np_conv32(rng, D, D, ec.audio_vq_ds_rate),
+        "audio_quantizer": {"rvqs": {"0": {"embed": _np_normal(
+            rng, (1, ec.audio_vq_codebook_size, ec.audio_vq_codebook_dim), 1.0)}}},
+    }
+    # CodecV1Config()'s codebook (32768) outgrows the DiT's code table
+    # (num_embeds 8193): rows past the table sit 10x farther out, so an
+    # encode emits only codes its decode embeds, as a trained pair would
+    embed = encoder["audio_quantizer"]["rvqs"]["0"]["embed"]
+    embed[:, dc.num_embeds:] *= 10.0
+
+    H, inner = dc.hidden_size, dc.num_attention_heads * dc.head_dim
+    layers = {str(i): {
+        "attn_norm": {"linear": _np_linear(rng, 6 * H, H)},
+        "attn": {"to_q": _np_linear(rng, inner, H), "to_k": _np_linear(rng, inner, H),
+                 "to_v": _np_linear(rng, inner, H), "to_out": {"0": _np_linear(rng, H, inner)}},
+        "ff": {"ff": {"0": _np_linear(rng, H * dc.ff_mult, H),
+                      "3": _np_linear(rng, H, H * dc.ff_mult)}},
+    } for i in range(dc.num_hidden_layers)}
+    dit = {
+        "time_embed": {"time_mlp": {"0": _np_linear(rng, H, 256), "2": _np_linear(rng, H, H)}},
+        "input_embed": {
+            "spk_encoder": speaker_encoder_state(speaker_config(dc), seed + 1),
+            "proj": _np_linear(rng, H, dc.mel_dim + dc.enc_dim + dc.emb_dim + dc.enc_emb_dim)},
+        "transformer_blocks": layers,
+        "norm_out": {"linear": _np_linear(rng, 2 * H, H)},
+        "proj_out": _np_linear(rng, dc.mel_dim, H),
+        "text_embed": {"codec_embed": {"weight": _np_normal(rng, (dc.num_embeds, dc.emb_dim),
+                                                            1.0)}},
+    }
+
+    def snake(n):
+        return {"act": {"alpha": _np_normal(rng, (n,), 0.1),
+                        "beta": _np_normal(rng, (n,), 0.1)}}
+
+    n_res = len(bc.resblock_kernel_sizes)
+    ch = bc.upsample_initial_channel
+    bigvgan = {"conv_pre": _np_conv32(rng, ch, bc.mel_dim, 5), "ups": {}, "resblocks": {}}
+    for li, (stride, k) in enumerate(zip(bc.upsample_rates, bc.upsample_kernel_sizes)):
+        co = ch // 2
+        up = _np_conv32(rng, co, ch, k)   # ConvTranspose1d layout (in, out, k)
+        bigvgan["ups"][str(li)] = {"0": {"weight": np.ascontiguousarray(
+            up["weight"].transpose(1, 0, 2)), "bias": up["bias"]}}
+        for bi, (rk, dils) in enumerate(zip(bc.resblock_kernel_sizes,
+                                            bc.resblock_dilation_sizes)):
+            block = {"activations": {str(j): snake(co) for j in range(2 * len(dils))},
+                     "convs1": {str(j): _np_conv32(rng, co, co, rk) for j in range(len(dils))},
+                     "convs2": {str(j): _np_conv32(rng, co, co, rk) for j in range(len(dils))}}
+            if li <= 1:   # causal_type "2": a 'same' pre-conv and its activation
+                block["pre_conv"] = _np_conv32(rng, co, co, rk)
+                block["pre_act"] = snake(co)
+            bigvgan["resblocks"][str(li * n_res + bi)] = block
+        ch = co
+    bigvgan["activation_post"] = snake(ch)
+    bigvgan["conv_post"] = _np_conv32(rng, 1, ch, 7, bias=False)
+    return flatten_state_dict({"encoder": {"tokenizer": encoder},
+                               "decoder": {"dit": dit, "bigvgan": bigvgan}})
+
+
+def campplus_state(cfg, seed: int) -> Dict[str, np.ndarray]:
+    """A random CAM++ state dict (flat, numpy float32) at `cfg`
+    (models/codec25/campplus.py CAMPPlusConfig): the modelscope CAMPPlus
+    names, batch norms with non-trivial running statistics (`batchnorm_`
+    layers without affine terms)."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, np.ndarray] = {}
+
+    def conv(name, o, i, *k, bias=False):
+        out[f"{name}.weight"] = _np_normal(rng, (o, i) + k, 1 / np.sqrt(i * int(np.prod(k))))
+        if bias:
+            out[f"{name}.bias"] = _np_normal(rng, (o,), 0.02)
+
+    def bn(name, n, affine=True):
+        out[f"{name}.running_mean"] = _np_normal(rng, (n,), 0.2)
+        out[f"{name}.running_var"] = rng.uniform(0.5, 2.0, (n,)).astype(np.float32)
+        if affine:
+            out[f"{name}.weight"] = _np_normal(rng, (n,), 0.1, 1.0)
+            out[f"{name}.bias"] = _np_normal(rng, (n,), 0.1)
+
+    m = cfg.m_channels
+    conv("head.conv1", m, 1, 3, 3)
+    bn("head.bn1", m)
+    for layer in ("layer1", "layer2"):
+        for bi in (0, 1):
+            pre = f"head.{layer}.{bi}"
+            conv(f"{pre}.conv1", m, m, 3, 3)
+            bn(f"{pre}.bn1", m)
+            conv(f"{pre}.conv2", m, m, 3, 3)
+            bn(f"{pre}.bn2", m)
+            if bi == 0:   # stride 2 on frequency: a 1x1 shortcut
+                conv(f"{pre}.shortcut.0", m, m, 1, 1)
+                bn(f"{pre}.shortcut.1", m)
+    conv("head.conv2", m, m, 3, 3)
+    bn("head.bn2", m)
+    ch = cfg.init_channels
+    conv("xvector.tdnn.linear", ch, m * (cfg.feat_dim // 8), 5)
+    bn("xvector.tdnn.nonlinear.batchnorm", ch)
+    bn_c = cfg.bn_size * cfg.growth_rate
+    for i, (nl, k) in enumerate(zip(cfg.num_blocks, cfg.kernels)):
+        for j in range(nl):
+            pre = f"xvector.block{i + 1}.tdnnd{j + 1}"
+            bn(f"{pre}.nonlinear1.batchnorm", ch)
+            conv(f"{pre}.linear1", bn_c, ch, 1)
+            bn(f"{pre}.nonlinear2.batchnorm", bn_c)
+            conv(f"{pre}.cam_layer.linear_local", cfg.growth_rate, bn_c, k)
+            conv(f"{pre}.cam_layer.linear1", bn_c // 2, bn_c, 1, bias=True)
+            conv(f"{pre}.cam_layer.linear2", cfg.growth_rate, bn_c // 2, 1, bias=True)
+            ch += cfg.growth_rate
+        bn(f"xvector.transit{i + 1}.nonlinear.batchnorm", ch)
+        conv(f"xvector.transit{i + 1}.linear", ch // 2, ch, 1)
+        ch //= 2
+    bn("xvector.out_nonlinear.batchnorm", ch)
+    conv("xvector.dense.linear", cfg.embedding_size, 2 * ch, 1)
+    bn("xvector.dense.nonlinear.batchnorm", cfg.embedding_size, affine=False)
+    return out
 
 
 # The released talkers' widths (the JAX package's TALKER_0B6 and TALKER_1B7

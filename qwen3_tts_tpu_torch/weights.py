@@ -1,9 +1,11 @@
-"""Checkpoint loading: safetensors -> nested dicts of torch tensors.
+"""Checkpoint loading and saving: safetensors <-> nested dicts of torch
+tensors.
 
 Counterpart of `qwen3_tts_tpu/weights.py`. The safetensors format is read
-with numpy alone (8-byte little-endian header length, a JSON header, then
-raw little-endian tensor bytes), so loading needs neither the `safetensors`
-package nor JAX. Parameter trees keep the torch state-dict path components
+and written with numpy alone (8-byte little-endian header length, a JSON
+header, then raw little-endian tensor bytes), so neither the `safetensors`
+package nor JAX is needed; `talker_params_to_state_dict` turns a prepared
+talker tree back into the reference's names (the SFT checkpoint). Parameter trees keep the torch state-dict path components
 as keys, exactly as the JAX package organises them, so a prepared tree from
 either package converts to the other leaf by leaf (`from_jax_tree`).
 """
@@ -57,6 +59,18 @@ def unflatten_state_dict(flat: Dict[str, Any]) -> Dict[str, Any]:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = value
+    return out
+
+
+def flatten_state_dict(nested: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """{'a': {'b': x}} -> {'a.b': x} (the inverse of unflatten_state_dict)."""
+    out: Dict[str, Any] = {}
+    for k, v in nested.items():
+        key = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten_state_dict(v, key))
+        else:
+            out[key] = v
     return out
 
 
@@ -115,6 +129,116 @@ def load_safetensors_dir(model_dir: str, dtype: Optional[torch.dtype] = None,
                 v = v.to(dtype)
             flat[k] = v.to(device)
     return unflatten_state_dict(flat)
+
+
+_ST_NAMES = {np.dtype(v): k for k, v in _ST_DTYPES.items() if k != "BF16"}
+
+
+def _st_array(value):
+    """(safetensors dtype name, little-endian numpy array) of a numpy array or
+    torch tensor; bf16 tensors travel as their uint16 bit patterns."""
+    if torch.is_tensor(value):
+        t = value.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return "BF16", t.view(torch.int16).numpy().view(np.uint16)
+        value = t.numpy()
+    arr = np.asarray(value)
+    if arr.dtype not in _ST_NAMES:
+        raise ValueError(f"unsupported dtype for safetensors: {arr.dtype}")
+    return _ST_NAMES[arr.dtype], arr
+
+
+def save_safetensors(path: str, state_dict: Dict[str, Any]) -> None:
+    """Write a .safetensors file with numpy alone: an 8-byte little-endian
+    header length, a JSON header (dtype, shape, data_offsets per tensor,
+    names sorted as the `safetensors` package writes them) padded with
+    spaces to a multiple of 8, then each tensor's raw little-endian bytes.
+    Values are numpy arrays or torch tensors (bf16 included)."""
+    header: Dict[str, Any] = {}
+    blobs = []
+    offset = 0
+    for name in sorted(state_dict):
+        dtype, arr = _st_array(state_dict[name])
+        data = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder("<")).tobytes()
+        header[name] = {"dtype": dtype, "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(np.asarray([len(head)], "<u8").tobytes())
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+
+
+def _unfuse_layers(stacked: Dict[str, Any], heads: int, kv_heads: int,
+                   head_dim: int) -> Dict[str, Any]:
+    """Split fused qkv / gate_up stacks back into reference-format weights."""
+    attn = stacked["self_attn"]
+    qkv = attn["qkv_proj"]["weight"]
+    nq, nkv = heads * head_dim, kv_heads * head_dim
+    gu = stacked["mlp"]["gate_up_proj"]["weight"]
+    inter = gu.shape[-2] // 2
+    return {
+        "self_attn": {
+            "q_proj": {"weight": qkv[..., :nq, :]},
+            "k_proj": {"weight": qkv[..., nq:nq + nkv, :]},
+            "v_proj": {"weight": qkv[..., nq + nkv:, :]},
+            "o_proj": attn["o_proj"],
+            "q_norm": attn["q_norm"],
+            "k_norm": attn["k_norm"],
+        },
+        "mlp": {
+            "gate_proj": {"weight": gu[..., :inter, :]},
+            "up_proj": {"weight": gu[..., inter:, :]},
+            "down_proj": stacked["mlp"]["down_proj"],
+        },
+        "input_layernorm": stacked["input_layernorm"],
+        "post_attention_layernorm": stacked["post_attention_layernorm"],
+    }
+
+
+def talker_params_to_state_dict(prepared: Dict[str, Any], cfg,
+                                prefix: str = "talker") -> Dict[str, torch.Tensor]:
+    """Invert `prepare_talker_params`: the stacked tree (unquantized) ->
+    reference-format state-dict names, as detached CPU tensors (for saving
+    a checkpoint after finetuning)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, t):
+        out[name] = t.detach().cpu()
+
+    def unstack(tree: Dict[str, Any], base: str):
+        for k, v in flatten_state_dict(tree).items():
+            for i in range(v.shape[0]):
+                put(f"{base}.{i}.{k}", v[i])
+
+    cp_cfg = cfg.code_predictor_config
+    unstack(_unfuse_layers(prepared["layers"], cfg.num_attention_heads,
+                           cfg.num_key_value_heads, cfg.resolved_head_dim),
+            f"{prefix}.model.layers")
+    put(f"{prefix}.model.norm.weight", prepared["norm"]["weight"])
+    put(f"{prefix}.model.codec_embedding.weight", prepared["codec_embedding"])
+    put(f"{prefix}.model.text_embedding.weight", prepared["text_embedding"])
+    for k, v in flatten_state_dict(prepared["text_projection"]).items():
+        put(f"{prefix}.text_projection.{k}", v)
+    put(f"{prefix}.codec_head.weight", prepared["codec_head"])
+
+    cp = prepared["code_predictor"]
+    unstack(_unfuse_layers(cp["layers"], cp_cfg.num_attention_heads,
+                           cp_cfg.num_key_value_heads, cp_cfg.head_dim),
+            f"{prefix}.code_predictor.model.layers")
+    put(f"{prefix}.code_predictor.model.norm.weight", cp["norm"]["weight"])
+    for i in range(cp["embeddings"].shape[0]):
+        put(f"{prefix}.code_predictor.model.codec_embedding.{i}.weight", cp["embeddings"][i])
+    for i in range(cp["lm_heads"].shape[0]):
+        put(f"{prefix}.code_predictor.lm_head.{i}.weight", cp["lm_heads"][i])
+    if cp.get("proj") is not None:
+        put(f"{prefix}.code_predictor.small_to_mtp_projection.weight", cp["proj"]["weight"])
+        put(f"{prefix}.code_predictor.small_to_mtp_projection.bias", cp["proj"]["bias"])
+    return out
 
 
 def from_jax_tree(tree, device="cpu"):
