@@ -104,6 +104,24 @@ Phases, each printing one line (any failure raises and exits non-zero):
    `sft.main` end to end on a 0.6B base checkpoint under build/, whose
    epoch checkpoint reloads as an int8 custom-voice model with the new
    speaker and speaks;
+14. the native FLAC path: native/flac_fast.c built at first use
+   into build/native/; a 10 s FLAC written by utils/flac.py decodes to the
+   same samples through the C loops and the pure-Python path (both walls);
+15. the DP / TP plans (parallel/mesh.py): two ranks sharing the
+   card through gloo at TALKER_1B7's widths (fp32 params drawn on the host
+   from the seed, each rank moving only its shard): tp=2 greedy fp32
+   generation against the unsharded run (a differing code passes only as a
+   near-tie: the top-2 gap is printed); a tp=2 bf16 prefill of an
+   ICL-length batch, kernel 3 on each rank's 8 query / 4 KV heads held to
+   its twin, the last hidden against the unsharded prefill; (1, 2) and
+   (2, 1) engines against the unsharded engine; one SFT step at tp=2 and at
+   dp=2 (2 layers, fp32) against the unsharded card run; a one-rank NCCL
+   mesh; walls of ranks sharing one card, no throughput claim;
+16. evaluation.py: `run_suite` over a base checkpoint (a clone
+   row) and a custom-voice one (the tokenizer round trip over 4 synthetic
+   24 kHz wavs, a custom-voice row), each against the same run on the host;
+   the unavailable columns exactly the expected ones; `evaluate_tts_wer`
+   with an injected ASR, card against host;
 then the roofline of the custom-voice call (`utils/roofline.py`
 `decode_roofline` with the rate `shaped_bw` measured above) and each decode
 kernel's achievable floor beside its data-sheet bound; one JSON line with
@@ -115,6 +133,7 @@ Imports nothing of JAX: the port runs on hosts that have no JAX installed.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -2369,6 +2388,631 @@ def phase_sft(device, cfg=None, cfg_main=None) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# The DP / TP plans (parallel/mesh.py), evaluation.py, the native FLAC path
+# ---------------------------------------------------------------------------
+
+PAR_DIR = "build/parallel"
+PAR_FRAMES = 16               # (a): frames of the fp32 greedy generation
+PAR_NEAR_TIE = 1e-3           # (a): a differing code passes only over a top-2 gap below this
+PAR_ICL_T, PAR_ICL_STARTS = 2304, (0, 211)   # (b): the bf16 ICL-length prefill
+PAR_HIDDEN_REL_TOL = 5e-2     # (b): its last hidden, tp=2 against unsharded (relative L2)
+PAR_SLOTS, PAR_REQUESTS, PAR_REQ_FRAMES = 8, 12, 10     # (c): the mesh engines
+PAR_SFT_LAYERS, PAR_SFT_REL_TOL = 2, 1e-4   # (d): full widths, 2 layers, fp32
+EVAL_DIR = "build/eval"
+# evaluation numbers, card against the host copy (fp32, TF32 off on both):
+# relative, absolute below 1 (dB figures near 0). SI-SDR is held as what it
+# measures: it is 20 log10 of the cosine rho between reference and output,
+# and a relative change e of the output moves it by up to 20 log10(1 + e /
+# rho) dB, which is large where rho is small (a random tokenizer's output:
+# rho ~ 3e-3, -50 dB)
+EVAL_REL_TOL = 1e-3
+EVAL_WAVS, EVAL_WAV_S, EVAL_NEW_TOKENS = 4, 1.0, 16
+
+
+def _par_cfg(cfg, layers=None):
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, num_hidden_layers=layers, code_predictor_config=(
+        dataclasses.replace(cfg.code_predictor_config, num_hidden_layers=layers)))
+
+
+def _par_host_params(cfg, seed):
+    """fp32 params drawn on the host from a seed: every process draws the
+    same numbers, and a rank moves only its shard to the card."""
+    from qwen3_tts_tpu_torch.utils.testing import random_talker_params
+
+    return random_talker_params(cfg, torch.Generator().manual_seed(seed), dtype=torch.float32)
+
+
+def _par_gen_cfg():
+    from qwen3_tts_tpu_torch.ops.sampling import SamplingParams
+    from qwen3_tts_tpu_torch.runtime.generate import GenerationConfig
+
+    return GenerationConfig(max_new_tokens=PAR_FRAMES + 1,
+                            sampling=SamplingParams(do_sample=False, repetition_penalty=1.05),
+                            subtalker=SamplingParams(do_sample=False))
+
+
+def _par_icl(cfg, device):
+    """The (b) inputs: a left-padded bf16 batch of ICL length from the seed."""
+    rng = np.random.default_rng(SEED + 22)
+    B, T = len(PAR_ICL_STARTS), PAR_ICL_T
+    e = torch.from_numpy(rng.standard_normal((B, T, cfg.hidden_size), dtype=np.float32))
+    mask = torch.ones((B, T), dtype=torch.int64)
+    for b, s in enumerate(PAR_ICL_STARTS):
+        e[b, :s], mask[b, :s] = 0, 0
+    return e.to(device, torch.bfloat16), mask.to(device)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_generate(params, cfg, prompts, device, mesh=None):
+    from qwen3_tts_tpu_torch.runtime.generate import generate_frames
+
+    e, m, tr, pad = (torch.from_numpy(x).to(device) for x in prompts)
+    _sync(device)
+    t0 = time.time()
+    with torch.no_grad():
+        r = generate_frames(params, cfg, _par_gen_cfg(), e, m, tr, pad,
+                            torch.Generator(device=device).manual_seed(SEED), mesh=mesh)
+    codes, lens = r.codes.cpu().numpy(), r.lengths.cpu().numpy()
+    return codes, lens, time.time() - t0
+
+
+def _par_local_heads(params, cfg, e, mask, mesh):
+    """Layer 0's q, k, v on this rank's heads, as decoder_stack forms them
+    (strided views of the fused qkv product after the norms and RoPE)."""
+    from qwen3_tts_tpu_torch.models.talker import StackDims
+    from qwen3_tts_tpu_torch.ops.norms import rms_norm
+    from qwen3_tts_tpu_torch.ops.rope import apply_rope, default_inv_freq, rope_tables
+    from qwen3_tts_tpu_torch.weights import matmul_t
+
+    dims = StackDims.from_talker(cfg, mesh)
+    B, T, _ = e.shape
+    D = dims.head_dim
+    lay = params["layers"]
+    x = rms_norm(e, lay["input_layernorm"]["weight"][0], dims.eps)
+    qkv = matmul_t(x, lay["self_attn"]["qkv_proj"]["weight"][0])
+    nq, nkv = dims.heads * D, dims.kv_heads * D
+    q = rms_norm(qkv[..., :nq].reshape(B, T, dims.heads, D),
+                 lay["self_attn"]["q_norm"]["weight"][0], dims.eps)
+    k = rms_norm(qkv[..., nq:nq + nkv].reshape(B, T, dims.kv_heads, D),
+                 lay["self_attn"]["k_norm"]["weight"][0], dims.eps)
+    v = qkv[..., nq + nkv:].reshape(B, T, dims.kv_heads, D)
+    pos = torch.cumsum(mask, dim=-1) - 1
+    pos = torch.where(mask == 0, torch.ones_like(pos), pos)
+    cos, sin = rope_tables(pos, default_inv_freq(D, cfg.rope_theta, device=e.device))
+    q, k = apply_rope(q, k, cos, sin)
+    return q, k, v, (T - mask.sum(dim=-1)).to(torch.int32)
+
+
+def _par_prefill(params, cfg, device, mesh=None):
+    """(b): the bf16 prefill of the ICL-length batch (T >= FLASH_PREFILL_MIN_T:
+    kernel 3 in every layer, on this rank's heads under a mesh). Returns the
+    last position's hidden, the flash launches, and kernel 3 on layer 0's
+    local heads against its twin."""
+    from qwen3_tts_tpu_torch.models.talker import talker_prefill
+    from qwen3_tts_tpu_torch.ops.cuda.prefill_attention import flash_prefill, flash_prefill_ref
+    from qwen3_tts_tpu_torch.weights import map_tensors
+
+    p16 = map_tensors(params, lambda t: t.to(torch.bfloat16))
+    e, mask = _par_icl(cfg, device)
+    flash_prefill.launches = 0
+    _sync(device)
+    t0 = time.time()
+    with torch.no_grad():
+        _, h, _ = talker_prefill(p16, cfg, e, mask, None, mesh=mesh)
+    _sync(device)
+    out = dict(last=h[:, -1].float().cpu(), launches=flash_prefill.launches,
+               wall=time.time() - t0)
+    with torch.no_grad():
+        q, k, v, start = _par_local_heads(p16, cfg, e, mask, mesh)
+        got = flash_prefill(q, k, v, start)
+        want = flash_prefill_ref(q.float(), k.float(), v.float(), start)
+        starts = start.tolist()
+        out["heads"] = (q.shape[2], k.shape[2])
+        out["err"] = max(max_abs(got[b, s:], want[b, s:]) for b, s in enumerate(starts))
+        out["row_rel"] = max(float(((got[b, s:].float() - want[b, s:]).norm(dim=-1)
+                                    / want[b, s:].norm(dim=-1).clamp_min(1e-30)).max())
+                             for b, s in enumerate(starts))
+        out["ms"] = (cuda_ms(lambda: flash_prefill(q, k, v, start), 10)
+                     if device.type == "cuda" else float("nan"))
+    return out
+
+
+def _par_requests(prompts):
+    """(c): PAR_REQUESTS single-prompt requests from the smoke's prompts."""
+    e, m, tr, pad = prompts
+    reqs = []
+    for i in range(PAR_REQUESTS):
+        b = i % e.shape[0]
+        n = int(m[b].sum())
+        reqs.append((e[b:b + 1, -n:], tr[b:b + 1], pad, PAR_REQ_FRAMES + i % 3))
+    return reqs
+
+
+def _par_engine(params, cfg, prompts, device, mesh=None):
+    from qwen3_tts_tpu_torch.runtime.batching import ContinuousBatchingEngine, Request
+
+    reqs = _par_requests(prompts)
+    eng = ContinuousBatchingEngine(params, cfg, _par_gen_cfg(), num_slots=PAR_SLOTS,
+                                   max_len=256, max_trailing=prompts[2].shape[1],
+                                   prefill_bucket=128, dtype=torch.float32, mesh=mesh)
+    _sync(device)
+    t0 = time.time()
+    for rid, (e, tr, pad, mf) in enumerate(reqs):
+        eng.submit(Request(request_id=rid, inputs_embeds=torch.from_numpy(e).to(device),
+                           attn_mask=torch.ones((1, e.shape[1]), dtype=torch.int32,
+                                                device=device),
+                           trailing=torch.from_numpy(tr).to(device), trailing_len=tr.shape[1],
+                           tts_pad=torch.from_numpy(pad).to(device), max_frames=mf))
+    with torch.no_grad():
+        codes = {c.request_id: np.asarray(c.codes) for c in eng.run_until_drained()}
+    return codes, time.time() - t0
+
+
+def _par_sft(cfg, batch, spk, device, mesh=None):
+    """(d): one train step (grad_accum 2, so the optimizer only folds the
+    gradients in) at full widths and PAR_SFT_LAYERS layers in fp32. Returns
+    the loss and the unsharded gradients (on the card)."""
+    from qwen3_tts_tpu_torch.finetune import train
+    from qwen3_tts_tpu_torch.parallel import mesh as M
+    from qwen3_tts_tpu_torch.weights import flatten_state_dict, map_tensors
+
+    cfg2 = _par_cfg(cfg, PAR_SFT_LAYERS)
+    host = _par_host_params(cfg2, SEED + 23)
+    plan = sharded = None
+    if mesh is not None:
+        plan = M.tp_shard_plan(host, mesh)
+        sharded = train.param_flags(host, plan)
+        host = M.shard_talker_params(host, mesh, plan)
+    params = train.trainable(map_tensors(host, lambda t: t.to(device)))
+    del host
+    opt = train.default_optimizer(params, lr=2e-5, grad_accum=2, mesh=mesh, sharded=sharded)
+    rows = slice(None) if mesh is None else mesh.rows(spk.shape[0])
+    m = train.make_train_step(cfg2, opt)(
+        params, {k: torch.as_tensor(v[rows], device=device) for k, v in batch.items()},
+        torch.as_tensor(spk[rows], device=device))
+    acc = iter(opt.acc)
+
+    def like(tree):
+        if isinstance(tree, dict):
+            return {k: like(tree[k]) for k in sorted(tree)}
+        return None if tree is None else next(acc)
+
+    grads = like(params)
+    if mesh is not None:
+        grads = M.unshard_talker_params(grads, plan, mesh)
+    return float(m["loss"]), {k: v for k, v in flatten_state_dict(grads).items()
+                              if v is not None}
+
+
+def _par_rank(rank, world, dp, tp, job):
+    """One rank of the parallel phase: ranks share the one card through
+    gloo. Every check the mesh shape (dp, tp) runs; rank 0 writes its
+    unsharded SFT gradients where the parent reads them."""
+    import os
+
+    from qwen3_tts_tpu_torch.parallel import mesh as M
+    from qwen3_tts_tpu_torch.weights import map_tensors
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device, cfg = job["device"], job["cfg"]
+    mesh = M.make_mesh(dp, tp, device=device, backend="gloo")
+    t0 = time.time()
+    host = _par_host_params(cfg, SEED + 21)
+    params = map_tensors(M.shard_talker_params(host, mesh), lambda t: t.to(device))
+    del host
+    out = {"load_s": time.time() - t0}
+    if dp == 1:
+        out["gen"] = _par_generate(params, cfg, job["prompts"], device, mesh)
+        out["prefill"] = _par_prefill(params, cfg, device, mesh)
+    out["engine"] = _par_engine(params, cfg, job["prompts"], device, mesh)
+    del params
+    loss, grads = _par_sft(cfg, job["sft_batch"], job["sft_spk"], device, mesh)
+    out["sft_loss"] = loss
+    if rank == 0:
+        path = os.path.join(PAR_DIR, f"grads_{dp}x{tp}.pt")
+        torch.save({k: v.cpu() for k, v in grads.items()}, path)
+        out["grads"] = path
+    out["gib"] = (torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda"
+                  else float("nan"))
+    return out
+
+
+@contextlib.contextmanager
+def _recorded_logits(log: list):
+    """Record every logits row block the samplers see (eager loops only)."""
+    from qwen3_tts_tpu_torch.models import talker as T
+    from qwen3_tts_tpu_torch.runtime import generate as G
+
+    saved = [(T, "process_and_sample"), (T, "process_and_sample_rows"),
+             (G, "process_and_sample_rows")]
+    orig = [getattr(mod, name) for mod, name in saved]
+
+    def wrap(fn):
+        def inner(logits, *a, **kw):
+            log.append(logits.float().cpu())
+            return fn(logits, *a, **kw)
+        return inner
+
+    for (mod, name), fn in zip(saved, orig):
+        setattr(mod, name, wrap(fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(saved, orig):
+            setattr(mod, name, fn)
+
+
+def _first_difference(got, glen, want, wlen):
+    """(row, frame, codebook) of the first differing code, or None."""
+    for b in range(want.shape[0]):
+        n = min(glen[b], wlen[b])
+        diff = np.argwhere(got[b, :n] != want[b, :n])
+        if len(diff):
+            return b, int(diff[0][0]), int(diff[0][1])
+        if glen[b] != wlen[b]:
+            return b, int(n), 0
+    return None
+
+
+def phase_parallel(device, cfg=None) -> dict:
+    """The DP / TP plans on the one card: ranks that share it through
+    gloo (spawned processes, one FileStore), at TALKER_1B7's widths, fp32
+    params drawn on the host from the seed (a rank moves only its shard):
+    (a) tp=2 greedy generation of the smoke's texts in fp32 against the
+        unsharded eager run (a differing code passes only as a near-tie: the
+        unsharded top-2 logit gap there is printed);
+    (b) tp=2 bf16 prefill of an ICL-length batch: kernel 3 on each rank's
+        8 query / 4 KV heads, held to its twin on layer 0's local heads; the
+        last hidden against the unsharded bf16 prefill;
+    (c) a (1, 2) and a (2, 1) engine: 8 slots, 12 greedy requests, each
+        request's codes equal the unsharded engine's;
+    (d) one SFT step at tp=2 and at dp=2, full widths at 2 layers in fp32:
+        the loss and every leaf's gradient against the unsharded card run;
+    (e) a one-rank NCCL mesh runs (a) at dp = tp = 1.
+    The two meshes' ranks run beside each other and beside this process's
+    references: every wall is of processes sharing one card (the ranks
+    through gloo), no throughput claim."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from qwen3_tts_tpu_torch.config import TTSModelConfig
+    from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.parallel import mesh as M
+    from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.runtime.prompts import assemble_prompt_specs
+    from qwen3_tts_tpu_torch.utils.testing import TALKER_1B7, spawn_ranks
+    from qwen3_tts_tpu_torch.weights import map_tensors
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(PAR_DIR, exist_ok=True)
+    cfg = cfg or TALKER_1B7
+    t0 = time.time()
+    params = map_tensors(_par_host_params(cfg, SEED + 21), lambda t: t.to(device))
+    load_s = time.time() - t0
+    tc = dataclasses.replace(cfg, spk_id={"vivian": 3000}, codec_language_id={"english": 1000})
+    model = Qwen3TTSModel(TTSModelConfig(talker_config=tc, tts_model_type="custom_voice"),
+                          params, None, None, StandInTokenizer(), {}, device=device)
+    with torch.no_grad():
+        prompts = tuple(x.cpu().numpy() for x in assemble_prompt_specs(
+            params, tc, model.config, model._specs_custom_voice(TEXTS, "vivian", "english",
+                                                                None, False), bucket=32))
+    rng = np.random.default_rng(SEED + 24)
+    batch = sft_batch(TTSModelConfig(talker_config=cfg), rng, SFT_HOST_T, 2,
+                      rng.standard_normal((1, 20, 128)).astype(np.float32))
+    batch.pop("ref_mels")
+    spk = rng.normal(0, 0.05, (2, cfg.hidden_size)).astype(np.float32)
+    job = dict(prompts=prompts, sft_batch=batch, sft_spk=spk, cfg=cfg,
+               device=torch.device(device.type, 0) if device.type == "cuda" else device)
+    threads = max(1, (os.cpu_count() or 4) // 4)
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        # both meshes' ranks run beside this process's unsharded references
+        runs = [pool.submit(spawn_ranks, _par_rank, 2, dp, tp, job, timeout=900,
+                            threads=threads) for dp, tp in ((1, 2), (2, 1))]
+        log: list = []
+        with graphs.eager(), _recorded_logits(log):
+            want_codes, want_lens, gen_wall = _par_generate(params, cfg, prompts, device)
+        pre = _par_prefill(params, cfg, device)
+        base_engine, engine_wall = _par_engine(params, cfg, prompts, device)
+        # (e): a one-rank NCCL mesh in this process
+        with tempfile.TemporaryDirectory(dir=PAR_DIR) as tmp:
+            dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                    store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1)
+            try:
+                mesh = M.make_mesh(1, 1, device=device)
+                nccl_codes, nccl_lens, nccl_wall = _par_generate(params, cfg, prompts, device,
+                                                                 mesh)
+            finally:
+                dist.destroy_process_group()
+        del params, model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        loss, grads = _par_sft(cfg, batch, spk, device)
+        tp_run, dp_run = (r.result() for r in runs)
+    spawn_wall = time.time() - t0
+
+    Q = cfg.num_code_groups
+    gaps = []
+    for r in tp_run:
+        codes, lens, _ = r["gen"]
+        first = _first_difference(codes, lens, want_codes, want_lens)
+        if first is not None:
+            b, f, j = first
+            top2 = torch.topk(log[Q * f + j][b], 2).values
+            gaps.append(float(top2[0] - top2[1]))
+            if gaps[-1] > PAR_NEAR_TIE:
+                raise AssertionError(f"parallel (a): codes differ at row {b} frame {f} "
+                                     f"codebook {j}, top-2 gap {gaps[-1]} > {PAR_NEAR_TIE}")
+    hidden_rel = max(rel_err(r["prefill"]["last"], pre["last"]) for r in tp_run)
+    flash_err = max(r["prefill"]["err"] for r in tp_run)
+    flash_row = max(r["prefill"]["row_rel"] for r in tp_run)
+    launches = [r["prefill"]["launches"] for r in tp_run]
+    heads = tp_run[0]["prefill"]["heads"]
+    if not (hidden_rel <= PAR_HIDDEN_REL_TOL and flash_err <= FLASH_TOL
+            and flash_row <= FLASH_ROW_REL_TOL
+            and heads == (cfg.num_attention_heads // 2, cfg.num_key_value_heads // 2)
+            # a CPU rehearsal runs the twin, which launches nothing
+            and launches == [cfg.num_hidden_layers if device.type == "cuda" else 0] * 2):
+        raise AssertionError(f"parallel (b): last hidden rel {hidden_rel} (bar "
+                             f"{PAR_HIDDEN_REL_TOL}); local-head flash err {flash_err}, row "
+                             f"{flash_row}, heads {heads}, launches {launches}")
+    for name, run_ in (("(1, 2)", tp_run), ("(2, 1)", dp_run)):
+        for r in run_:
+            got = r["engine"][0]
+            if set(got) != set(base_engine) or any(
+                    not np.array_equal(got[k], base_engine[k]) for k in base_engine):
+                agree = np.mean([np.array_equal(got.get(k), v) for k, v in base_engine.items()])
+                raise AssertionError(f"parallel (c): the {name} engine's codes differ from the "
+                                     f"unsharded engine's ({agree:.3f} of requests equal)")
+    if not (np.array_equal(nccl_codes, want_codes) and np.array_equal(nccl_lens, want_lens)):
+        raise AssertionError("parallel (e): the one-rank NCCL mesh changed the codes")
+    sft = {}
+    for tag, run_ in (("tp2", tp_run), ("dp2", dp_run)):
+        got = torch.load(run_[0]["grads"])
+        loss_rel = max(abs(r["sft_loss"] - loss) / abs(loss) for r in run_)
+        if set(got) != set(grads):
+            raise AssertionError(f"parallel (d) {tag}: gradient leaves differ")
+        rels = {k: rel_err(got[k], v.cpu()) for k, v in grads.items() if v.any()}
+        worst = max(rels, key=rels.get)
+        sft[tag] = (loss_rel, worst, rels[worst])
+        if loss_rel > PAR_SFT_REL_TOL or rels[worst] > PAR_SFT_REL_TOL:
+            raise AssertionError(f"parallel (d) {tag}: loss rel {loss_rel}, {worst} "
+                                 f"{rels[worst]} (bar {PAR_SFT_REL_TOL})")
+    del grads, got
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    line("parallel", ranks="(1,2) and (2,1) at once, 4 processes sharing one card through gloo",
+         model="1.7B" if cfg == TALKER_1B7 else "cut",
+         cut=f"sft {PAR_SFT_LAYERS} layers", fp32_tp2_frames=int(want_lens.max()),
+         codes_equal=not gaps, near_tie_gaps=[f"{g:.2e}" for g in gaps],
+         bf16_icl_T=PAR_ICL_T, last_hidden_rel=f"{hidden_rel:.3g}",
+         local_heads=f"{heads[0]}q/{heads[1]}kv", flash_local_err=f"{flash_err:.3g}",
+         flash_local_row_rel=f"{flash_row:.3g}", flash_launches_per_rank=launches,
+         flash_local_ms_sharing=f"{tp_run[0]['prefill']['ms']:.4f}",
+         engines_equal="(1,2) (2,1)", requests=PAR_REQUESTS, slots=PAR_SLOTS,
+         sft_tp2=f"loss_rel={sft['tp2'][0]:.2e} worst={sft['tp2'][1]}:{sft['tp2'][2]:.2e}",
+         sft_dp2=f"loss_rel={sft['dp2'][0]:.2e} worst={sft['dp2'][1]}:{sft['dp2'][2]:.2e}",
+         nccl_1rank_codes_equal=True, both_spawns_s=f"{spawn_wall:.1f}", rank_load_s=f"{tp_run[0]['load_s']:.1f}",
+         rank_gen_s_sharing=f"{tp_run[0]['gen'][2]:.2f}", unsharded_gen_s=f"{gen_wall:.2f}",
+         nccl_gen_s=f"{nccl_wall:.2f}", rank_prefill_s_sharing=f"{tp_run[0]['prefill']['wall']:.2f}",
+         unsharded_prefill_s=f"{pre['wall']:.2f}", rank_engine_s_sharing=
+         f"{tp_run[0]['engine'][1]:.2f}", unsharded_engine_s=f"{engine_wall:.2f}",
+         rank_peak_gib=f"{max(r['gib'] for r in tp_run + dp_run):.2f}", host_load_s=f"{load_s:.1f}")
+    return dict(flash_launches=launches, hidden_rel=hidden_rel, flash_err=flash_err)
+
+
+def _eval_checkpoints(talker, codec):
+    """A base and a custom-voice checkpoint sharing one talker (TALKER_0B6's
+    widths, 2 layers), a speaker encoder, a 12 Hz tokenizer at the default
+    widths and a greedy generation_config.json; 24 kHz wavs; a manifest for
+    each (a clone row for the base model, a custom-voice row for the other)."""
+    import os
+
+    from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig, TTSModelConfig
+    from qwen3_tts_tpu_torch.utils.audio import write_wav
+    from qwen3_tts_tpu_torch.utils.testing import (codec12_tokenizer_checkpoint,
+                                                   random_talker_params, speaker_encoder_state)
+    from qwen3_tts_tpu_torch.weights import (flatten_state_dict, save_safetensors,
+                                             talker_params_to_state_dict)
+
+    tc = dataclasses.replace(talker, spk_id={"vivian": 3000},
+                             codec_language_id={"english": 1000})
+    spk_cfg = SpeakerEncoderConfig(enc_dim=tc.hidden_size)
+    tok = os.path.abspath(os.path.join(EVAL_DIR, "speech_tokenizer"))
+    os.makedirs(tok, exist_ok=True)
+    tok_json, tok_state = codec12_tokenizer_checkpoint(codec, SEED + 31)
+    save_safetensors(os.path.join(tok, "model.safetensors"), tok_state)
+    with open(os.path.join(tok, "config.json"), "w") as f:
+        json.dump(tok_json, f)
+    sd = talker_params_to_state_dict(random_talker_params(
+        tc, torch.Generator().manual_seed(SEED + 32), dtype=torch.float32), tc)
+    sd.update(flatten_state_dict(speaker_encoder_state(spk_cfg, SEED + 33), "speaker_encoder"))
+    weights = os.path.abspath(os.path.join(EVAL_DIR, "model.safetensors"))
+    save_safetensors(weights, sd)
+    ref = os.path.join(EVAL_DIR, "ref.wav")
+    write_wav(ref, reference_clip(24000)[:3 * 24000], 24000)
+    wav_dir = os.path.join(EVAL_DIR, "wavs")
+    os.makedirs(wav_dir, exist_ok=True)
+    rng = np.random.default_rng(SEED + 34)
+    n = int(EVAL_WAV_S * 24000)
+    for i in range(EVAL_WAVS):
+        t = np.arange(n) / 24000
+        write_wav(os.path.join(wav_dir, f"u{i}.wav"), 0.3 * np.sin(2 * np.pi * (150 + 60 * i) * t)
+                  * (1 + 0.5 * np.sin(2 * np.pi * 3 * t)) + 0.01 * rng.normal(size=n), 24000)
+    rows = {"base": {"text": TEXTS[0], "lang": "english", "ref_audio": ref,
+                     "ref_text": CLONE_REF_TEXT},
+            "custom_voice": {"text": TEXTS[1], "lang": "english"}}
+    dirs = {}
+    for kind, row in rows.items():
+        d = os.path.join(EVAL_DIR, kind)
+        os.makedirs(d, exist_ok=True)
+        cfg = TTSModelConfig(talker_config=tc, speaker_encoder_config=spk_cfg,
+                             tts_model_type=kind, tts_model_size="0b6")
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+        with open(os.path.join(d, "generation_config.json"), "w") as f:
+            json.dump({"do_sample": False, "subtalker_dosample": False}, f)
+        for name, target in (("model.safetensors", weights), ("speech_tokenizer", tok)):
+            if not os.path.lexists(os.path.join(d, name)):
+                os.symlink(target, os.path.join(d, name))
+        with open(os.path.join(d, "manifest.jsonl"), "w") as f:
+            f.write(json.dumps(row) + "\n")
+        dirs[kind] = d
+    return dirs, wav_dir
+
+
+def _eval_numbers(report) -> dict:
+    return {(s, k): v for s, m in report["suites"].items() for k, v in m.items()}
+
+
+def phase_evaluation(device, talker=None, codec=None) -> dict:
+    """evaluation.py on the card against the same calls on the host copy:
+    `run_suite` over the base checkpoint (one clone row: synthesis and
+    ECAPA speaker similarity) and the custom-voice one (the tokenizer round
+    trip over EVAL_WAVS 24 kHz wavs and one custom-voice row), Whisper asked
+    for without a model; `evaluate_tts_wer` with an injected ASR whose
+    transcript depends on the audio's length. Every number within its bar
+    of the host's (EVAL_REL_TOL, see there); the unavailable markers exactly
+    the expected ones (Whisper, and pesq / pystoi / UTMOS unless
+    installed)."""
+    import importlib.util
+    import os
+    import types
+
+    from qwen3_tts_tpu_torch import evaluation
+    from qwen3_tts_tpu_torch.config import CodecV2Config
+    from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.utils.testing import TALKER_0B6
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    dirs, wav_dir = _eval_checkpoints(talker or _par_cfg(TALKER_0B6, 2), codec or CodecV2Config())
+    write_s = time.time() - t0
+
+    def args(kind, dev):
+        return types.SimpleNamespace(
+            ckpt=dirs[kind], tokenizer_ckpt=None, suite="all" if kind == "custom_voice" else
+            "seed-tts", manifest=os.path.join(dirs[kind], "manifest.jsonl"), wav_dir=wav_dir,
+            asr="whisper", asr_ckpt=os.path.join(EVAL_DIR, "no-whisper"), lang="en",
+            speaker=None, max_items=10, max_new_tokens=EVAL_NEW_TOKENS, out=None, device=dev)
+
+    reports, walls = {}, {}
+    for dev in (str(device), "cpu"):
+        for kind in dirs:
+            t0 = time.time()
+            reports[(kind, dev)] = evaluation.run_suite(args(kind, dev),
+                                                        processor=StandInTokenizer())
+            walls[(kind, dev)] = time.time() - t0
+    errs = {}
+    for kind in dirs:
+        card, host = reports[(kind, str(device))], reports[(kind, "cpu")]
+        if card["skipped"] != host["skipped"]:
+            raise AssertionError(f"evaluation {kind}: skip rows differ: {card['skipped']} "
+                                 f"against {host['skipped']}")
+        cn, hn = _eval_numbers(card), _eval_numbers(host)
+        if set(cn) != set(hn):
+            raise AssertionError(f"evaluation {kind}: metrics differ: {set(cn) ^ set(hn)}")
+        for key, v in hn.items():
+            if isinstance(v, float):
+                bar = (20 * np.log10(1 + EVAL_REL_TOL / min(10 ** (v / 20), 1.0))
+                       if key[1] == "si_sdr_db" else EVAL_REL_TOL * max(abs(v), 1.0))
+                errs[(kind,) + key] = abs(cn[key] - v) / bar
+            elif cn[key] != v:
+                raise AssertionError(f"evaluation {kind} {key}: {cn[key]!r} against {v!r}")
+    worst = max(errs, key=errs.get)   # each difference over its bar
+    if errs[worst] > 1.0:
+        raise AssertionError(f"evaluation: {worst} card against host at {errs[worst]} of its "
+                             f"bar; "
+                             f"card {reports[(worst[0], str(device))]['suites']}, host "
+                             f"{reports[(worst[0], 'cpu')]['suites']}")
+    nums = _eval_numbers(reports[("custom_voice", str(device))])
+    nums.update(_eval_numbers(reports[("base", str(device))]))
+    unavailable = sorted(k for (_, k), v in nums.items() if isinstance(v, str))
+    expected = ["wer"] + [k for k, mod in (("pesq_nb", "pesq"), ("pesq_wb", "pesq"),
+                                                 ("stoi", "pystoi"), ("utmos", None))
+                              if mod is None or importlib.util.find_spec(mod) is None]
+    if (unavailable != sorted(set(expected))
+            or not nums[("seed_tts", "wer")].startswith("unavailable (")):
+        raise AssertionError(f"evaluation: unavailable columns {unavailable}, expected "
+                             f"{sorted(set(expected))}")
+    # evaluate_tts_wer with an injected ASR
+    words = TEXTS[3].lower().rstrip(".").split()
+
+    def asr(wav, sr):
+        return " ".join(words[:np.asarray(wav).shape[-1] // 1920 % (len(words) + 1)])
+
+    wers = {}
+    for dev in (str(device), "cpu"):
+        m = Qwen3TTSModel.from_pretrained(dirs["custom_voice"], dtype=torch.float32, device=dev)
+        m.processor = StandInTokenizer()
+        wers[dev] = evaluation.evaluate_tts_wer(m, [TEXTS[3], TEXTS[2]], asr, lang="en",
+                                                max_new_tokens=EVAL_NEW_TOKENS)
+        del m
+    if wers[str(device)].per_utterance != wers["cpu"].per_utterance:
+        raise AssertionError(f"evaluate_tts_wer: card {wers[str(device)]} host {wers['cpu']}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    line("evaluation", talker="0.6B widths, 2 layers" if talker is None else "cut",
+         codec="default widths" if codec is None else "cut",
+         wavs=EVAL_WAVS, tokenizer_snr_db=nums[("tokenizer_roundtrip", "snr_db")],
+         tokenizer_mcd_db=nums[("tokenizer_roundtrip", "mcd_db")],
+         clone_speaker_sim=nums[("seed_tts", "speaker_sim")],
+         worst_card_vs_host_of_bar=f"{'/'.join(map(str, worst))}:{errs[worst]:.3f}",
+         unavailable=unavailable, fake_asr_wer=f"{wers[str(device)].wer:.4f}",
+         write_s=f"{write_s:.1f}", card_s=f"{walls[('custom_voice', str(device))] + walls[('base', str(device))]:.1f}",
+         host_s=f"{walls[('custom_voice', 'cpu')] + walls[('base', 'cpu')]:.1f}")
+    return {"errs": errs}
+
+
+def phase_flac_native() -> dict:
+    """The native FLAC fast path (native/flac_fast.c, built at first use
+    into build/native/) against the pure-Python decoder on a FLAC written by
+    utils/flac.py: the same samples; both walls."""
+    import os
+
+    from qwen3_tts_tpu_torch.utils import flac, native
+
+    t0 = time.time()
+    lib = native.flac_fast()
+    build_s = time.time() - t0
+    if lib is None:
+        raise AssertionError("flac_native: the C library did not build")
+    os.makedirs("build/flac", exist_ok=True)
+    path = "build/flac/clip.flac"
+    x = reference_clip(24000)
+    flac.write_flac(path, x, 24000)
+    t0 = time.time()
+    fast, sr = flac.read_flac(path)
+    native_s = time.time() - t0
+    os.environ["QWEN3_TTS_NO_NATIVE"] = "1"
+    try:
+        t0 = time.time()
+        slow, sr2 = flac.read_flac(path)
+        python_s = time.time() - t0
+    finally:
+        del os.environ["QWEN3_TTS_NO_NATIVE"]
+    if not (sr == sr2 == 24000 and np.array_equal(fast, slow)
+            and np.abs(slow - x).max() <= 2.0 ** -15):
+        raise AssertionError("flac_native: the native and Python paths disagree")
+    line("flac_native", library=native.library_path("flac_fast").name, build_s=f"{build_s:.2f}",
+         samples=len(fast), seconds_of_audio=len(fast) / sr, equal=True,
+         native_s=f"{native_s:.4f}", python_s=f"{python_s:.4f}")
+    return {"native_s": native_s, "python_s": python_s}
+
+
 def run(cfg, device) -> list:
     """Every phase after the build, at talker config `cfg`; returns the
     kernels' JSON rows."""
@@ -2428,6 +3072,9 @@ def run(cfg, device) -> list:
     phase_0b6(device)
     phase_codec25(device)
     phase_sft(device)
+    phase_flac_native()
+    phase_parallel(device)
+    phase_evaluation(device)
     row8 = next(r for r in step8["rows"] if r["B"] == B_MAIN and r["S_buf"] == S_buf)
     kernels = [
         {"name": "subtalker_frame_fused", "route": "cuda",

@@ -20,6 +20,15 @@ weight_decay=0.01)), k)`: gradients averaged over k calls (a running mean in
 the params' dtype, as MultiSteps keeps it), the average clipped by optax's
 rule (scaled by max / norm only when norm >= max), then `torch.optim.AdamW`
 (eps 1e-8, decoupled decay; states in the params' dtype).
+
+Under a mesh (`parallel/mesh.py`) each rank holds its tensor-parallel
+shards and its dp share of the batch rows. The talker and sub-talker run
+their TP collectives (`decoder_stack`), the vocabulary heads are gathered
+whole, and each cross entropy divides this rank's sum by the valid count of
+the whole batch (an all-reduce over dp), so the gradients summed over dp
+are the whole batch's. `SFTOptimizer` sums the squares of the sharded
+leaves over tp and counts the replicated ones once, so the clip sees the
+unsharded norm.
 """
 
 from __future__ import annotations
@@ -32,20 +41,33 @@ from ..config import TalkerConfig
 from ..models.talker import StackDims, _cp_project, decoder_stack, talker_prefill, text_project
 from ..ops.attention import mask_to_bias
 from ..ops.rope import default_inv_freq, rope_tables
+from ..parallel.mesh import Mesh, all_reduce, copy_to_tp, gather_from_tp, tp_splits
 
 Params = Dict[str, Any]
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                   ignore_index: int = -100) -> torch.Tensor:
+                   ignore_index: int = -100, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Mean cross entropy over the labels that are not ignored (HF loss
-    semantics)."""
+    semantics); under a mesh this rank's share of the whole batch's mean."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp_min(1)
+    count = valid.sum()
+    if mesh is not None:
+        count = all_reduce(count, mesh.dp_group)
+    return nll.sum() / count.clamp_min(1)
+
+
+def _vocab_logits(equation: str, h: torch.Tensor, w: torch.Tensor, vocab: int,
+                  mesh: Optional[Mesh]) -> torch.Tensor:
+    """fp32 logits of a vocabulary head as an einsum, gathered whole when
+    the mesh splits the vocabulary (`models/talker.py::head_logits`)."""
+    mesh = mesh if tp_splits(vocab, mesh) else None
+    return gather_from_tp(torch.einsum(equation, copy_to_tp(h.to(torch.float32), mesh),
+                                       w.to(torch.float32)), mesh)
 
 
 def fuse_embeddings(params: Params, cfg: TalkerConfig, batch: Dict[str, torch.Tensor],
@@ -72,13 +94,13 @@ def fuse_embeddings(params: Params, cfg: TalkerConfig, batch: Dict[str, torch.Te
 
 
 def _sub_talker_dense(params: Params, cfg: TalkerConfig, hidden: torch.Tensor,
-                      codec_ids: torch.Tensor) -> torch.Tensor:
+                      codec_ids: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Dense code-predictor teacher forcing. hidden: (N, H_talker)
     conditioning vectors; codec_ids: (N, Q). Returns logits (N, Q-1, V)
     for codes 1..Q-1."""
     cp_cfg = cfg.code_predictor_config
     cp = params["code_predictor"]
-    dims = StackDims.from_code_predictor(cp_cfg)
+    dims = StackDims.from_code_predictor(cp_cfg, mesh)
     N, Q = hidden.shape[0], cfg.num_code_groups
     dtype, dev = hidden.dtype, hidden.device
     codec_ids = codec_ids.long()
@@ -92,30 +114,31 @@ def _sub_talker_dense(params: Params, cfg: TalkerConfig, hidden: torch.Tensor,
     bias = mask_to_bias(ok)[None, None].expand(N, 1, Q, Q)
     h = decoder_stack(cp["layers"], cp["norm"], dims, x, cos, sin, bias, None, 0)
     # code i's logits from position i through lm_head[i-1] (reference 1235-1238)
-    return torch.einsum("nqh,qvh->nqv", h[:, 1:].to(torch.float32),
-                        cp["lm_heads"].to(torch.float32))
+    return _vocab_logits("nqh,qvh->nqv", h[:, 1:], cp["lm_heads"], cp_cfg.vocab_size, mesh)
 
 
 def sft_loss(params: Params, cfg: TalkerConfig, batch: Dict[str, torch.Tensor],
-             speaker_embedding: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             speaker_embedding: torch.Tensor, mesh: Optional[Mesh] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss of `batch`; under a mesh, of this rank's rows, as its share
+    of the whole batch's loss (module docstring)."""
     emb = fuse_embeddings(params, cfg, batch, speaker_embedding)
     B, T, H = emb.shape
     # allow_flash=False: SFT batches are right-padded and differentiated,
     # both outside the flash kernel's contract
     _, hidden, _ = talker_prefill(params, cfg, emb[:, :-1], batch["attention_mask"][:, :-1],
-                                  None, allow_flash=False)
-    logits = torch.einsum("bth,vh->btv", hidden.to(torch.float32),
-                          params["codec_head"].to(torch.float32))
-    talker_loss = _cross_entropy(logits, batch["codec_0_labels"][:, 1:])
+                                  None, allow_flash=False, mesh=mesh)
+    logits = _vocab_logits("bth,vh->btv", hidden, params["codec_head"], cfg.vocab_size, mesh)
+    talker_loss = _cross_entropy(logits, batch["codec_0_labels"][:, 1:], mesh=mesh)
 
     # the dense sub-talker over all positions, masked to the frame positions
     cmask = batch["codec_mask"][:, :T - 1]
     flat_hidden = hidden.reshape(B * (T - 1), H)
     flat_codes = batch["codec_ids"][:, :T - 1].reshape(B * (T - 1), -1)
-    sub_logits = _sub_talker_dense(params, cfg, flat_hidden, flat_codes)
+    sub_logits = _sub_talker_dense(params, cfg, flat_hidden, flat_codes, mesh)
     sub_labels = torch.where(cmask.reshape(-1, 1), flat_codes[:, 1:],
                              torch.full_like(flat_codes[:, 1:], -100))
-    sub_loss = _cross_entropy(sub_logits, sub_labels)
+    sub_loss = _cross_entropy(sub_logits, sub_labels, mesh=mesh)
     loss = talker_loss + 0.3 * sub_loss
     return loss, {"talker_loss": talker_loss, "sub_talker_loss": sub_loss}
 
@@ -146,11 +169,18 @@ class SFTOptimizer:
     `accumulate(grads)` folds one call's gradients into the running mean;
     on every grad_accum-th call it clips the mean, steps AdamW and returns
     True (the params changed). `last_norm` is the global norm of the mean
-    the last update clipped (before clipping)."""
+    the last update clipped (before clipping).
+
+    Under a mesh the leaves are this rank's shards and `sharded` (one bool
+    per leaf, `param_flags` of the plan) marks the tensor-parallel ones:
+    their squares are summed over tp, the replicated leaves counted once."""
 
     def __init__(self, params: Params, lr: float = 2e-5, weight_decay: float = 0.01,
-                 clip_norm: float = 1.0, grad_accum: int = 1):
+                 clip_norm: float = 1.0, grad_accum: int = 1, mesh: Optional[Mesh] = None,
+                 sharded: Optional[List[bool]] = None):
         self.leaves = param_leaves(params)
+        self.mesh = mesh
+        self.sharded = list(sharded) if sharded is not None else [False] * len(self.leaves)
         self.adamw = torch.optim.AdamW(self.leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
         self.clip_norm = float(clip_norm)
@@ -160,7 +190,13 @@ class SFTOptimizer:
         self.last_norm: Optional[float] = None
 
     def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        return torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))
+        squares = [(g.to(torch.float32) ** 2).sum() for g in grads]
+        if self.mesh is None:
+            return torch.sqrt(sum(squares))
+        zero = squares[0].new_zeros(())
+        split = sum((q for q, s in zip(squares, self.sharded) if s), zero)
+        whole = sum((q for q, s in zip(squares, self.sharded) if not s), zero)
+        return torch.sqrt(all_reduce(split, self.mesh.tp_group) + whole)
 
     def accumulate(self, grads: List[torch.Tensor]) -> bool:
         n = self.mini_step
@@ -194,12 +230,22 @@ class SFTOptimizer:
             a.copy_(s)
 
 
+def param_flags(params: Params, plan: Params) -> List[bool]:
+    """One bool per `param_leaves(params)` entry: whether the plan
+    (`parallel/mesh.py::tp_shard_plan`) splits that leaf over tp."""
+    if isinstance(params, dict):
+        return [f for k in sorted(params) for f in param_flags(params[k], plan[k])]
+    return [] if params is None else [plan is not None]
+
+
 def default_optimizer(params: Params, lr: float = 2e-5, weight_decay: float = 0.01,
-                      clip_norm: float = 1.0, grad_accum: int = 1) -> SFTOptimizer:
+                      clip_norm: float = 1.0, grad_accum: int = 1,
+                      mesh: Optional[Mesh] = None,
+                      sharded: Optional[List[bool]] = None) -> SFTOptimizer:
     """AdamW + global-norm clipping (sft_12hz.py:60, 117-118), accumulating
     `grad_accum` calls per update (the JAX driver's MultiSteps)."""
     return SFTOptimizer(params, lr=lr, weight_decay=weight_decay, clip_norm=clip_norm,
-                        grad_accum=grad_accum)
+                        grad_accum=grad_accum, mesh=mesh, sharded=sharded)
 
 
 def make_train_step(cfg: TalkerConfig, optimizer: SFTOptimizer):
@@ -208,18 +254,25 @@ def make_train_step(cfg: TalkerConfig, optimizer: SFTOptimizer):
     in (and updates the params in place on every grad_accum-th call).
     `params` are the optimizer's leaves (`trainable`); a leaf the loss does
     not reach gets a zero gradient, as `jax.grad` gives it, so AdamW still
-    decays it. The speaker embedding carries no gradient."""
+    decays it. The speaker embedding carries no gradient. Under the
+    optimizer's mesh the batch is this rank's rows, the gradients are summed
+    over dp before the optimizer folds them in, and the losses reported are
+    the whole batch's."""
+    mesh = optimizer.mesh
 
     def train_step(params: Params, batch: Dict[str, torch.Tensor],
                    speaker_embedding: torch.Tensor) -> Dict[str, Any]:
         for p in optimizer.leaves:
             p.grad = None
         with torch.enable_grad():
-            loss, metrics = sft_loss(params, cfg, batch, speaker_embedding.detach())
+            loss, metrics = sft_loss(params, cfg, batch, speaker_embedding.detach(), mesh)
             loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in optimizer.leaves]
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
+        if mesh is not None:
+            grads = [all_reduce(g, mesh.dp_group) for g in grads]
+            metrics = {k: all_reduce(v, mesh.dp_group) for k, v in metrics.items()}
         metrics["updated"] = optimizer.accumulate(grads)
         for p in optimizer.leaves:
             p.grad = None

@@ -29,6 +29,7 @@ from ..ops.attention import attention, attention_kv_quant, mask_to_bias
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, default_inv_freq, rope_tables
 from ..ops.sampling import process_and_sample, process_and_sample_rows
+from ..parallel.mesh import Mesh, copy_to_tp, gather_from_tp, reduce_from_tp, tp_splits
 from ..weights import matmul_t, numeric_children, stack_layers, weight_rows
 
 Params = Dict[str, Any]
@@ -44,24 +45,51 @@ FLASH_PREFILL_MIN_T = 256
 
 @dataclass(frozen=True)
 class StackDims:
-    """Shape info shared by the talker and code-predictor decoder stacks."""
+    """Shape info shared by the talker and code-predictor decoder stacks.
+
+    Under a mesh (`parallel/mesh.py`) the head counts are this rank's: the
+    attention is split over tp when tp divides the KV heads (then
+    `attn_mesh` is the mesh its collectives run on), the MLP when it divides
+    the intermediate width (`mlp_mesh`), as `tp_shard_plan` splits the
+    weights."""
 
     hidden: int
     heads: int
     kv_heads: int
     head_dim: int
     eps: float
+    attn_mesh: Optional[Mesh] = None
+    mlp_mesh: Optional[Mesh] = None
 
     @classmethod
-    def from_talker(cls, cfg: TalkerConfig) -> "StackDims":
-        return cls(cfg.hidden_size, cfg.num_attention_heads,
-                   cfg.num_key_value_heads, cfg.resolved_head_dim,
-                   cfg.rms_norm_eps)
+    def _local(cls, hidden, heads, kv_heads, head_dim, eps, inter,
+               mesh: Optional[Mesh]) -> "StackDims":
+        attn = mesh if tp_splits(kv_heads, mesh) else None
+        if attn is not None:
+            heads, kv_heads = heads // mesh.tp, kv_heads // mesh.tp
+        return cls(hidden, heads, kv_heads, head_dim, eps, attn,
+                   mesh if tp_splits(inter, mesh) else None)
 
     @classmethod
-    def from_code_predictor(cls, cfg: CodePredictorConfig) -> "StackDims":
-        return cls(cfg.hidden_size, cfg.num_attention_heads,
-                   cfg.num_key_value_heads, cfg.head_dim, cfg.rms_norm_eps)
+    def from_talker(cls, cfg: TalkerConfig, mesh: Optional[Mesh] = None) -> "StackDims":
+        return cls._local(cfg.hidden_size, cfg.num_attention_heads,
+                          cfg.num_key_value_heads, cfg.resolved_head_dim,
+                          cfg.rms_norm_eps, cfg.intermediate_size, mesh)
+
+    @classmethod
+    def from_code_predictor(cls, cfg: CodePredictorConfig,
+                            mesh: Optional[Mesh] = None) -> "StackDims":
+        return cls._local(cfg.hidden_size, cfg.num_attention_heads,
+                          cfg.num_key_value_heads, cfg.head_dim, cfg.rms_norm_eps,
+                          cfg.intermediate_size, mesh)
+
+
+def head_logits(x: torch.Tensor, w, vocab: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """x @ w.T of a vocabulary head (`matmul_t`); under a mesh that splits
+    the vocabulary, this rank's rows of w give a shard of the logits, which
+    are gathered whole before any sampling or loss sees them."""
+    mesh = mesh if tp_splits(vocab, mesh) else None
+    return gather_from_tp(matmul_t(copy_to_tp(x, mesh), w), mesh)
 
 
 @dataclass
@@ -190,14 +218,17 @@ def unbind_layers(stacked: Params) -> list:
 def _write_kv(cache: KVCache, li: int, offset, k: torch.Tensor,
               v: torch.Tensor) -> None:
     """Write (B, T, Hkv, D) fresh K/V into layer li at slots [offset,
-    offset + T), or (T = 1) at per-row slots offset (B,); int8 caches get
-    the quantized values and their scales."""
+    offset + T), or (T = 1) at a tensor offset: per-row slots (B,) or one
+    slot for all rows (a 0-d tensor); int8 caches get the quantized values
+    and their scales."""
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)          # (B, Hkv, T, D)
     if cache.quantized:
         (kt, ks), (vt, vs) = kv_quantize(kt), kv_quantize(vt)
     if torch.is_tensor(offset):
         rows = torch.arange(k.shape[0], device=k.device)
-        idx = offset.long()
+        # a 0-d index would be read to the host (a sync, which a CUDA graph
+        # capture refuses): one slot for every row goes as a (B,) index
+        idx = offset.long().expand(k.shape[0])
         cache.k[li, rows, :, idx] = kt[:, :, 0].to(cache.k.dtype)
         cache.v[li, rows, :, idx] = vt[:, :, 0].to(cache.v.dtype)
         if cache.quantized:
@@ -234,8 +265,16 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
 
     `cache=None` (training): no cache is written or read; the dense path
     attends over this call's fresh K/V ((B, 1, T, T) mask_bias, offset 0),
-    which is what the JAX package computes over a zero cache of length T."""
+    which is what the JAX package computes over a zero cache of length T.
+
+    Under a mesh (`dims.attn_mesh`, `dims.mlp_mesh`) the weights are this
+    rank's head-aligned shards and `dims` counts its heads: the partial sums
+    after o_proj and down_proj are all-reduced over tp (`reduce_from_tp`),
+    and the inputs of qkv and gate_up and the shared q/k norm weights pass
+    `copy_to_tp`, whose backward all-reduces their gradients. The cache
+    holds this rank's KV heads; the flash prefill runs on them."""
     B, T, _ = h.shape
+    attn_mesh, mlp_mesh = dims.attn_mesh, dims.mlp_mesh
     nq = dims.heads * dims.head_dim
     nkv = dims.kv_heads * dims.head_dim
     if cache is None:
@@ -251,12 +290,12 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
         lp = layers[li]
         attn = lp["self_attn"]
         x = rms_norm(h, lp["input_layernorm"]["weight"], dims.eps)
-        qkv = matmul_t(x, attn["qkv_proj"]["weight"])
+        qkv = matmul_t(copy_to_tp(x, attn_mesh), attn["qkv_proj"]["weight"])
         q = qkv[..., :nq].reshape(B, T, dims.heads, dims.head_dim)
         k = qkv[..., nq:nq + nkv].reshape(B, T, dims.kv_heads, dims.head_dim)
         v = qkv[..., nq + nkv:].reshape(B, T, dims.kv_heads, dims.head_dim)
-        q = rms_norm(q, attn["q_norm"]["weight"], dims.eps)
-        k = rms_norm(k, attn["k_norm"]["weight"], dims.eps)
+        q = rms_norm(q, copy_to_tp(attn["q_norm"]["weight"], attn_mesh), dims.eps)
+        k = rms_norm(k, copy_to_tp(attn["k_norm"]["weight"], attn_mesh), dims.eps)
         q, k = apply_rope(q, k, cos, sin)
         if cache is not None:
             _write_kv(cache, li, offset, k, v)
@@ -274,14 +313,15 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
             k_att = cache.k[li, :, :, :S_att].transpose(1, 2).to(x.dtype)
             v_att = cache.v[li, :, :, :S_att].transpose(1, 2).to(x.dtype)
             o = attention(q, k_att, v_att, mask_bias)
-        h = h + matmul_t(o.reshape(B, T, nq), attn["o_proj"]["weight"])
+        h = h + reduce_from_tp(matmul_t(o.reshape(B, T, nq), attn["o_proj"]["weight"]),
+                               attn_mesh)
 
         x = rms_norm(h, lp["post_attention_layernorm"]["weight"], dims.eps)
         mlp = lp["mlp"]
         inter = weight_rows(mlp["gate_up_proj"]["weight"]) // 2
-        gu = matmul_t(x, mlp["gate_up_proj"]["weight"])
-        h = h + matmul_t(F.silu(gu[..., :inter]) * gu[..., inter:],
-                         mlp["down_proj"]["weight"])
+        gu = matmul_t(copy_to_tp(x, mlp_mesh), mlp["gate_up_proj"]["weight"])
+        h = h + reduce_from_tp(matmul_t(F.silu(gu[..., :inter]) * gu[..., inter:],
+                                        mlp["down_proj"]["weight"]), mlp_mesh)
     return rms_norm(h, norm["weight"], dims.eps)
 
 
@@ -302,7 +342,7 @@ def text_project(params: Params, cfg: TalkerConfig, x: torch.Tensor) -> torch.Te
 
 def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tensor,
                    attn_mask: torch.Tensor, cache: Optional[KVCache],
-                   allow_flash: bool = True
+                   allow_flash: bool = True, mesh: Optional[Mesh] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[KVCache]]:
     """Prefill the talker. inputs_embeds: (B, T, H) left-padded; attn_mask:
     (B, T) 1 = real token. Returns (logits of the last position (B, V) f32,
@@ -311,10 +351,12 @@ def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tenso
     Prefills of T >= FLASH_PREFILL_MIN_T attend through `flash_prefill`,
     which requires contiguous left padding (the prompt layout) and has no
     backward; callers with other masks or gradients pass allow_flash=False.
-    `cache=None` is the training route (see `decoder_stack`)."""
+    `cache=None` is the training route (see `decoder_stack`). `mesh`: the
+    params are this rank's tensor-parallel shards (`parallel/mesh.py`); the
+    logits come back whole."""
     B, T, _ = inputs_embeds.shape
     S = T if cache is None else cache.k.shape[3]
-    dims = StackDims.from_talker(cfg)
+    dims = StackDims.from_talker(cfg, mesh)
     dev = inputs_embeds.device
 
     # mrope with identical axes == 1-D rope on mask-cumsum positions
@@ -338,20 +380,21 @@ def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tenso
     h = decoder_stack(params["layers"], params["norm"], dims, inputs_embeds,
                       cos, sin, bias, cache, 0, prefill_start=start,
                       prefill_window=cfg.sliding_window)
-    logits = matmul_t(h[:, -1].to(torch.float32), params["codec_head"])
+    logits = head_logits(h[:, -1].to(torch.float32), params["codec_head"], cfg.vocab_size, mesh)
     return logits, h, cache
 
 
 def talker_decode_step(params: Params, cfg: TalkerConfig, embed: torch.Tensor,
                        position: torch.Tensor, cache_index: int,
                        kv_valid: torch.Tensor, cache: KVCache,
-                       attend_len: Optional[int] = None
+                       attend_len: Optional[int] = None, mesh: Optional[Mesh] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """One plain decode step. embed: (B, 1, H); position: (B,) rope
     position; cache_index: slot to write; kv_valid: (B, S) incl. the new
-    slot. Returns (logits (B, V), hidden (B, 1, H), cache)."""
+    slot. Returns (logits (B, V), hidden (B, 1, H), cache). `mesh` as in
+    `talker_prefill`."""
     S = cache.k.shape[3] if attend_len is None else attend_len
-    dims = StackDims.from_talker(cfg)
+    dims = StackDims.from_talker(cfg, mesh)
     dev = embed.device
     slot = torch.arange(S, device=dev)[None, :]
     ok = (slot <= cache_index) & kv_valid[:, :S]
@@ -362,7 +405,7 @@ def talker_decode_step(params: Params, cfg: TalkerConfig, embed: torch.Tensor,
     cos, sin = rope_tables(position[:, None], inv_freq)
     h = decoder_stack(params["layers"], params["norm"], dims, embed, cos, sin,
                       bias, cache, cache_index, attend_len=attend_len)
-    logits = matmul_t(h[:, 0].to(torch.float32), params["codec_head"])
+    logits = head_logits(h[:, 0].to(torch.float32), params["codec_head"], cfg.vocab_size, mesh)
     return logits, h, cache
 
 
@@ -384,15 +427,20 @@ def code_predictor_frame_dispatch(params: Params, cfg: TalkerConfig,
                                   fused: bool = False,
                                   rows: Optional[torch.Tensor] = None,
                                   rows_top_k: int = 0,
-                                  generator: Optional[torch.Generator] = None
+                                  generator: Optional[torch.Generator] = None,
+                                  mesh: Optional[Mesh] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route one sub-talker frame to the plain layer loop or to the fused
     sub-talker (ops/cuda/subtalker.py: W8A8, int8 params only). `rows`
-    ((B, 5), SamplingParams.as_row layout) carries per-row sampling."""
+    ((B, 5), SamplingParams.as_row layout) carries per-row sampling. Under
+    a mesh only the plain loop runs (the fused kernel runs whole layers and
+    cannot split heads)."""
     if not fused:
         return code_predictor_frame(params, cfg, past_hidden, code0_embed,
                                     sampling, rows=rows, rows_top_k=rows_top_k,
-                                    generator=generator)
+                                    generator=generator, mesh=mesh)
+    if mesh is not None:
+        raise ValueError("the fused sub-talker kernel does not run under a mesh")
     from ..ops.cuda.subtalker import subtalker_frame_fused
 
     return subtalker_frame_fused(params["code_predictor"],
@@ -405,26 +453,31 @@ def code_predictor_frame(params: Params, cfg: TalkerConfig,
                          past_hidden: torch.Tensor, code0_embed: torch.Tensor,
                          sampling, rows: Optional[torch.Tensor] = None,
                          rows_top_k: int = 0,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         mesh: Optional[Mesh] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate codebooks 1..Q-1 for one frame.
 
     past_hidden/code0_embed: (B, 1, talker_hidden). Returns (codes (B, Q-1)
     int32, the sum of the Q-1 sub-code embeddings (B, 1, talker_hidden)).
     Prefill over 2 positions, then Q-2 single-position steps, each with its
-    own lm head and embedding table."""
+    own lm head and embedding table. `mesh`: tensor-parallel shards, and
+    the B rows are this dp rank's share (the noise is drawn for all rows)."""
+    B = past_hidden.shape[0]
+    noise_rows = None if mesh is None else mesh.noise_rows(B)
     if rows is not None:
         def sample(logits):
             return process_and_sample_rows(logits, rows, rows_top_k,
-                                           generator=generator)
+                                           generator=generator, noise_rows=noise_rows)
     else:
         def sample(logits):
-            return process_and_sample(logits, sampling, generator=generator)
+            return process_and_sample(logits, sampling, generator=generator,
+                                      noise_rows=noise_rows)
 
     cp_cfg = cfg.code_predictor_config
     cp = params["code_predictor"]
-    dims = StackDims.from_code_predictor(cp_cfg)
-    B = past_hidden.shape[0]
+    dims = StackDims.from_code_predictor(cp_cfg, mesh)
+    V = cp_cfg.vocab_size
     dev, dtype = past_hidden.device, past_hidden.dtype
     Qm1 = cfg.num_code_groups - 1
     S = Qm1 + 2
@@ -440,7 +493,7 @@ def code_predictor_frame(params: Params, cfg: TalkerConfig,
     bias = mask_to_bias(ok)[None, None].expand(B, 1, 2, S)
     h = decoder_stack(cp["layers"], cp["norm"], dims, pre, cos, sin, bias,
                       cache, 0)
-    logits = h[:, -1].to(torch.float32) @ cp["lm_heads"][0].T.to(torch.float32)
+    logits = head_logits(h[:, -1].to(torch.float32), cp["lm_heads"][0], V, mesh)
     code = sample(logits)
     codes = [code]
     emb_sum = cp["embeddings"][0][code.long()][:, None, :].to(dtype)
@@ -451,7 +504,7 @@ def code_predictor_frame(params: Params, cfg: TalkerConfig,
         bias = mask_to_bias(slots <= step + 1)[None, None, None, :].expand(B, 1, 1, S)
         h = decoder_stack(cp["layers"], cp["norm"], dims, x, cos, sin, bias,
                           cache, step + 1)
-        logits = h[:, 0].to(torch.float32) @ cp["lm_heads"][step].T.to(torch.float32)
+        logits = head_logits(h[:, 0].to(torch.float32), cp["lm_heads"][step], V, mesh)
         code = sample(logits)
         codes.append(code)
         emb_sum = emb_sum + cp["embeddings"][step][code.long()][:, None, :].to(dtype)

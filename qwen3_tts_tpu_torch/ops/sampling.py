@@ -10,6 +10,9 @@ A categorical draw is `argmax(logits + gumbel)`, exactly the form
 `jax.random.categorical` takes. The Gumbel noise comes from an explicit
 `torch.Generator`, or is passed in as `noise` (tests hand both packages the
 same draw, since a JAX key and a torch generator give different numbers).
+`noise_rows=(n, rows)` draws the noise of an n-row batch and keeps `rows`
+(a slice or an index tensor): a batch sharded over data-parallel ranks
+samples what the whole batch samples from one seeded generator.
 """
 
 from __future__ import annotations
@@ -47,9 +50,12 @@ def gumbel_noise(shape, generator: Optional[torch.Generator],
     return -torch.log(-torch.log(torch.clamp(u, min=_TINY)))
 
 
-def _categorical(logits: torch.Tensor, generator, noise) -> torch.Tensor:
-    if noise is None:
+def _categorical(logits: torch.Tensor, generator, noise, noise_rows=None) -> torch.Tensor:
+    if noise is None and noise_rows is None:
         noise = gumbel_noise(logits.shape, generator, logits.device)
+    elif noise is None:
+        n, rows = noise_rows
+        noise = gumbel_noise((n,) + tuple(logits.shape[1:]), generator, logits.device)[rows]
     return torch.argmax(logits + noise.to(logits.device), dim=-1)
 
 
@@ -75,13 +81,15 @@ def process_and_sample_rows(logits: torch.Tensor, rows: torch.Tensor,
                             eos_id: Optional[int] = None,
                             all_greedy: bool = False,
                             generator: Optional[torch.Generator] = None,
-                            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            noise: Optional[torch.Tensor] = None,
+                            noise_rows=None) -> torch.Tensor:
     """Per-ROW sampling: each row carries [temperature, top_p,
     repetition_penalty, do_sample, top_k] (`rows` (B, 5)). `top_k` is the
     candidate width (rows narrow within it; row k <= 0 keeps every
     candidate). Greedy rows take the argmax of the penalized logits.
     `all_greedy` skips the sampling machinery. `noise` is the Gumbel draw:
-    (B, top_k) on the top-k path, (B, V) on the full-vocabulary path."""
+    (B, top_k) on the top-k path, (B, V) on the full-vocabulary path;
+    `noise_rows` as in the module docstring."""
     logits = logits.to(torch.float32)
     temp = torch.clamp(rows[:, 0], min=1e-6)[:, None]
     top_p = rows[:, 1][:, None]
@@ -105,7 +113,7 @@ def process_and_sample_rows(logits: torch.Tensor, rows: torch.Tensor,
         keep = (cum - probs) < top_p
         keep[..., 0].fill_(True)
         vals = torch.where(keep, vals, torch.full_like(vals, NEG_INF))
-        choice = _categorical(vals, generator, noise)
+        choice = _categorical(vals, generator, noise, noise_rows)
         sampled = torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)
     else:
         sorted_logits = torch.sort(warped, dim=-1, descending=True).values
@@ -121,7 +129,7 @@ def process_and_sample_rows(logits: torch.Tensor, rows: torch.Tensor,
                           torch.full_like(sorted_logits, float("inf"))
                           ).amin(dim=-1, keepdim=True)
         warped = torch.where(warped < kth, torch.full_like(warped, NEG_INF), warped)
-        sampled = _categorical(warped, generator, noise).to(torch.int32)
+        sampled = _categorical(warped, generator, noise, noise_rows).to(torch.int32)
     return torch.where(do_sample, sampled, greedy)
 
 
@@ -146,9 +154,10 @@ def process_and_sample(logits: torch.Tensor, params: SamplingParams,
                        ban_eos: Optional[torch.Tensor] = None,
                        eos_id: Optional[int] = None,
                        generator: Optional[torch.Generator] = None,
-                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       noise: Optional[torch.Tensor] = None,
+                       noise_rows=None) -> torch.Tensor:
     """logits: (B, V) -> sampled ids (B,) int32, with one SamplingParams for
-    the whole batch. `noise` as in process_and_sample_rows."""
+    the whole batch. `noise` and `noise_rows` as in process_and_sample_rows."""
     logits = _penalize(logits.to(torch.float32), presence,
                        params.repetition_penalty, suppress_mask, ban_eos, eos_id)
     if not params.do_sample:
@@ -164,7 +173,7 @@ def process_and_sample(logits: torch.Tensor, params: SamplingParams,
             keep = (cum - probs) < params.top_p
             keep[..., 0].fill_(True)
             vals = torch.where(keep, vals, torch.full_like(vals, NEG_INF))
-        choice = _categorical(vals, generator, noise)
+        choice = _categorical(vals, generator, noise, noise_rows)
         return torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)
     logits = apply_top_p(logits, params.top_p)
-    return _categorical(logits, generator, noise).to(torch.int32)
+    return _categorical(logits, generator, noise, noise_rows).to(torch.int32)

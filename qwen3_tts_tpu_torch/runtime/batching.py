@@ -21,10 +21,24 @@
   staging calls, sizes chunks, syncs each chunk's aux one chunk behind and
   attributes frames to request ids.
 
+- `mesh=` (`parallel/mesh.py`): one engine spanning the ranks of a
+  ("dp", "tp") mesh, in SPMD: every rank runs the same host scheduler over
+  the same submissions and owns its dp share of the slots and staging rows
+  (`shard_slot_state`), and under tp its heads of their KV caches, with the
+  params as this rank's tensor-parallel shards. A rank prefills only the
+  staged requests whose rows it owns and installs them into its own free
+  slots. After each chunk the packed aux is all-reduced over dp into the
+  full-size layout, so every rank attributes the same frames and takes the
+  same staging and retire decisions (the counterpart of the free-slot
+  argmax and the packed aux lowering to GSPMD collectives). Ticks run
+  eagerly (no serve graphs: a gloo collective cannot be captured), and
+  `fused_talker_step` / `fused_subtalker` raise, as the JAX engine refuses
+  the fused step with a mesh. Noise is drawn for the whole slot pool and
+  each rank keeps its slots' rows.
+
 Not ported, being XLA compile plumbing: the AOT executable cache, the
 background prewarm of the next attend bucket, `warmup_serve` and
-`warmup_staging` (a serve graph is captured at its first use). `mesh=`
-waits for the parallel slice.
+`warmup_staging` (a serve graph is captured at its first use).
 """
 
 from __future__ import annotations
@@ -39,14 +53,15 @@ import torch
 
 from ..config import TalkerConfig
 from ..models.talker import (KVCache, StackDims, code_predictor_frame_dispatch,
-                             decoder_stack, talker_prefill)
+                             decoder_stack, head_logits, talker_prefill)
 from ..ops.attention import mask_to_bias
 from ..ops.cuda.talker_step import KV_CHUNK
 from ..ops.rope import default_inv_freq, rope_tables
 from ..ops.sampling import SamplingParams, process_and_sample_rows
-from ..weights import is_int8, matmul_t
+from ..parallel.mesh import Mesh, all_reduce
+from ..weights import is_int8
 from . import graphs
-from .generate import GenerationConfig, attend_bucket_for, suppress_mask_for
+from .generate import GenerationConfig, attend_bucket_for, check_mesh_route, suppress_mask_for
 
 Params = Dict[str, Any]
 
@@ -134,24 +149,40 @@ def stage_requests(params: Params, cfg: TalkerConfig, state: SlotState,
                    gen_cfg: GenerationConfig, embeds: torch.Tensor, mask: torch.Tensor,
                    trailing: torch.Tensor, meta: np.ndarray, tts_pad: torch.Tensor,
                    generator: torch.Generator, sampling_rows: torch.Tensor,
-                   sub_sampling_rows: torch.Tensor) -> None:
+                   sub_sampling_rows: torch.Tensor, mesh: Optional[Mesh] = None) -> None:
     """Prefill a batch of N staged requests ((N, Lp, H) / (N, Lp) / (N, Tt,
     H), left-padded to the bucket) and write them into staging rows, in
     place. `meta` (N, 5) host int [req_id, max_frames, trailing_len, row,
-    valid]; rows with valid 0 are padding and write nothing."""
+    valid]; rows with valid 0 are padding and write nothing. Under a mesh
+    `row` is a row of the whole pool: this rank prefills the requests whose
+    rows it owns (the noise is drawn for all N)."""
     N, Lp, _ = embeds.shape
-    dims = StackDims.from_talker(cfg)
+    noise_rows = None
+    if mesh is not None:
+        K = state.staged_valid.shape[0]
+        mine = np.flatnonzero((meta[:, 4] != 0) & (meta[:, 3] // K == mesh.dp_rank))
+        idx = torch.as_tensor(mine, dtype=torch.long, device=embeds.device)
+        noise_rows = (N, idx)
+        embeds, mask, trailing = embeds[idx], mask[idx], trailing[idx]
+        sampling_rows, sub_sampling_rows = sampling_rows[idx], sub_sampling_rows[idx]
+        meta = meta[mine].copy()
+        meta[:, 3] -= mesh.dp_rank * K
+    n = embeds.shape[0]
+    dims = StackDims.from_talker(cfg, mesh)
     dev = embeds.device
-    tmp = KVCache.zeros(cfg.num_hidden_layers, N, Lp, dims.kv_heads, dims.head_dim,
-                        dtype=state.last_hidden.dtype, device=dev,
-                        quantized=state.cache.quantized)
-    logits, hidden_seq, tmp = talker_prefill(params, cfg, embeds, mask, tmp)
+    if n:
+        tmp = KVCache.zeros(cfg.num_hidden_layers, n, Lp, dims.kv_heads, dims.head_dim,
+                            dtype=state.last_hidden.dtype, device=dev,
+                            quantized=state.cache.quantized)
+        logits, hidden_seq, tmp = talker_prefill(params, cfg, embeds, mask, tmp, mesh=mesh)
+    else:   # no row of ours: the draw still runs, so every rank's generator moves alike
+        logits = torch.zeros((0, cfg.vocab_size), device=dev)
     code0 = process_and_sample_rows(
         logits, sampling_rows, gen_cfg.sampling.top_k,
-        presence=torch.zeros((N, cfg.vocab_size), dtype=torch.bool, device=dev),
+        presence=torch.zeros((n, cfg.vocab_size), dtype=torch.bool, device=dev),
         suppress_mask=suppress_mask_for(cfg, dev),
-        ban_eos=torch.full((N,), 0 < gen_cfg.min_new_tokens, device=dev),
-        eos_id=cfg.codec_eos_token_id, generator=generator)
+        ban_eos=torch.full((n,), 0 < gen_cfg.min_new_tokens, device=dev),
+        eos_id=cfg.codec_eos_token_id, generator=generator, noise_rows=noise_rows)
     src = np.flatnonzero(meta[:, 4])
     if not len(src):
         return
@@ -230,11 +261,13 @@ def install_all(state: SlotState) -> None:
 
 def serve_step(params: Params, cfg: TalkerConfig, state: SlotState,
                gen_cfg: GenerationConfig, generator: torch.Generator,
-               attend_len: Optional[int] = None, install: bool = True
+               attend_len: Optional[int] = None, install: bool = True,
+               mesh: Optional[Mesh] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Advance every slot one frame, in place, after installing staged
     requests into free slots (`install`). `attend_len` bounds the attended
-    KV window (it covers the longest live slot).
+    KV window (it covers the longest live slot). Under a mesh the slots are
+    this rank's (the plain route only).
 
     Returns (frames (B, Q), emit (B,) bool, req_id (B,), finished (B,) bool:
     slots that consumed their final tick)."""
@@ -244,9 +277,10 @@ def serve_step(params: Params, cfg: TalkerConfig, state: SlotState,
     B = state.code0.shape[0]
     dev = state.code0.device
     S_buf = state.kv_valid.shape[1]
-    dims = StackDims.from_talker(cfg)
+    dims = StackDims.from_talker(cfg, mesh)
     dtype = state.last_hidden.dtype
     rows = torch.arange(B, device=dev)
+    noise_rows = None if mesh is None else mesh.noise_rows(B)
 
     now_done = state.done | (state.code0 == eos) | (state.t >= state.max_frames)
     emit = state.active & ~now_done
@@ -261,7 +295,7 @@ def serve_step(params: Params, cfg: TalkerConfig, state: SlotState,
     sub_codes, sub_emb_sum = code_predictor_frame_dispatch(
         params, cfg, state.last_hidden, code0_embed, gen_cfg.subtalker,
         fused=gen_cfg.fused_subtalker, rows=sub_rows,
-        rows_top_k=gen_cfg.subtalker.top_k, generator=generator)
+        rows_top_k=gen_cfg.subtalker.top_k, generator=generator, mesh=mesh)
     frames = torch.cat([state.code0[:, None], sub_codes.to(torch.int32)], dim=1)
 
     # dual-track merge with a per-slot trailing index
@@ -295,11 +329,13 @@ def serve_step(params: Params, cfg: TalkerConfig, state: SlotState,
         cos, sin = rope_tables(position[:, None], inv_freq)
         h = decoder_stack(params["layers"], params["norm"], dims, embed, cos, sin,
                           bias, cache, cache_index, attend_len=attend_len)
-        logits = matmul_t(h[:, 0].to(torch.float32), params["codec_head"])
+        logits = head_logits(h[:, 0].to(torch.float32), params["codec_head"], cfg.vocab_size,
+                             mesh)
     next_code0 = process_and_sample_rows(
         logits, state.sampling, gen_cfg.sampling.top_k, presence=presence,
         suppress_mask=suppress_mask_for(cfg, dev),
-        ban_eos=state.t + 1 < gen_cfg.min_new_tokens, eos_id=eos, generator=generator)
+        ban_eos=state.t + 1 < gen_cfg.min_new_tokens, eos_id=eos, generator=generator,
+        noise_rows=noise_rows)
     req_id = state.req_id
     # a sampled EOS or an exhausted budget frees the slot this tick (the EOS
     # frame itself is never output)
@@ -342,12 +378,14 @@ def unpack_chunk_aux(aux: np.ndarray, num_slots: int, ticks: int, Q: int,
 def serve_chunk(params: Params, cfg: TalkerConfig, state: SlotState,
                 gen_cfg: GenerationConfig, generator: torch.Generator, n_ticks: int,
                 max_ticks: int, attend_len: Optional[int] = None,
-                install: bool = True) -> torch.Tensor:
+                install: bool = True, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Advance every slot min(n_ticks, max_ticks) frames, in place. Returns
     one flat int32 tensor on the state's device packing (frames, emit,
     req_id, finished) for max_ticks tick columns plus (staged_valid,
     staged_rid, t): the chunk's single device-to-host copy (decode with
-    `unpack_chunk_aux`)."""
+    `unpack_chunk_aux`). Under a mesh each piece is placed at this rank's
+    rows of the whole pool's layout and the result all-reduced over dp:
+    every rank gets the whole pool's aux."""
     B, Q = state.code0.shape[0], cfg.num_code_groups
     dev = state.code0.device
     fb = torch.zeros((B, max_ticks, Q), dtype=torch.int32, device=dev)
@@ -355,14 +393,21 @@ def serve_chunk(params: Params, cfg: TalkerConfig, state: SlotState,
                   for _ in range(3))
     for i in range(min(n_ticks, max_ticks)):
         frames, emit, req_id, finished = serve_step(params, cfg, state, gen_cfg, generator,
-                                                    attend_len, install)
+                                                    attend_len, install, mesh)
         fb[:, i] = frames
         eb[:, i] = emit.to(torch.int32)
         rb[:, i] = req_id
         db[:, i] = finished.to(torch.int32)
-    return torch.cat([fb.reshape(-1), eb.reshape(-1), rb.reshape(-1), db.reshape(-1),
-                      state.staged_valid.to(torch.int32),
-                      state.staged_req_id.to(torch.int32), state.t.to(torch.int32)])
+    pieces = (fb, eb, rb, db, state.staged_valid.to(torch.int32),
+              state.staged_req_id.to(torch.int32), state.t.to(torch.int32))
+    if mesh is None:
+        return torch.cat([p.reshape(-1) for p in pieces])
+    whole = []
+    for p in pieces:   # this rank's rows of each piece, zeros elsewhere
+        full = p.new_zeros((p.shape[0] * mesh.dp,) + tuple(p.shape[1:]))
+        full[mesh.rows(full.shape[0])] = p
+        whole.append(full.reshape(-1))
+    return all_reduce(torch.cat(whole), mesh.dp_group)
 
 
 def _pad_request(embeds, mask, trailing, Lp: int, Tt: int, dtype):
@@ -405,7 +450,11 @@ class Completion:
 class ContinuousBatchingEngine:
     """Host scheduler around stage_requests / serve_chunk: it batches new
     requests into staging calls and attributes emitted frames to request
-    ids; admission itself (prefill + slot install) runs on the device."""
+    ids; admission itself (prefill + slot install) runs on the device.
+
+    `mesh`: one engine spanning a ("dp", "tp") mesh (module docstring);
+    `params` are this rank's `shard_talker_params`, and dp must divide
+    `num_slots` and the staging rows. Every rank makes the same calls."""
 
     def __init__(self, params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
                  num_slots: int = 8, max_len: int = 3072, max_trailing: int = 512,
@@ -413,8 +462,8 @@ class ContinuousBatchingEngine:
                  prefill_bucket: Optional[int] = None, installs_per_tick: int = 4,
                  staging_rows: Optional[int] = None, mesh=None, metrics=None,
                  chunk_ramp: Tuple[int, ...] = (2, 4, 8, 16)):
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded engines come with the parallel slice")
+        check_mesh_route(gen_cfg, mesh)
+        self.mesh = mesh
         self.params = params
         self.cfg = cfg
         self.gen_cfg = gen_cfg
@@ -440,6 +489,10 @@ class ContinuousBatchingEngine:
                                      prefill_bucket=self.prefill_bucket,
                                      staging_rows=self.staging_rows,
                                      kv_quant=gen_cfg.kv_quant, device=self.device)
+        if mesh is not None:
+            from ..parallel.mesh import shard_slot_state
+
+            self.state = shard_slot_state(self.state, mesh)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.ticks_per_sync = ticks_per_sync
@@ -485,8 +538,8 @@ class ContinuousBatchingEngine:
         from ..utils.metrics import global_metrics
         self.metrics = metrics if metrics is not None else global_metrics()
         # the one-tick serve graphs over self.state (a CUDA device)
-        self._graphs = (graphs.ServeGraphs(self) if graphs.enabled(self.device)
-                        else None)
+        self._graphs = (graphs.ServeGraphs(self)
+                        if graphs.enabled(self.device) and mesh is None else None)
 
     def submit(self, req: Request) -> None:
         self.metrics.count("engine.submits")
@@ -577,7 +630,10 @@ class ContinuousBatchingEngine:
                 return total
 
     def _stage_batch(self) -> int:
-        free_rows = [k for k in range(self.staging_rows) if k not in self.staged_rows_busy]
+        # under dp, consecutive requests go to the dp shards in turn
+        per = self.staging_rows // (self.mesh.dp if self.mesh is not None else 1)
+        free_rows = sorted((k for k in range(self.staging_rows)
+                            if k not in self.staged_rows_busy), key=lambda k: (k % per, k))
         n = min(len(self.pending), len(free_rows), 16)
         if n == 0:
             return 0
@@ -614,7 +670,7 @@ class ContinuousBatchingEngine:
                            torch.stack(embeds_rows), torch.stack(mask_rows),
                            torch.stack(trailing_rows), meta, self._tts_pad_dev,
                            self.generator, torch.as_tensor(srows, device=self.device),
-                           torch.as_tensor(ssrows, device=self.device))
+                           torch.as_tensor(ssrows, device=self.device), self.mesh)
         return n
 
     def _next_ticks(self) -> int:
@@ -649,7 +705,7 @@ class ContinuousBatchingEngine:
             else:
                 aux = serve_chunk(self.params, self.cfg, self.state, self.gen_cfg,
                                   self.generator, ticks, self.ticks_per_sync,
-                                  attend_len=attend, install=install)
+                                  attend_len=attend, install=install, mesh=self.mesh)
         event = None
         if aux.is_cuda:
             host = torch.empty(aux.shape, dtype=aux.dtype, pin_memory=True)

@@ -33,6 +33,15 @@ out, then the tts_pad embedding.
 Sampling noise comes from one `torch.Generator` on the model's device; a
 graph replays its draws from the generator's state, so one seed gives the
 graphed and the eager loop the same codes.
+
+`generate_frames(..., mesh=)` runs with tensor-parallel shards of the
+params (`parallel/mesh.py`) and splits the batch rows over dp: every rank
+gets the whole batch, runs its own rows, draws the noise of the whole batch
+from the same seeded generator and keeps its rows (so a sampled sharded run
+gives the unsharded run's codes), and returns the whole batch. The frame
+loop then runs eagerly, testing EOS every frame: a collective over gloo
+cannot be captured, the counterpart of the JAX package's sharded engines
+keeping the plain jit path. The fused kernels raise under a mesh.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from ..models.talker import (KVCache, StackDims, code_predictor_frame_dispatch,
                              talker_decode_step, talker_prefill)
 from ..ops.cuda.talker_step import KV_CHUNK, talker_step_fused_cache
 from ..ops.sampling import SamplingParams, process_and_sample_rows
+from ..parallel.mesh import Mesh, gather_rows
 from . import graphs
 
 Params = Dict[str, Any]
@@ -138,13 +148,23 @@ class GenerationResult(NamedTuple):
 
 
 def _sample_code0(logits, gen_cfg: GenerationConfig, cfg: TalkerConfig,
-                  const: DecodeConst, presence, ban, generator):
+                  const: DecodeConst, presence, ban, generator, mesh=None):
     B = logits.shape[0]
     return process_and_sample_rows(
         logits, const.samp_row[None, :].expand(B, 5), gen_cfg.sampling.top_k,
         presence=presence, suppress_mask=const.suppress, ban_eos=ban,
         eos_id=cfg.codec_eos_token_id,
-        all_greedy=not gen_cfg.sampling.do_sample, generator=generator)
+        all_greedy=not gen_cfg.sampling.do_sample, generator=generator,
+        noise_rows=None if mesh is None else mesh.noise_rows(B))
+
+
+def check_mesh_route(gen_cfg: GenerationConfig, mesh: Optional[Mesh]) -> None:
+    """The fused kernels are one persistent launch over whole layers and
+    cannot split heads: under a mesh they raise (as the JAX engine refuses
+    fused_talker_step with a mesh)."""
+    if mesh is not None and (gen_cfg.fused_subtalker or gen_cfg.fused_talker_step):
+        raise ValueError("fused_subtalker / fused_talker_step run on one device; "
+                         "drop them under a mesh")
 
 
 def kv_capacity(gen_cfg: GenerationConfig, T: int) -> int:
@@ -166,17 +186,18 @@ def init_decode_state(params: Params, cfg: TalkerConfig,
                       gen_cfg: GenerationConfig, inputs_embeds: torch.Tensor,
                       attn_mask: torch.Tensor, trailing_text: torch.Tensor,
                       tts_pad_embed: torch.Tensor, generator: torch.Generator,
-                      max_len: int):
+                      max_len: int, mesh: Optional[Mesh] = None):
     """Prefill and sample the first code0. `max_len` is the KV capacity S.
     Returns (DecodeState, DecodeConst). On a CUDA device (unless
-    `graphs.eager()` is in force) the prefill writes into the KV cache of a
-    graph context and both are that context's static buffers, which
-    `decode_chunk` replays its graphs over."""
+    `graphs.eager()` is in force, or under a mesh) the prefill writes into
+    the KV cache of a graph context and both are that context's static
+    buffers, which `decode_chunk` replays its graphs over. Under a mesh the
+    inputs are this dp rank's rows."""
     B, T, _ = inputs_embeds.shape
-    dims = StackDims.from_talker(cfg)
+    dims = StackDims.from_talker(cfg, mesh)
     dev, dtype = inputs_embeds.device, inputs_embeds.dtype
-    ctx = graphs.decode_context(params, cfg, gen_cfg, B, max_len, dtype,
-                                trailing_text.dtype, dev)
+    ctx = None if mesh is not None else graphs.decode_context(
+        params, cfg, gen_cfg, B, max_len, dtype, trailing_text.dtype, dev)
     if ctx is None:
         cache = KVCache.zeros(cfg.num_hidden_layers, B, max_len, dims.kv_heads,
                               dims.head_dim, dtype=dtype, device=dev,
@@ -184,7 +205,7 @@ def init_decode_state(params: Params, cfg: TalkerConfig,
     else:
         cache = ctx.fresh_cache()
     logits, hidden_seq, cache = talker_prefill(params, cfg, inputs_embeds,
-                                               attn_mask, cache)
+                                               attn_mask, cache, mesh=mesh)
     samp_row, sub_row = gen_cfg.sampling_rows()
     valid_prefill = torch.zeros((B, max_len), dtype=torch.bool, device=dev)
     valid_prefill[:, :T] = attn_mask.to(torch.bool)
@@ -198,7 +219,7 @@ def init_decode_state(params: Params, cfg: TalkerConfig,
         suppress=suppress_mask_for(cfg, dev))
     presence = torch.zeros((B, cfg.vocab_size), dtype=torch.bool, device=dev)
     ban = torch.full((B,), 0 < gen_cfg.min_new_tokens, device=dev)
-    code0 = _sample_code0(logits, gen_cfg, cfg, const, presence, ban, generator)
+    code0 = _sample_code0(logits, gen_cfg, cfg, const, presence, ban, generator, mesh)
     state = DecodeState(
         cache=cache, code0=code0, last_hidden=hidden_seq[:, -1:, :],
         presence=presence, done=torch.zeros((B,), dtype=torch.bool, device=dev),
@@ -211,11 +232,13 @@ def init_decode_state(params: Params, cfg: TalkerConfig,
 
 def frame_step(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
                const: DecodeConst, state: DecodeState,
-               generator: torch.Generator, attend_len: Optional[int] = None):
+               generator: torch.Generator, attend_len: Optional[int] = None,
+               mesh: Optional[Mesh] = None):
     """One frame, in place on `state` (its cache is written in place). No
     host sync and no host value read from the device: a graph captures it.
     Returns (state, frame (B, Q) int32, hidden row (B, H), active (B,) bool:
-    whether the frame is valid output), as the JAX frame_step."""
+    whether the frame is valid output), as the JAX frame_step. `mesh`: as
+    in `init_decode_state` (eager only)."""
     eos = cfg.codec_eos_token_id
     B = state.code0.shape[0]
     dev = state.code0.device
@@ -232,7 +255,7 @@ def frame_step(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
     sub_codes, sub_emb_sum = code_predictor_frame_dispatch(
         params, cfg, state.last_hidden, code0_embed, gen_cfg.subtalker,
         fused=gen_cfg.fused_subtalker, rows=sub_rows,
-        rows_top_k=gen_cfg.subtalker.top_k, generator=generator)
+        rows_top_k=gen_cfg.subtalker.top_k, generator=generator, mesh=mesh)
     frame = torch.cat([state.code0[:, None], sub_codes.to(torch.int32)], dim=1)
     active = ~now_done
 
@@ -260,10 +283,10 @@ def frame_step(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
     else:
         logits, last_hidden, _ = talker_decode_step(
             params, cfg, embed, position, cache_index, kv_valid, state.cache,
-            attend_len=attend_len)
+            attend_len=attend_len, mesh=mesh)
 
     ban = (state.t + 1 < gen_cfg.min_new_tokens).expand(B)
-    state.code0 = _sample_code0(logits, gen_cfg, cfg, const, presence, ban, generator)
+    state.code0 = _sample_code0(logits, gen_cfg, cfg, const, presence, ban, generator, mesh)
     state.last_hidden = last_hidden
     state.presence = presence
     state.done = now_done
@@ -274,14 +297,16 @@ def frame_step(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
 
 def frame_loop(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
                const: DecodeConst, state: DecodeState, num_frames: int,
-               generator: torch.Generator, attend_len: Optional[int] = None):
+               generator: torch.Generator, attend_len: Optional[int] = None,
+               mesh: Optional[Mesh] = None):
     """`num_frames` eager frame steps. Returns (state, frames (B, K, Q),
     active (B, K), hidden (B, K, H), zero on inactive frames): the body a
     graph captures."""
     frames, actives, hiddens = [], [], []
     for _ in range(num_frames):
         state, frame, hidden, active = frame_step(params, cfg, gen_cfg, const, state,
-                                                  generator, attend_len=attend_len)
+                                                  generator, attend_len=attend_len,
+                                                  mesh=mesh)
         frames.append(frame)
         actives.append(active)
         hiddens.append(torch.where(active[:, None], hidden, torch.zeros_like(hidden)))
@@ -289,14 +314,16 @@ def frame_loop(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
             torch.stack(hiddens, dim=1))
 
 
-def _chunk(params, cfg, gen_cfg, const, state, num_frames, generator, attend_len):
+def _chunk(params, cfg, gen_cfg, const, state, num_frames, generator, attend_len,
+           mesh=None):
     """(state, frames, active, hidden) of `num_frames` frames: one graph
     replay on a graph context, else the eager loop."""
     if state.graphs is not None:
         frames, active, hidden = state.graphs.run(params, gen_cfg, num_frames, attend_len,
                                                   generator)
         return state, frames, active, hidden
-    return frame_loop(params, cfg, gen_cfg, const, state, num_frames, generator, attend_len)
+    return frame_loop(params, cfg, gen_cfg, const, state, num_frames, generator, attend_len,
+                      mesh)
 
 
 def decode_chunk(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
@@ -333,19 +360,36 @@ def _finish(frames, actives, hiddens, max_frames: int) -> GenerationResult:
 def generate_frames(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
                     inputs_embeds: torch.Tensor, attn_mask: torch.Tensor,
                     trailing_text: torch.Tensor, tts_pad_embed: torch.Tensor,
-                    generator: torch.Generator, stop_at_eos: bool = True) -> GenerationResult:
+                    generator: torch.Generator, stop_at_eos: bool = True,
+                    mesh: Optional[Mesh] = None) -> GenerationResult:
     """Full batch generation. inputs_embeds: (B, T, H) left-padded prefill;
     attn_mask: (B, T) 1 = real token; trailing_text: (B, Tt, H) pad-filled;
     tts_pad_embed: (1, 1, H). Stops once every row hit EOS: the eager loop
     tests it on the host every frame, the graphed loop once per replay of
     GRAPH_FRAMES frames (the last replay is shorter, so no frame runs past
     max_frames). `stop_at_eos=False` runs every frame up to max_new_tokens
-    (the warm-up: every graph a call of this shape can replay)."""
+    (the warm-up: every graph a call of this shape can replay).
+
+    `mesh`: `params` are this rank's tensor-parallel shards; every rank
+    passes the whole batch and gets the whole result, each running its dp
+    share of the rows (dp must divide B) on the eager loop."""
+    if mesh is None:
+        return _generate(params, cfg, gen_cfg, inputs_embeds, attn_mask, trailing_text,
+                         tts_pad_embed, generator, stop_at_eos)
+    check_mesh_route(gen_cfg, mesh)
+    out = _generate(params, cfg, gen_cfg, *(x[mesh.rows(x.shape[0])] for x in (
+        inputs_embeds, attn_mask, trailing_text)), tts_pad_embed, generator, stop_at_eos, mesh)
+    return GenerationResult(*(gather_rows(x, mesh) for x in out))
+
+
+def _generate(params, cfg, gen_cfg, inputs_embeds, attn_mask, trailing_text, tts_pad_embed,
+              generator, stop_at_eos, mesh=None) -> GenerationResult:
+    """`generate_frames` on this rank's rows."""
     B, T, H = inputs_embeds.shape
     max_frames = gen_cfg.max_new_tokens - 1
     state, const = init_decode_state(params, cfg, gen_cfg, inputs_embeds,
                                      attn_mask, trailing_text, tts_pad_embed,
-                                     generator, kv_capacity(gen_cfg, T))
+                                     generator, kv_capacity(gen_cfg, T), mesh)
     eos = cfg.codec_eos_token_id
     step = GRAPH_FRAMES if state.graphs is not None else 1
     frames, actives, hiddens = [], [], []
@@ -353,7 +397,8 @@ def generate_frames(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig
     while emitted < max_frames and not (
             stop_at_eos and bool((state.done | (state.code0 == eos)).all())):
         k = min(step, max_frames - emitted)
-        state, fr, act, hid = _chunk(params, cfg, gen_cfg, const, state, k, generator, None)
+        state, fr, act, hid = _chunk(params, cfg, gen_cfg, const, state, k, generator, None,
+                                     mesh)
         if state.graphs is not None:   # the graph's static outputs: the next replay rewrites them
             fr, act, hid = fr.clone(), act.clone(), hid.clone()
         frames.append(fr)

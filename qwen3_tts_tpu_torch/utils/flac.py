@@ -1,8 +1,8 @@
-"""Pure-Python/numpy FLAC decode (the port's copy of
-`qwen3_tts_tpu/utils/flac.py`, decoder only).
+"""Pure-Python/numpy FLAC decode and a minimal encoder (the port's copy of
+`qwen3_tts_tpu/utils/flac.py`, native fast path included).
 
 The reference accepts any ref-audio format librosa/soundfile reads
-(qwen_tts/inference/qwen3_tts_model.py:188-264).  Neither librosa nor
+(qwen_tts/inference/qwen3_tts_model.py:188-264). Neither librosa nor
 soundfile (nor any libsndfile) is a dependency, so lossless inputs are
 handled natively: this module implements the FLAC bitstream per the format
 spec (RFC 9639) — constant / verbatim / fixed / LPC subframes, Rice/Rice2
@@ -12,14 +12,22 @@ and wasted bits.
 Decoding is numpy-vectorized where the format allows (batched remainder-bit
 gathers per Rice partition; `np.searchsorted` over one-bit positions for the
 unary quotients), so a few seconds of reference audio decodes in well under a
-second. The JAX package's optional C fast path for the sequential loops is
-not carried over: this is the pure-Python path, which the JAX package keeps
-as its parity oracle.
+second without native code. The strictly sequential loops (Rice symbols,
+predictor reconstruction, fixed-width reads) additionally have a native C
+fast path (native/flac_fast.c, built on first use by utils/native.py into
+build/native/); the Python implementations remain the always-available
+fallback and the parity oracle (`QWEN3_TTS_NO_NATIVE=1` forces them). Both
+give the same samples. This is host code: no device runs it.
+
+The encoder (`write_flac`) emits verbatim or fixed-order-1 Rice frames; it
+exists so tests and smoke runs can round-trip the decoder without shipping
+binary fixtures.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import struct
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -31,6 +39,53 @@ FIXED_COEFFS = {
     4: [4, -6, 4, -1],
 }
 
+_CRC8_TABLE = None
+_CRC16_TABLE = None
+
+
+def _crc8(data: bytes) -> int:
+    global _CRC8_TABLE
+    if _CRC8_TABLE is None:
+        tbl = []
+        for i in range(256):
+            c = i
+            for _ in range(8):
+                c = ((c << 1) ^ 0x07) & 0xFF if (c & 0x80) else (c << 1) & 0xFF
+            tbl.append(c)
+        _CRC8_TABLE = tbl
+    c = 0
+    for b in data:
+        c = _CRC8_TABLE[c ^ b]
+    return c
+
+
+def _crc16(data: bytes) -> int:
+    global _CRC16_TABLE
+    if _CRC16_TABLE is None:
+        tbl = []
+        for i in range(256):
+            c = i << 8
+            for _ in range(8):
+                c = ((c << 1) ^ 0x8005) & 0xFFFF if (c & 0x8000) else (c << 1) & 0xFFFF
+            tbl.append(c)
+        _CRC16_TABLE = tbl
+    c = 0
+    for b in data:
+        c = ((c << 8) & 0xFFFF) ^ _CRC16_TABLE[((c >> 8) ^ b) & 0xFF]
+    return c
+
+
+def _native_lib():
+    """The C hot-loop library, or None (env QWEN3_TTS_NO_NATIVE=1 forces
+    the pure-Python path)."""
+    import os
+
+    if os.environ.get("QWEN3_TTS_NO_NATIVE") == "1":
+        return None
+    from .native import flac_fast
+
+    return flac_fast()
+
 
 class _BitReader:
     """Bit reader over a numpy uint8 bit array (MSB-first)."""
@@ -40,6 +95,21 @@ class _BitReader:
         self.bits = np.unpackbits(self.raw)
         self.ones = np.flatnonzero(self.bits)  # for O(log n) unary scans
         self.pos = 0
+        self.lib = _native_lib()
+
+    def _c_call(self, fn, n: int, arg: int) -> Optional[np.ndarray]:
+        """Run a native (buf, nbits, &bitpos, n, arg, out) -> rc loop."""
+        import ctypes
+
+        out = np.empty(n, np.int64)
+        bitpos = ctypes.c_size_t(self.pos)
+        rc = fn(self.raw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                len(self.bits), ctypes.byref(bitpos), n, arg,
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        if rc != 0:
+            raise ValueError("FLAC: ran off bitstream (native)")
+        self.pos = bitpos.value
+        return out
 
     def read(self, n: int) -> int:
         if n == 0:
@@ -106,6 +176,8 @@ def _decode_rice_partition(br: _BitReader, n: int, k: int) -> np.ndarray:
     """
     if n <= 0:
         return np.zeros(0, np.int64)
+    if br.lib is not None:
+        return br._c_call(br.lib.flac_rice_decode, n, k)
     ones, bits = br.ones, br.bits
     start0 = br.pos
     stops = np.empty(n, np.int64)
@@ -142,13 +214,15 @@ def _read_signed_array(br: _BitReader, n: int, bits: int) -> np.ndarray:
     """n fixed-width signed values (verbatim / escaped partitions)."""
     if n <= 0 or bits == 0:
         return np.zeros(n, np.int64)
+    if br.lib is not None:
+        return br._c_call(br.lib.flac_read_signed, n, bits)
     out = np.empty(n, np.int64)
     for i in range(n):
         out[i] = br.read_signed(bits)
     return out
 
 
-def _predictor_restore(warm: np.ndarray, resid: np.ndarray,
+def _predictor_restore(br: _BitReader, warm: np.ndarray, resid: np.ndarray,
                        coeffs, shift: int, block_size: int) -> np.ndarray:
     """Reconstruct samples from warm-up + residual under an order-N
     predictor (shared by FIXED and LPC subframes)."""
@@ -157,6 +231,15 @@ def _predictor_restore(warm: np.ndarray, resid: np.ndarray,
     out[:order] = warm
     if order == 0:
         out[:] = resid
+        return out
+    if br.lib is not None:
+        import ctypes
+
+        out[order:] = resid
+        c = np.asarray(coeffs, np.int32)
+        br.lib.flac_lpc_restore(
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), block_size,
+            order, c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), shift)
         return out
     c = np.asarray(coeffs, np.int64)
     for i in range(order, block_size):
@@ -205,7 +288,7 @@ def _decode_subframe(br: _BitReader, block_size: int, bps: int) -> np.ndarray:
         order = stype - 8
         warm = _read_signed_array(br, order, bps)
         resid = _read_residual(br, block_size, order)
-        out = _predictor_restore(warm, resid, FIXED_COEFFS[order],
+        out = _predictor_restore(br, warm, resid, FIXED_COEFFS[order],
                                  0, block_size)
     elif stype >= 32:  # LPC, order 1..32
         order = stype - 31
@@ -218,7 +301,7 @@ def _decode_subframe(br: _BitReader, block_size: int, bps: int) -> np.ndarray:
             raise ValueError("FLAC: negative LPC shift")
         coeffs = [br.read_signed(precision) for _ in range(order)]
         resid = _read_residual(br, block_size, order)
-        out = _predictor_restore(warm, resid, coeffs, shift, block_size)
+        out = _predictor_restore(br, warm, resid, coeffs, shift, block_size)
     else:
         raise ValueError(f"FLAC: reserved subframe type {stype}")
 
@@ -341,3 +424,121 @@ def read_flac(path_or_bytes) -> Tuple[np.ndarray, int]:
         x = x[:, 0]
     return x, int(sr)
 
+
+# ---------------------------------------------------------------------------
+# Minimal encoder (verbatim / fixed-1+Rice) — for decoder round-trip tests
+# ---------------------------------------------------------------------------
+
+
+class _BitWriter:
+    def __init__(self):
+        self.bits: List[int] = []
+
+    def write(self, value: int, n: int) -> None:
+        for i in range(n - 1, -1, -1):
+            self.bits.append((value >> i) & 1)
+
+    def write_signed(self, value: int, n: int) -> None:
+        self.write(value & ((1 << n) - 1), n)
+
+    def write_unary(self, q: int) -> None:
+        self.bits.extend([0] * q)
+        self.bits.append(1)
+
+    def align(self) -> None:
+        while len(self.bits) % 8:
+            self.bits.append(0)
+
+    def tobytes(self) -> bytes:
+        self.align()
+        return np.packbits(np.array(self.bits, np.uint8)).tobytes()
+
+
+def _utf8_number(n: int) -> bytes:
+    if n < 0x80:
+        return bytes([n])
+    out = []
+    nbytes = 2
+    while n >= (1 << (6 * (nbytes - 1) + (7 - nbytes))):
+        nbytes += 1
+    first = (0xFF << (8 - nbytes)) & 0xFF
+    shift = 6 * (nbytes - 1)
+    out.append(first | (n >> shift))
+    for i in range(nbytes - 1):
+        shift -= 6
+        out.append(0x80 | ((n >> shift) & 0x3F))
+    return bytes(out)
+
+
+def write_flac(path: str, audio: np.ndarray, sr: int, bps: int = 16,
+               block_size: int = 4096, mode: str = "fixed1") -> None:
+    """Encode float [-1, 1] audio (T,) or (T, C) as FLAC.
+
+    mode='verbatim' stores raw samples; mode='fixed1' uses a first-order
+    fixed predictor with a single Rice partition (still lossless, ~40-60%
+    smaller on speech).  Exists mainly to test `read_flac`.
+    """
+    x = np.asarray(audio, np.float64)
+    if x.ndim == 1:
+        x = x[:, None]
+    T, C = x.shape
+    q = np.clip(np.round(x * (1 << (bps - 1))), -(1 << (bps - 1)),
+                (1 << (bps - 1)) - 1).astype(np.int64)
+
+    out = [b"fLaC"]
+    si = bytearray(34)
+    struct.pack_into(">HH", si, 0, block_size, block_size)
+    # min/max frame size left 0 (unknown)
+    packed = (sr << 44) | ((C - 1) << 41) | ((bps - 1) << 36) | T
+    si[10:18] = packed.to_bytes(8, "big")
+    out.append(bytes([0x80]) + len(si).to_bytes(3, "big") + bytes(si))
+
+    frames = []
+    for f0 in range(0, T, block_size):
+        blk = q[f0:f0 + block_size]
+        n = blk.shape[0]
+        hdr = _BitWriter()
+        hdr.write(0x3FFE, 14)
+        hdr.write(0, 1)
+        hdr.write(0, 1)      # fixed blocksize strategy
+        hdr.write(7, 4)      # block size: 16-bit at end
+        hdr.write(0, 4)      # sample rate: from STREAMINFO
+        hdr.write(C - 1, 4)  # independent channels
+        ss = {8: 1, 12: 2, 16: 4, 20: 5, 24: 6, 32: 7}[bps]
+        hdr.write(ss, 3)
+        hdr.write(0, 1)
+        hdr_bytes = hdr.tobytes() + _utf8_number(f0 // block_size)
+        hdr_bytes += struct.pack(">H", n - 1)
+        hdr_bytes += bytes([_crc8(hdr_bytes)])
+
+        body = _BitWriter()
+        for c in range(C):
+            ch = blk[:, c]
+            body.write(0, 1)
+            if mode == "verbatim" or n < 2:
+                body.write(1, 6)   # VERBATIM
+                body.write(0, 1)   # no wasted bits
+                for v in ch.tolist():
+                    body.write_signed(int(v), bps)
+            else:
+                body.write(9, 6)   # FIXED order 1
+                body.write(0, 1)
+                body.write_signed(int(ch[0]), bps)  # warmup
+                resid = ch[1:] - ch[:-1]
+                u = (np.abs(resid) << 1) - (resid < 0)
+                mean = max(1, int(u.mean()) if len(u) else 1)
+                k = min(14, max(0, int(mean).bit_length() - 1))
+                body.write(0, 2)   # rice method 0
+                body.write(0, 4)   # partition order 0
+                body.write(k, 4)
+                for r in resid.tolist():
+                    uu = (int(r) << 1) ^ (int(r) >> 63)
+                    body.write_unary(uu >> k)
+                    if k:
+                        body.write(uu & ((1 << k) - 1), k)
+        frame = hdr_bytes + body.tobytes()
+        frame += struct.pack(">H", _crc16(frame))
+        frames.append(frame)
+
+    with open(path, "wb") as f:
+        f.write(b"".join(out) + b"".join(frames))

@@ -25,7 +25,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..config import (CodecV1Config, CodecV2DecoderConfig, CodePredictorConfig,
+from ..config import (CodecV1Config, CodecV2Config, CodecV2DecoderConfig, CodePredictorConfig,
                       MimiEncoderConfig, SpeakerEncoderConfig, TalkerConfig)
 
 
@@ -524,3 +524,102 @@ TALKER_1B7 = TalkerConfig(
         num_hidden_layers=5, num_attention_heads=16, num_key_value_heads=8,
         head_dim=128, num_code_groups=16),
 )
+
+
+def codec12_tokenizer_checkpoint(cfg: CodecV2Config, seed: int):
+    """A 12 Hz tokenizer checkpoint directory's contents, random from a
+    seed: (config.json dict, flat numpy state dict) with `encoder.*`
+    (`mimi_encoder_state`) and `decoder.*` (`random_vocoder_params` drawn
+    on the CPU, its folded codebook table replaced by the raw split-RVQ
+    quantizer: cluster usage, embedding sums of codebook_dim / 2 and the
+    output projections, which both packages fold on load)."""
+    import dataclasses
+
+    from ..weights import flatten_state_dict
+
+    dec = cfg.decoder_config
+    rng = np.random.default_rng(seed)
+    vq_dim = dec.codebook_dim // 2
+
+    def rvq(n):
+        return {"output_proj": {"weight": _np_normal(rng, (dec.codebook_dim, vq_dim, 1),
+                                                     vq_dim ** -0.5)},
+                "vq": {"layers": {str(i): {"_codebook": {
+                    "cluster_usage": rng.uniform(0.5, 1.5, (dec.codebook_size,)).astype(np.float32),
+                    "embedding_sum": _np_normal(rng, (dec.codebook_size, vq_dim), 1.0)}}
+                    for i in range(n)}}}
+
+    raw = {k: v for k, v in random_vocoder_params(
+        dec, torch.Generator().manual_seed(seed)).items() if k != "_codebooks"}
+    raw["quantizer"] = {"rvq_first": rvq(1), "rvq_rest": rvq(dec.num_quantizers - 1)}
+    state = {k: np.asarray(v) for k, v in flatten_state_dict(raw, "decoder").items()}
+    state.update({k: np.asarray(v) for k, v in flatten_state_dict(
+        mimi_encoder_state(cfg.encoder_config, seed + 1), "encoder").items()})
+    return dataclasses.asdict(cfg), state
+
+
+def _rank_main(fn, rank: int, world: int, tmp: str, threads: int, args: tuple) -> None:
+    import os
+    import pickle
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(threads)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world, timeout=timedelta(seconds=300))
+    try:
+        out = ("ok", fn(rank, world, *args))
+    except BaseException:
+        out = ("error", traceback.format_exc())
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    if out[0] == "ok":
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, *args, timeout: float = 600.0, threads: int = 1) -> list:
+    """Run `fn(rank, world, *args)` in `world` fresh processes (the spawn
+    start method: a child imports only `fn`'s module and what it imports,
+    so a caller that has JAX loaded hands its ranks none of it), joined in
+    one gloo process group over a FileStore in a temporary directory (no
+    port, so parallel test workers never collide). Returns each rank's
+    picklable result in rank order; a rank that raises, or a run past
+    `timeout` seconds, fails the call with the ranks' tracebacks. `fn`
+    must be a module-level function; each rank runs `threads` CPU threads."""
+    import multiprocessing as mp
+    import os
+    import pickle
+    import tempfile
+    import time
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_rank_main, args=(fn, r, world, tmp, threads, args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        results, errors = [], []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            if not os.path.exists(path):
+                errors.append(f"rank {r}: no result (exit code {procs[r].exitcode})")
+                continue
+            with open(path, "rb") as f:
+                status, value = pickle.load(f)
+            if status == "ok":
+                results.append(value)
+            else:
+                errors.append(f"rank {r}:\n{value}")
+    if errors or hung:
+        raise RuntimeError(f"spawn_ranks({getattr(fn, '__name__', fn)}, {world}): "
+                           + ("timed out; " if hung else "") + "\n".join(errors))
+    return results

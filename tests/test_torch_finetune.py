@@ -319,10 +319,13 @@ def test_prepare_data_matches_jax(tmp_path):
     assert all(np.asarray(r["audio_codes"]).shape[1] == 4 for r in got)
 
 
-def test_sft_dp_tp_raise():
-    for flag in ("--dp", "--tp"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            tsft.main(["--init_model_path", "x", "--train_jsonl", "y", flag, "2"])
+@pytest.mark.parametrize("flags", [("--dp", "2"), ("--tp", "2"), ("--dp", "2", "--tp", "2")])
+def test_sft_dp_tp_must_equal_the_world_size(flags):
+    """Without a launcher the world is one rank: any --dp x --tp other than
+    1 raises before anything loads (tests/test_torch_parallel.py runs the
+    2-rank case)."""
+    with pytest.raises(ValueError, match="must equal the world size 1"):
+        tsft.main(["--init_model_path", "x", "--train_jsonl", "y", *flags])
 
 
 @pytest.fixture(scope="module")

@@ -154,8 +154,10 @@ def test_engine_cancel_quarantine_and_zero_budget(checkpoint):  # noqa: F811
     assert not eng._cancelled
     eng.submit(reqs[0])                # reusable once every chunk synced
     assert [c.request_id for c in eng.run_until_drained()] == [0]
-    with pytest.raises(NotImplementedError, match="parallel"):
-        _t_engine(tm, _greedy(tgen, TS), mesh=object())
+    # a mesh-sharded engine exists since the parallel slice (its checks:
+    # tests/test_torch_parallel.py); the fused step is refused under one
+    with pytest.raises(ValueError, match="mesh"):
+        _t_engine(tm, _greedy(tgen, TS, fused_talker_step=True), mesh=object())
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])
