@@ -165,7 +165,7 @@ def phase_profile(model, front, custom_voice_model) -> None:
         "stream custom_voice int8_kv": stream,
         "stream custom_voice int8_kv eager": eager(stream),
         "serve custom_voice int8_kv": lambda: serve(srv),
-        "serve custom_voice int8_kv eager": lambda: serve(srv_eager),
+        "serve custom_voice int8_kv eager": eager(lambda: serve(srv_eager)),
     }
     unprofiled = {}
     for name, fn in calls.items():

@@ -48,6 +48,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
    latency, packets, frames; the audio's samples must be the longest row's
    active frames x 1920; graphed against eager: the same chunks' codes and
    the same packets;
+   slice 10, `codec_graphs`: the vocoder's captured graphs
+   (`runtime/graphs.py` `CodecGraphs`) against the eager vocoder on the
+   same codes, on every route: whole-call decode (float32 and int16),
+   a stream's packet shapes, server egress at N in {1, 8} x F in {4, 25},
+   the first-packet extract: float samples within 1e-5, PCM16 and counts
+   equal, each graphed call one replay at least; device ms of each, graphed
+   and eager; the stream's wall split into frame loop, vocoder and rest;
 7. serving: a `TTSServer` (8 slots, kernel 2 in int8-KV mode) serves 12
    requests, half streamed, one cancelled mid-stream, one with a zero frame
    budget: every other request completes, the cancelled one yields nothing
@@ -58,10 +65,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
    on the plain route, then on kernel 2, requests/s and first-packet p50 of
    each; the server's default must be the route that wins both; a
    48-slot server (both kernels as row tiles) drains 52 requests;
+   slice 10, `server_warmup`: a fresh server's `TTSServer.warmup()`
+   (seconds, serve and vocoder graphs captured, pool bytes), after which
+   the 12-request mix must capture no graph; requests/s and first-packet
+   p50/p95 warmed and cold (a fresh server without it), and the mix's wall
+   split into frame loop, vocoder and rest;
    the graph layer: graphs captured and replayed, decode contexts, static
-   and pool bytes; an eviction of every context while a stream is held
-   after its first packet: a generate call re-captures and gives its
-   earlier codes, the held stream finishes with an uninterrupted stream's
+   and pool bytes, the vocoder's graphs; an eviction of every context
+   while a stream is held after its first packet: a generate call
+   re-captures and gives its earlier codes, the held stream finishes with an uninterrupted stream's
    codes; `warmup_model` over B in {1, 4} x prefill buckets {32, 64}, after
    which live calls of those shapes capture nothing; the front door:
    `ThreadedTTSServer` behind `_HttpDemo` on a localhost port, 8 concurrent
@@ -136,6 +148,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -170,6 +183,8 @@ CLONE_MAX_NEW_TOKENS = 48
 CLONE_STREAM_TEXT = CLONE_TEXT * 2
 # Serving: more requests than slots, so staging and installs mid-chunk run.
 SERVE_SLOTS, SERVE_REQUESTS = 8, 12
+CODEC_TOL = 1e-5              # the vocoder graphed against eager, float samples (max abs)
+CODEC_ITERS = 5
 # A streamed clone packet vocoded again from its own context and frames: the
 # same fp32 vocoder on a batch of one row instead of the server's batch
 # (cuDNN may pick other algorithms), so agreement to float noise; another
@@ -1335,25 +1350,41 @@ def serve_all(srv, submits, cancel_id=None) -> tuple:
     return events, first, time.time() - t0
 
 
-def _serve_run(model, eager: bool) -> dict:
+def _serve_run(model, eager: bool, warm: str = "request") -> dict:
     """One TTSServer over the custom-voice model on kernel 2's int8-KV mode,
     its serve chunks as graph replays (or, `eager`, the eager loop), warmed
-    with one streamed request, then the 12-request mix: more requests than
-    slots (staging and installs mid-chunk), half of them streamed, one
+    with one streamed request (`warm` "request"), with `TTSServer.warmup()`
+    ("warmup") or not at all (None), then the 12-request mix: more requests
+    than slots (staging and installs mid-chunk), half of them streamed, one
     cancelled mid-stream, one with a zero frame budget. Returns the checked
-    run's numbers and every request's codes (the server's code sink)."""
+    run's numbers, every request's codes (the server's code sink), the
+    graphs captured by the warm-up and by the mix, and the mix's device ms
+    in the frame loop's and the vocoder's graph calls (graphed runs). An
+    eager run runs wholly inside `graphs.eager()`."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    with graphs.eager() if eager else contextlib.nullcontext():
+        return _serve_run_in(model, eager, warm)
+
+
+def _serve_run_in(model, eager: bool, warm) -> dict:
     from qwen3_tts_tpu_torch.runtime import graphs
     from qwen3_tts_tpu_torch.runtime.server import AudioPacket, AudioResult, TTSServer
 
     codes = {}
-    with graphs.eager() if eager else contextlib.nullcontext():
-        srv = TTSServer(model, num_slots=SERVE_SLOTS, overrides=SERVE_OVERRIDES,
-                        max_new_tokens=MAX_NEW_TOKENS, seed=SEED,
-                        code_sink=lambda rid, fr: codes.setdefault(rid, []).extend(fr))
+    srv = TTSServer(model, num_slots=SERVE_SLOTS, overrides=SERVE_OVERRIDES,
+                    max_new_tokens=MAX_NEW_TOKENS, seed=SEED,
+                    code_sink=lambda rid, fr: codes.setdefault(rid, []).extend(fr))
     if (srv.engine._graphs is None) != eager:
         raise AssertionError(f"serve route: graphs {srv.engine._graphs}, eager={eager}")
-    serve_all(srv, [lambda: srv.submit_custom_voice("w", text=TEXTS[0], speaker="vivian",
-                                                    language="english", stream=True)])
+    warm0 = graphs.stats(model.device)
+    warm_s = None
+    if warm == "request":
+        serve_all(srv, [lambda: srv.submit_custom_voice("w", text=TEXTS[0], speaker="vivian",
+                                                        language="english", stream=True)])
+    elif warm == "warmup":
+        warm_s = srv.warmup()
+    warm1 = graphs.stats(model.device)
     ids = [f"r{i}" for i in range(SERVE_REQUESTS)]
     stream = {rid: i % 2 == 0 for i, rid in enumerate(ids)}
     zero, cancel = ids[1], ids[2]
@@ -1364,7 +1395,8 @@ def _serve_run(model, eager: bool) -> dict:
     stats0 = graphs.stats(model.device)
     reset_launches()
     torch.cuda.synchronize()
-    events, first, wall = serve_all(srv, submits, cancel_id=cancel)
+    with owner_device_ms() if not eager else contextlib.nullcontext({}) as split:
+        events, first, wall = serve_all(srv, submits, cancel_id=cancel)
     launches = read_launches()
     stats1 = graphs.stats(model.device)
     audio, done = 0, set()
@@ -1398,7 +1430,11 @@ def _serve_run(model, eager: bool) -> dict:
             "zero": zero, "codes": codes, "replays": replays,
             "captures": stats1["captures"] - stats0["captures"],
             "first_packet_p50": float(np.percentile(fp, 50)),
-            "first_packet_p95": float(np.percentile(fp, 95))}
+            "first_packet_p95": float(np.percentile(fp, 95)),
+            "warm_s": warm_s, "warm_captures": warm1["captures"] - warm0["captures"],
+            "warm_codec_graphs": warm1["codec_graphs"] - warm0["codec_graphs"],
+            "serve_graphs": 0 if eager else len(srv.engine._graphs.graphs),
+            "pool_bytes": warm1["pool_bytes"], "split": split}
 
 
 def phase_serve(model) -> dict:
@@ -1500,6 +1536,193 @@ def phase_serve_wide(model) -> dict:
          wall_s=f"{r['wall']:.3f}", requests_per_s=f"{r['requests_per_s']:.3f}",
          first_packet_p50_s=f"{r['first_packet_p50']:.3f}", launches=r["launches"])
     return r
+
+
+@contextlib.contextmanager
+def owner_device_ms():
+    """Device ms of the graph owners' calls inside the block, by CUDA events
+    around every `DecodeGraphs.run` and `ServeGraphs.chunk` ("frame_loop")
+    and `CodecGraphs.run` ("vocoder", inputs copied in and outputs out);
+    the dict yielded is filled when the block ends."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    events = {"frame_loop": [], "vocoder": []}
+    saved = []
+    for cls, name, owner in ((graphs.DecodeGraphs, "run", "frame_loop"),
+                             (graphs.ServeGraphs, "chunk", "frame_loop"),
+                             (graphs.CodecGraphs, "run", "vocoder")):
+        real = getattr(cls, name)
+
+        def timed_call(self, *a, real=real, owner=owner, **k):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real(self, *a, **k)
+            ev[1].record()
+            events[owner].append(ev)
+            return out
+
+        saved.append((cls, name, real))
+        setattr(cls, name, timed_call)
+    out = {}
+    try:
+        yield out
+    finally:
+        for cls, name, real in saved:
+            setattr(cls, name, real)
+    torch.cuda.synchronize()
+    out.update({k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()})
+    out["calls"] = {k: len(v) for k, v in events.items()}
+
+
+def split_fields(wall_s: float, split: dict) -> dict:
+    """A run's wall split into the frame loop's and the vocoder's graph
+    calls (device ms) and the rest (host scheduling, prefill, copies)."""
+    wall = wall_s * 1e3
+    return dict(wall_ms=f"{wall:.1f}", frame_loop_ms=f"{split['frame_loop']:.1f}",
+                vocoder_ms=f"{split['vocoder']:.1f}",
+                rest_ms=f"{wall - split['frame_loop'] - split['vocoder']:.1f}",
+                calls=split["calls"])
+
+
+def _aux_case(B: int, ticks: int, K: int, Qn: int, V: int, rng):
+    """A packed chunk aux (serve_chunk's layout) in which slot i holds
+    request 100 + i from tick i % 4 on, and the request ids to extract."""
+    frames = rng.integers(0, V, (B, ticks, Qn)).astype(np.int32)
+    req = np.full((B, ticks), -1, np.int32)
+    emit = np.zeros((B, ticks), np.int32)
+    for i in range(B):
+        req[i, i % 4:], emit[i, i % 4:] = 100 + i, 1
+    aux = np.concatenate([frames.reshape(-1), emit.reshape(-1), req.reshape(-1),
+                          np.zeros(B * ticks + 2 * K + B, np.int32)])
+    return aux, np.arange(100, 100 + B, dtype=np.int32)
+
+
+def phase_codec_graphs(model) -> dict:
+    """The vocoder's graphs against the eager vocoder (`graphs.eager()`) on
+    the same codes, on each route: whole-call decode (B=4, a first and a
+    steady chunk, float32 and int16), a stream's packet shapes (B=4, the
+    schedule 1, 2, 4, 8, 16, 25 with per-row contexts), server egress at N
+    in {1, 8} x F in {4, 25} (float32 and int16) and the first-packet
+    extract + vocoder (8 slots x 8 ticks, 8 rows). Float samples within
+    CODEC_TOL max abs, PCM16 samples and counts equal; every graphed call
+    must replay a graph. Each call's device ms graphed and eager (CUDA
+    events, CODEC_ITERS calls after one). Then the int8 stream's wall split
+    into frame loop, vocoder and the rest."""
+    from qwen3_tts_tpu_torch.models.codec12.decoder import chunked_decode
+    from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.runtime.server import _first_packet_vocode, _vocode_rows_compact
+    from qwen3_tts_tpu_torch.runtime.streaming import _vocode_slice
+
+    tok = model.speech_tokenizer
+    p, cfg = tok.dec_params, tok.config.decoder_config
+    dev = p["_codebooks"].device
+    Qn, V = cfg.num_quantizers, cfg.codebook_size
+    rng = np.random.default_rng(SEED + 10)
+
+    def codes(*shape):
+        return torch.from_numpy(rng.integers(0, V, shape).astype(np.int32))
+
+    cases = []   # (route, name, fn -> tuple of tensors)
+    whole = codes(4, Qn, tok.chunk_size + 36).to(dev, torch.long)
+    for pcm16 in (False, True):
+        cases.append(("decode", f"B=4,T={whole.shape[-1]},{'int16' if pcm16 else 'float32'}",
+                      lambda pcm16=pcm16: (chunked_decode(
+                          p, cfg, whole, chunk_size=tok.chunk_size,
+                          left_context_size=tok.left_context, pcm16=pcm16),)))
+    buf = codes(4, Qn, 64).to(dev, torch.long)
+    emitted = 0
+    for k in (1, 2, 4, 8, 16, 25):
+        ctx = torch.tensor([emitted, emitted, min(emitted, 3), 0])
+        cases.append(("stream", f"B=4,k={k},ctx_cap={min(25, emitted)}",
+                      lambda e=emitted, k=k, ctx=ctx: (_vocode_slice(p, cfg, buf, ctx, e, k,
+                                                                      min(25, e)),)))
+        emitted += k
+    for N in (1, 8):
+        for F_ in (4, 25):
+            c, x = codes(N, Qn, 25 + F_), torch.from_numpy(rng.integers(0, 26, N).astype(np.int32))
+            for pcm16 in (False, True):
+                cases.append(("egress", f"N={N},F={F_},{'int16' if pcm16 else 'float32'}",
+                              lambda c=c, x=x, F_=F_, pcm16=pcm16: (_vocode_rows_compact(
+                                  p, cfg, c, x, F_, pcm16=pcm16),)))
+    B, ticks = SERVE_SLOTS, 8
+    aux, rids = _aux_case(B, ticks, 2 * B, Qn, V, rng)
+    aux_dev = torch.from_numpy(aux).to(dev)
+    cases.append(("first_packet", f"B={B},ticks={ticks},N={len(rids)},F=4",
+                  lambda: _first_packet_vocode(p, cfg, aux_dev, torch.from_numpy(rids), B, ticks,
+                                               Qn, 4, 29)))
+    out = {}
+    with torch.no_grad():
+        for route, name, fn in cases:
+            s0 = graphs.stats(dev)
+            g = fn()
+            torch.cuda.synchronize()
+            replays = graphs.stats(dev)["replays"] - s0["replays"]
+            with graphs.eager():
+                e = fn()
+                eager_ms = cuda_ms(fn, CODEC_ITERS)
+            ms = cuda_ms(fn, CODEC_ITERS)
+            err, equal, exact = 0.0, True, True   # exact: the integer outputs
+            for a, b in zip(g, e):
+                if a.dtype.is_floating_point:
+                    err = max(err, max_abs(a, b))
+                    equal &= torch.equal(a, b)
+                else:
+                    exact &= torch.equal(a, b)
+            line(f"codec_graphs {route}", case=name, replays=replays, max_abs=f"{err:.3g}",
+                 equal=equal and exact, graph_ms=f"{ms:.3f}", eager_ms=f"{eager_ms:.3f}")
+            if replays <= 0:
+                raise AssertionError(f"codec_graphs {route} {name}: the graphed call replayed "
+                                     "no graph")
+            if err > CODEC_TOL or not exact:
+                raise AssertionError(f"codec_graphs {route} {name}: graphed and eager differ "
+                                     f"(max abs {err}, integer outputs equal {exact})")
+            out.setdefault(route, []).append({"case": name, "ms": ms, "eager_ms": eager_ms,
+                                              "max_abs": err, "equal": equal})
+        for _ in _stream(model):   # every graph of the stream's shapes captured
+            pass
+        with owner_device_ms() as split:
+            _, wall = timed(lambda: [w for w, _ in _stream(model)])
+    line("codec_graphs stream split", **split_fields(wall, split))
+    out["stream_split"] = (wall, split)
+    return out
+
+
+def phase_server_warmup(model) -> dict:
+    """A fresh int8 TTSServer at the smoke's serving configuration runs
+    `warmup()`: its seconds, the serve and vocoder graphs it captured and
+    the shared pool's bytes. Then the 12-request mix of `phase_serve` must
+    capture no graph of any owner. Each server starts after
+    `graphs.clear()` (no vocoder graph of an earlier phase); the second,
+    fresh, without the warm-up serves the same
+    mix: requests/s and first-packet p50 / p95 of both (printed, not
+    gated), and the warmed run's wall split into the frame loop, the
+    vocoder and the rest."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    # no graph of an earlier phase helps either server, and the pool's bytes
+    # after the warm-up are its own graphs' (earlier servers hold none)
+    graphs.clear(model.device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm = _serve_run(model, eager=False, warm="warmup")
+    line("server_warmup", seconds=f"{warm['warm_s']:.3f}",
+         graphs_captured=warm["warm_captures"], serve_graphs=warm["serve_graphs"],
+         codec_graphs=warm["warm_codec_graphs"],
+         pool_mib=f"{warm['pool_bytes'] / 2**20:.1f}", mix_graphs_captured=warm["captures"],
+         mix_graphs_replayed=warm["replays"])
+    if warm["captures"]:
+        raise AssertionError(f"the mix captured {warm['captures']} graphs after "
+                             "TTSServer.warmup()")
+    graphs.clear(model.device)
+    cold = _serve_run(model, eager=False, warm=None)
+    for name, r in (("warmed", warm), ("cold", cold)):
+        line(f"server_warmup {name}", requests=SERVE_REQUESTS, completed=len(r["done"]),
+             requests_per_s=f"{r['requests_per_s']:.3f}",
+             first_packet_p50_s=f"{r['first_packet_p50']:.3f}",
+             first_packet_p95_s=f"{r['first_packet_p95']:.3f}",
+             mix_graphs_captured=r["captures"])
+    line("server_warmup split", **split_fields(warm["wall"], warm["split"]))
+    return {"warm": warm, "cold": cold}
 
 
 def phase_serve_clone(model, front) -> None:
@@ -1708,8 +1931,10 @@ def phase_graph_memory(model, stream_codes) -> dict:
     st = graphs.stats(dev)
     line("graphs", captures=st["captures"], replays=st["replays"], contexts=st["contexts"],
          context_graphs=st["graphs"], static_mib=f"{st['static_bytes'] / 2**20:.1f}",
+         codec_graphs=st["codec_graphs"], codec_mib=f"{st['codec_bytes'] / 2**20:.1f}",
          pool_mib=f"{st['pool_bytes'] / 2**20:.1f}", max_contexts=graphs.MAX_CONTEXTS,
-         max_graphs_per_context=graphs.MAX_GRAPHS_PER_CONTEXT)
+         max_graphs_per_context=graphs.MAX_GRAPHS_PER_CONTEXT,
+         max_codec_graphs=graphs.MAX_CODEC_GRAPHS)
     specs = model._specs_custom_voice(TEXTS, "vivian", "english", None, True)
     kw = dict(max_new_tokens=MAX_NEW_TOKENS)
     first = frame_result(model, specs, **kw)
@@ -3037,9 +3262,11 @@ def run(cfg, device) -> list:
         model, model._specs_custom_voice(TEXTS, "vivian", "english", None, False),
         kv_quant=True, max_new_tokens=MAX_NEW_TOKENS), up, MAX_NEW_TOKENS - 1)
     stream_ab = phase_stream_ab(model)
+    phase_codec_graphs(model)
     phase_serve(model)
     phase_serve_routes(model)
     phase_serve_wide(model)
+    phase_server_warmup(model)
     phase_graph_memory(model, stream_ab["codes"])
     phase_warmup(model)
     phase_http(model)
@@ -3068,6 +3295,10 @@ def run(cfg, device) -> list:
         kv_quant=True, max_new_tokens=CLONE_MAX_NEW_TOKENS), up, CLONE_MAX_NEW_TOKENS - 1)
     phase_serve_clone(clone_model, front)
     del model, clone_model
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    graphs.clear()   # the decode contexts and vocoder graphs hold the models' weights
+    gc.collect()     # servers (engine <-> frame sink cycles) and their serve graphs
     torch.cuda.empty_cache()
     phase_0b6(device)
     phase_codec25(device)

@@ -8,8 +8,10 @@
   Whisper-VQ codes (T_i,), CAM++ x-vectors and reference mels
   (`models/codec25/model.py`).
 - `decode` takes the encode output, a dict or a list of dicts. 12 Hz: pads
-  the codes up to a multiple of the vocoder chunk, chunk-decodes and trims
-  each row to its own length. 25 Hz: pads codes with -1, stacks the
+  the codes up to a multiple of the vocoder chunk, chunk-decodes (on a CUDA
+  device each chunk one graph replay, PCM16 inside it when asked: the JAX
+  package's `_decode_compiled` and `to_pcm16`) and trims each row to its
+  own length. 25 Hz: pads codes with -1, stacks the
   x-vectors, pads the reference mels, runs the DiT sampler and BigVGAN; the
   sampler's noise is `noise=` or drawn from a generator seeded 0 (the JAX
   package draws `jax.random.PRNGKey(0)`, which torch cannot reproduce).
@@ -236,9 +238,8 @@ class Qwen3TTSTokenizer:
             wav = codec_decoder.chunked_decode(
                 self.dec_params, self.config.decoder_config,
                 torch.as_tensor(batch, device=device), chunk_size=self.chunk_size,
-                left_context_size=self.left_context, dtype=self._compute_dtype)
-            if out_np is np.int16:
-                wav = codec_decoder.to_pcm16(wav)
+                left_context_size=self.left_context, dtype=self._compute_dtype,
+                pcm16=out_np is np.int16)
         wav = wav[:, 0, :].cpu()
         wav = (wav.numpy() if out_np is np.int16 else wav.float().numpy())
         up = self.get_decode_upsample_rate()

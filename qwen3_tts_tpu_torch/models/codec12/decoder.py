@@ -8,6 +8,15 @@
   causal padding.
 - `chunked_decode` re-decodes `left_context` frames before each chunk and
   drops their samples, as the reference's chunked decode does.
+- `vocode_rows` vocodes a batch of rows, each with its own left context,
+  and cuts each row's new frames out on the device (the server's packet
+  egress and a stream's packet).
+
+On a CUDA device each chunk of `chunked_decode` (with its PCM16 cast) and
+each `vocode_rows` call is one replay of a captured CUDA graph
+(`runtime/graphs.py` `CodecGraphs`), the counterpart of the JAX package's
+one jitted program per shape; a padded call meets at most two chunk shapes,
+the first chunk and the steady one with its left context.
 
 These were XLA programs in the JAX package (no Pallas kernel), so plain
 torch carries them. In float32 the decoder turns TF32 off for cuDNN
@@ -24,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ...config import CodecV2DecoderConfig
+from ...runtime import graphs
 from ...ops.attention import attention, causal_mask
 from ...ops.conv import causal_conv1d, causal_conv_transpose1d, snake_beta
 from ...ops.norms import layer_norm, rms_norm
@@ -174,19 +184,51 @@ def to_pcm16(wav: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
 
 
+def _decode_chunk(params: Params, cfg: CodecV2DecoderConfig, codes: torch.Tensor,
+                  ctx: int, dtype, pcm16: bool) -> torch.Tensor:
+    wav = decode_frames(params, cfg, codes, dtype=dtype)[..., ctx * cfg.total_upsample:]
+    return to_pcm16(wav) if pcm16 else wav
+
+
 def chunked_decode(params: Params, cfg: CodecV2DecoderConfig, codes: torch.Tensor,
                    chunk_size: int = 300, left_context_size: int = 25,
-                   dtype=torch.float32) -> torch.Tensor:
+                   dtype=torch.float32, pcm16: bool = False) -> torch.Tensor:
     """Chunked decode: each chunk re-decodes `left_context_size` frames of
-    context and drops the corresponding samples."""
+    context and drops the corresponding samples; `pcm16`: int16 samples
+    (`to_pcm16`, inside each chunk's graph)."""
     total = codes.shape[-1]
-    up = cfg.total_upsample
     wavs = []
     start = 0
     while start < total:
         end = min(start + chunk_size, total)
         ctx = left_context_size if start - left_context_size > 0 else start
-        wav = decode_frames(params, cfg, codes[..., start - ctx:end], dtype=dtype)
-        wavs.append(wav[..., ctx * up:])
+        (wav,) = graphs.codec_call(
+            params, cfg, "chunk", (ctx, dtype), pcm16,
+            lambda c, ctx=ctx: (_decode_chunk(params, cfg, c, ctx, dtype, pcm16),),
+            codes[..., start - ctx:end])
+        wavs.append(wav)
         start = end
     return torch.cat(wavs, dim=-1)
+
+
+def cut_rows(params: Params, cfg: CodecV2DecoderConfig, codes: torch.Tensor,
+             ctx: torch.Tensor, F_: int, pcm16: bool = False) -> torch.Tensor:
+    """codes (N, Q, C + F_); ctx (N,) context frames per row. Vocode the
+    batch, then gather each row's emitted span [c*up, (c + F_)*up) on the
+    device, so only (N, F_*up) samples cross to the host (the JAX package's
+    `_vocode_rows_compact`)."""
+    wav = decode_frames(params, cfg, torch.clamp(codes.long(), min=0))[:, 0, :]
+    up = wav.shape[-1] // codes.shape[-1]
+    idx = ctx.long()[:, None] * up + torch.arange(F_ * up, device=wav.device)
+    out = torch.gather(wav, 1, idx)
+    return to_pcm16(out) if pcm16 else out
+
+
+def vocode_rows(params: Params, cfg: CodecV2DecoderConfig, codes: torch.Tensor,
+                ctx: torch.Tensor, F_: int, pcm16: bool = False) -> torch.Tensor:
+    """`cut_rows`; codes and ctx on the host or the device. On a CUDA device
+    one replay of the graph of (N, Q, C + F_, F_, pcm16)."""
+    (out,) = graphs.codec_call(params, cfg, "rows", (F_,), pcm16,
+                               lambda c, x: (cut_rows(params, cfg, c, x, F_, pcm16),),
+                               codes, ctx)
+    return out

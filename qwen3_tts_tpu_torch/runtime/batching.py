@@ -36,9 +36,16 @@
   the fused step with a mesh. Noise is drawn for the whole slot pool and
   each rank keeps its slots' rows.
 
-Not ported, being XLA compile plumbing: the AOT executable cache, the
-background prewarm of the next attend bucket, `warmup_serve` and
-`warmup_staging` (a serve graph is captured at its first use).
+- `warmup_serve` captures the serve graph of every attend bucket a live
+  engine can ask for, with and without installs, and `warmup_staging`
+  runs the staging prefill once per request-count bucket with all-invalid
+  rows (the counterparts of the JAX engine's AOT warm-up): a graph captured
+  at a live tick stalls every slot for its warm pass and capture.
+
+Not ported, being XLA compile plumbing: the AOT executable cache, and the
+background prewarm of the next attend bucket (`_prewarm_next_bucket`):
+after `warmup_serve` it is a no-op in the JAX engine too, and a capture on
+a worker thread would race the loop thread's replays.
 """
 
 from __future__ import annotations
@@ -61,7 +68,8 @@ from ..ops.sampling import SamplingParams, process_and_sample_rows
 from ..parallel.mesh import Mesh, all_reduce
 from ..weights import is_int8
 from . import graphs
-from .generate import GenerationConfig, attend_bucket_for, check_mesh_route, suppress_mask_for
+from .generate import (ATTEND_BUCKET, GenerationConfig, attend_bucket_for, check_mesh_route,
+                       suppress_mask_for)
 
 Params = Dict[str, Any]
 
@@ -672,6 +680,54 @@ class ContinuousBatchingEngine:
                            self.generator, torch.as_tensor(srows, device=self.device),
                            torch.as_tensor(ssrows, device=self.device), self.mesh)
         return n
+
+    def _attend_buckets(self) -> List[int]:
+        """Every attend bucket a live engine can ask for: the multiples of
+        ATTEND_BUCKET below max_len, then max_len."""
+        return list(range(ATTEND_BUCKET, self.max_len, ATTEND_BUCKET)) + [self.max_len]
+
+    def warmup_serve(self, verbose: bool = False) -> float:
+        """Capture the serve graph of every attend bucket, with installs and
+        without, before traffic (the JAX engine compiles each bucket's
+        executable here). Where ticks run eagerly (the CPU, `graphs.eager()`,
+        a mesh) there is nothing to capture. Returns its seconds."""
+        t0 = _time.time()
+        if self._graphs is not None:
+            with torch.no_grad():
+                for a in self._attend_buckets():
+                    for install in (False, True):
+                        self._graphs.graph(a, install, self.generator)
+                    if verbose:
+                        print(f"[engine.warmup] attend={a} captured at "
+                              f"{_time.time() - t0:.1f}s", flush=True)
+        return _time.time() - t0
+
+    def warmup_staging(self, buckets=(1, 2, 4, 8, 16)) -> None:
+        """Run the staging prefill once per request-count bucket up to
+        staging_rows, with all-invalid rows (request id -1, valid 0): nothing
+        is merged and the slot state is untouched, but the prefill's
+        first-use costs (cuBLAS, the flash plan, the kernels' launch state)
+        are paid. Like the JAX engine's, each call draws from the engine's
+        generator. Unlike it, the pad embedding the engine installs stays
+        the first request's: the JAX engine keeps the zero pad it warmed
+        with for every later request."""
+        Lp, H, Tt = self.prefill_bucket, self.cfg.hidden_size, self.max_trailing
+
+        def z(*shape, dt=self.dtype):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        for nb in buckets:
+            if nb > self.staging_rows:
+                continue
+            meta = np.zeros((nb, 5), np.int32)
+            meta[:, 0] = -1
+            rows = z(nb, 5, dt=torch.float32)
+            with torch.no_grad():
+                stage_requests(self.params, self.cfg, self.state, self.gen_cfg, z(nb, Lp, H),
+                               z(nb, Lp, dt=torch.int32), z(nb, Tt, H), meta, z(1, 1, H),
+                               self.generator, rows, rows, self.mesh)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _next_ticks(self) -> int:
         """Chunk length: `ticks_per_sync` under queue pressure (after the

@@ -1,14 +1,17 @@
-"""Captured CUDA graphs of the frame loop: the port's counterpart of
-`qwen3_tts_tpu/runtime/jit_options.py::decode_jit`.
+"""Captured CUDA graphs of the frame loop and the vocoder: the port's
+counterpart of `qwen3_tts_tpu/runtime/jit_options.py::decode_jit` and of
+the vocoder's jitted programs.
 
 The JAX package compiles the frame loop into one device program per set of
 static arguments (`decode_jit` over `_decode_chunk`'s scan and
 `_generate_frames`' while_loop, keyed by cfg, gen_cfg, num_frames and
-attend_len). Eager PyTorch launches every operation of every frame from the
-host instead. Here the frames of a chunk are captured once as a
-`torch.cuda.CUDAGraph`, keyed the same way, and replayed with one launch.
+attend_len), and each vocoder call into one program per shape. Eager
+PyTorch launches every operation from the host instead (~600 for one
+vocoder call). Here the frames of a chunk, and each vocoder call, are
+captured once as a `torch.cuda.CUDAGraph`, keyed the same way, and
+replayed with one launch.
 
-Two owners of graphs:
+Three owners of graphs:
 - `DecodeGraphs`, a graph context of the batch generators and the streaming
   session: the static buffers of one decode shape (the weights, the talker
   config, gen_cfg.canonical() with its fused flags and KV mode, the batch B,
@@ -21,7 +24,20 @@ Two owners of graphs:
   lives on, buffers and graphs, for as long as its state does.
 - `ServeGraphs`, the one-tick graphs of one continuous-batching engine over
   the engine's own `SlotState`, keyed by (attend_len, install): at most
-  2 * ceil(max_len / ATTEND_BUCKET) graphs, freed with the engine.
+  2 * ceil(max_len / ATTEND_BUCKET) graphs, freed with the engine;
+  `ContinuousBatchingEngine.warmup_serve` captures them all.
+- `CodecGraphs`, one per device: the 12 Hz vocoder's programs (the JAX
+  package's `decode_frames_jit`, `_vocode_rows_compact`, `_vocode_slice`
+  and the first-packet extract), each graph keyed by the decoder params'
+  identity, the decoder config, the program ("chunk": one chunk of
+  `chunked_decode`; "rows": rows vocoded and cut at their context, the
+  server's egress and a stream's packet; "extract+rows": the server's first
+  packet), its static arguments, pcm16 and the inputs' shapes and dtypes.
+  Each holds static input buffers, which a call fills (a host input from
+  pinned memory, a device one by a device copy) before the replay, and
+  its output buffers, which the call copies out under the lock. At most
+  MAX_CODEC_GRAPHS a device, least recently used first out. The vocoder
+  draws no random numbers: its graphs register no generator.
 
 Every capture:
 - runs one eager warm-up pass on the device's side stream first (PyTorch's
@@ -32,9 +48,9 @@ Every capture:
   thread doing host work cannot break it), into the device's one memory
   pool, which every graph of the device shares;
 - draws its sampling noise from the device's private generator, registered
-  with every graph; a replay copies the caller's generator state in and the
-  advanced state back, so a graph draws the numbers the eager loop draws
-  from the same state;
+  with every graph of the frame loop; a replay copies the caller's
+  generator state in and the advanced state back, so a graph draws the
+  numbers the eager loop draws from the same state;
 - pins the kernel wrappers' `LaunchState`s it used for the graph's life
   (`build.pin`), and counts each kernel launch it holds once per replay in
   the wrapper's launch counter (the capture itself launches nothing);
@@ -44,9 +60,9 @@ callers on several threads (the demo's static path) interleave whole
 replays: a replay owns the device's private generator from the copy in to
 the copy out.
 
-`eager()` turns the graphs off, so that one process can run the graphed and
-the eager loop side by side (the smoke's and the profiler's A/B). No
-configuration, CLI flag or server option selects it.
+`eager()` turns the graphs off, the vocoder's too, so that one process can
+run the graphed and the eager loop side by side (the smoke's and the
+profiler's A/B). No configuration, CLI flag or server option selects it.
 """
 
 from __future__ import annotations
@@ -65,6 +81,7 @@ from ..ops.cuda import build
 MAX_CONTEXTS = 8               # decode graph contexts per device
 MAX_CONTEXT_BYTES = 8 << 30    # their static buffers, KV caches included
 MAX_GRAPHS_PER_CONTEXT = 32
+MAX_CODEC_GRAPHS = 64          # vocoder graphs per device
 _SMALL = ("code0", "last_hidden", "presence", "done", "lengths", "t")
 _EAGER = [False]
 _LOCK = threading.RLock()
@@ -72,8 +89,8 @@ _LOCK = threading.RLock()
 
 @contextlib.contextmanager
 def eager():
-    """Run the frame loop eagerly on a CUDA device inside the block (A/B
-    measurements of the graphed loop against the eager one)."""
+    """Run the frame loop and the vocoder eagerly on a CUDA device inside
+    the block (A/B measurements of the graphs against the eager code)."""
     prev = _EAGER[0]
     _EAGER[0] = True
     try:
@@ -83,7 +100,7 @@ def eager():
 
 
 def enabled(device) -> bool:
-    """Whether the frame loop on `device` runs as graphs."""
+    """Whether the frame loop and the vocoder on `device` run as graphs."""
     return torch.device(device).type == "cuda" and not _EAGER[0]
 
 
@@ -108,7 +125,7 @@ def _add_counts(delta, sign: int = 1) -> None:
 
 class _Device:
     """Per-device graph state: the memory pool, the capture stream, the
-    private generator and the decode contexts."""
+    private generator, the decode contexts and the vocoder's graphs."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -116,6 +133,7 @@ class _Device:
         self.stream = torch.cuda.Stream(device)
         self.gen = torch.Generator(device=device)
         self.contexts: "OrderedDict[int, DecodeGraphs]" = OrderedDict()
+        self.codec = CodecGraphs(self)
         self.captures = 0
         self.replays = 0
 
@@ -141,11 +159,13 @@ class _Graph:
         self.states = states
         weakref.finalize(self, build.pin(states))
 
-    def replay(self, dev: _Device, generator: torch.Generator) -> None:
+    def replay(self, dev: _Device, generator: Optional[torch.Generator]) -> None:
         with _LOCK:
-            dev.gen.set_state(generator.get_state())
+            if generator is not None:
+                dev.gen.set_state(generator.get_state())
             self.graph.replay()
-            generator.set_state(dev.gen.get_state())
+            if generator is not None:
+                generator.set_state(dev.gen.get_state())
             _add_counts(self.launches)
             dev.replays += 1
 
@@ -267,30 +287,34 @@ class DecodeGraphs:
         return g
 
 
-def capture(dev: _Device, generator: torch.Generator, warm, body) -> _Graph:
+def capture(dev: _Device, generator: Optional[torch.Generator], warm, body) -> _Graph:
     """`warm(gen)` eagerly on the device's side stream, then `body(gen)`
     captured there; `gen` is the device's private generator, set from
-    `generator`'s state."""
-    gd = torch.device(generator.device)
-    if gd.type != "cuda" or (gd.index if gd.index is not None
-                             else torch.cuda.current_device()) != dev.device.index:
-        raise ValueError(f"the sampling generator is on {generator.device}; the graphs "
-                         f"of {dev.device} draw from a generator on that device")
+    `generator`'s state (None: a graph that draws no random numbers)."""
+    gen = None if generator is None else dev.gen
+    if generator is not None:
+        gd = torch.device(generator.device)
+        if gd.type != "cuda" or (gd.index if gd.index is not None
+                                 else torch.cuda.current_device()) != dev.device.index:
+            raise ValueError(f"the sampling generator is on {generator.device}; the graphs "
+                             f"of {dev.device} draw from a generator on that device")
     with _LOCK:
         cur = torch.cuda.current_stream(dev.device)
         dev.stream.wait_stream(cur)
         with torch.cuda.stream(dev.stream):
-            dev.gen.set_state(generator.get_state())
-            warm(dev.gen)
+            if gen is not None:
+                gen.set_state(generator.get_state())
+            warm(gen)
         cur.wait_stream(dev.stream)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(dev.gen)
+        if gen is not None:
+            graph.register_generator_state(gen)
         before = _read_counts()
         try:
             with build.pinning() as used:
                 with torch.cuda.graph(graph, pool=dev.pool, stream=dev.stream,
                                       capture_error_mode="thread_local"):
-                    body(dev.gen)
+                    body(gen)
         finally:
             delta = [a - b for a, b in zip(_read_counts(), before)]
             _add_counts(delta, -1)   # a capture records launches; it makes none
@@ -359,16 +383,23 @@ class ServeGraphs:
         st = self.state
         for t in self.outs:
             t.zero_()
-        key = (attend_len, bool(install))
+        g = self.graph(attend_len, install, generator)
         for _ in range(min(n_ticks, self.ticks)):
-            g = self.graphs.get(key)
-            if g is None:
-                g = self.graphs[key] = self._capture(attend_len, bool(install), generator)
             g.replay(self.dev, generator)
         fb, eb, rb, db, _ = self.outs
         return torch.cat([fb.reshape(-1), eb.reshape(-1), rb.reshape(-1), db.reshape(-1),
                           st.staged_valid.to(torch.int32), st.staged_req_id.to(torch.int32),
                           st.t.to(torch.int32)])
+
+    def graph(self, attend_len: int, install: bool, generator: torch.Generator) -> _Graph:
+        """The one-tick graph of (attend_len, install), captured if absent
+        (at a live tick, or ahead of traffic by the engine's
+        `warmup_serve`)."""
+        key = (attend_len, bool(install))
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._capture(attend_len, bool(install), generator)
+        return g
 
     def _capture(self, attend_len: int, install: bool, generator) -> _Graph:
         from .batching import serve_step
@@ -397,9 +428,77 @@ class ServeGraphs:
         return capture(self.dev, generator, warm, lambda gen: body(self.state, self.outs, gen))
 
 
+class _CodecGraph:
+    """One captured vocoder graph: its static inputs and outputs, and the
+    decoder params it reads (held, so that their identity in its key
+    stays theirs)."""
+
+    def __init__(self, params, inputs: tuple, outputs: tuple, graph: _Graph):
+        self.params, self.inputs, self.outputs, self.graph = params, inputs, outputs, graph
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.inputs + self.outputs)
+
+
+class CodecGraphs:
+    """The vocoder's graphs of one device (see the module docstring)."""
+
+    def __init__(self, dev: _Device):
+        self.dev = dev
+        self.graphs: "OrderedDict[tuple, _CodecGraph]" = OrderedDict()
+
+    def run(self, params, cfg, program: str, static: tuple, pcm16: bool, body,
+            inputs: tuple) -> tuple:
+        """`body(*inputs)` as a replay of its graph, captured at the first
+        call of its key; returns copies of the graph's outputs."""
+        key = (id(params), cfg, program, static, bool(pcm16),
+               tuple((tuple(x.shape), x.dtype) for x in inputs))
+        with _LOCK:
+            g = self.graphs.get(key)
+            if g is None:
+                g = self._capture(params, body, inputs)
+                self.graphs[key] = g
+                while len(self.graphs) > MAX_CODEC_GRAPHS:
+                    self.graphs.popitem(last=False)
+            else:
+                self.graphs.move_to_end(key)
+                self._load(g.inputs, inputs)
+            g.graph.replay(self.dev, None)
+            return tuple(o.clone() for o in g.outputs)
+
+    @staticmethod
+    def _load(bufs: tuple, inputs: tuple) -> None:
+        for buf, x in zip(bufs, inputs):
+            buf.copy_(x if x.is_cuda else x.pin_memory(), non_blocking=True)
+
+    def _capture(self, params, body, inputs: tuple) -> _CodecGraph:
+        dev = self.dev.device
+        bufs = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs)
+        self._load(bufs, inputs)
+        outs = []
+        g = capture(self.dev, None, lambda _: body(*bufs), lambda _: outs.extend(body(*bufs)))
+        return _CodecGraph(params, bufs, tuple(outs), g)
+
+
+def codec_call(params, cfg, program: str, static: tuple, pcm16: bool, body, *inputs) -> tuple:
+    """`body(*inputs)` -> a tuple of tensors, one of the vocoder's programs
+    over the decoder params `params` (config `cfg`; `program`, `static` and
+    `pcm16` name it, see the module docstring). Inputs may lie on the host
+    or on the params' device. On a CUDA device (outside `eager()`) one
+    replay of the program's graph; elsewhere `body` on the inputs moved to
+    the params' device."""
+    device = params["_codebooks"].device
+    if not enabled(device):
+        return body(*(x.to(device) for x in inputs))
+    with _LOCK:
+        codec = _device(device).codec
+    return codec.run(params, cfg, program, static, pcm16, body, inputs)
+
+
 def stats(device) -> dict:
-    """Graphs captured and replayed on `device` so far, decode contexts and
-    their graphs, their static bytes, and the bytes of the shared pool."""
+    """Graphs captured and replayed on `device` so far (every owner), decode
+    contexts and their graphs, their static bytes, the vocoder's graphs and
+    their static bytes, and the bytes of the shared pool."""
     device = torch.device(device)
     dev = None
     if device.type == "cuda":
@@ -407,10 +506,12 @@ def stats(device) -> dict:
                            else device.index)
     if dev is None:
         return {"captures": 0, "replays": 0, "contexts": 0, "graphs": 0, "static_bytes": 0,
-                "pool_bytes": 0}
+                "codec_graphs": 0, "codec_bytes": 0, "pool_bytes": 0}
     return {"captures": dev.captures, "replays": dev.replays, "contexts": len(dev.contexts),
             "graphs": sum(len(c.graphs) for c in dev.contexts.values()),
             "static_bytes": sum(c.nbytes() for c in dev.contexts.values()),
+            "codec_graphs": len(dev.codec.graphs),
+            "codec_bytes": sum(g.nbytes() for g in dev.codec.graphs.values()),
             "pool_bytes": pool_bytes(dev)}
 
 
@@ -422,9 +523,10 @@ def pool_bytes(dev: _Device) -> int:
 
 
 def clear(device=None) -> None:
-    """Drop every decode context of `device` (every device: None) from the
-    LRU. A context a live decode state still uses lives on until that state
-    goes."""
+    """Drop every decode context and vocoder graph of `device` (every
+    device: None). A context a live decode state still uses lives on until
+    that state goes."""
     for index, dev in list(_DEVICES.items()):
         if device is None or torch.device(device).index in (None, index):
             dev.contexts.clear()
+            dev.codec.graphs.clear()

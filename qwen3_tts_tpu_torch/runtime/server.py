@@ -18,6 +18,10 @@
 - Voice-clone requests carry their reference codes as their own vocoder
   left context; non-streaming clones decode with the reference codes
   prepended and the same share of samples cut off the front.
+- On a CUDA device every vocoder call (egress, first packet, completion
+  decode) is one replay of a captured graph (`runtime/graphs.py`
+  `CodecGraphs`), and `warmup()` captures every graph the server can ask
+  for, the engine's serve ticks among them, before traffic arrives.
 
 `ThreadedTTSServer` is the thread-safe wrapper for HTTP handlers: producer
 threads submit and wait on per-request queues, one loop thread owns the
@@ -35,9 +39,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.codec12.decoder import decode_frames, to_pcm16
+from ..models.codec12.decoder import cut_rows, vocode_rows
+from . import graphs
 from .batching import ContinuousBatchingEngine, Request
 from .generate import GenerationConfig
+
+
+# the largest completion-decode batch `TTSServer.warmup` captures: at the
+# default 300-frame chunk one fp32 activation of the vocoder's last block
+# takes ~0.24 GB a row, so larger batches, met only when more than 16
+# non-streamed requests finish in one step, are captured at first use
+WARM_DECODE_ROWS = 16
 
 
 @dataclass
@@ -112,16 +124,23 @@ def _first_packet_extract(aux: torch.Tensor, rids: torch.Tensor, B: int, ticks: 
     return codes, count
 
 
-def _vocode_rows_compact(dec_params, cfg, codes: torch.Tensor, ctx: torch.Tensor,
-                         F_: int, pcm16: bool = False) -> torch.Tensor:
-    """codes (N, Q, C + F_); ctx (N,) context frames per row. Vocode the
-    batch, then gather each row's emitted span [c*up, (c + F_)*up) on the
-    device, so only (N, F_*up) samples cross to the host."""
-    wav = decode_frames(dec_params, cfg, torch.clamp(codes.long(), min=0))[:, 0, :]
-    up = wav.shape[-1] // codes.shape[-1]
-    idx = ctx.long()[:, None] * up + torch.arange(F_ * up, device=wav.device)
-    out = torch.gather(wav, 1, idx)
-    return to_pcm16(out) if pcm16 else out
+# packet egress, (N, Q, C + F_) codes and (N,) contexts on the host or the
+# device: the JAX package's name for `vocode_rows`
+_vocode_rows_compact = vocode_rows
+
+
+def _first_packet_vocode(dec_params, cfg, aux: torch.Tensor, rids: torch.Tensor, B: int,
+                         ticks: int, Q: int, F_: int, T: int, pcm16: bool = False):
+    """`_first_packet_extract`, then its rows vocoded with no context
+    (`cut_rows`): (wav (N, F_*up), counts (N,)). On a CUDA device one replay
+    of the graph of (B, ticks, Q, F_, T, N, pcm16), which reads the chunk's
+    aux through a static buffer filled by a device copy."""
+    def body(aux, rids):
+        codes, counts = _first_packet_extract(aux, rids, B, ticks, Q, F_, T)
+        return cut_rows(dec_params, cfg, codes, torch.zeros_like(counts), F_, pcm16), counts
+
+    return graphs.codec_call(dec_params, cfg, "extract+rows", (B, ticks, Q, F_, T), pcm16,
+                             body, aux, rids)
 
 
 class TTSServer:
@@ -189,6 +208,70 @@ class TTSServer:
         self._by_user_id: Dict[Any, int] = {}
         self._next_rid = 0
         self._Q = model.config.talker_config.num_code_groups
+
+    # -- warm-up ---------------------------------------------------------
+
+    def egress_shapes(self) -> List[tuple]:
+        """(rows, frames) of every packet-egress vocoder call: the row
+        buckets (powers of two below num_slots, then num_slots) times the
+        frame buckets {_frame_bucket(1), _frame_bucket(packet_frames)}."""
+        rows = sorted({self._row_bucket(n) for n in range(1, self.num_slots + 1)})
+        frames = sorted({self._frame_bucket(1), self._frame_bucket(self.packet_frames)})
+        return [(n, f) for n in rows for f in frames]
+
+    def warmup(self, verbose: bool = False) -> float:
+        """Pay the serving path's first-use costs before live traffic does
+        (the JAX package's `TTSServer.warmup`, in its order): every serve
+        tick graph (`engine.warmup_serve`), the staging prefill of each
+        request-count bucket (`engine.warmup_staging`), the egress vocoder
+        of every `egress_shapes()` entry and, with `fast_first_packet`, the
+        first-packet extract of every row bucket; then, where the JAX server
+        leaves it to the first completion, the completion decode of every
+        power-of-two batch up to num_slots (at most WARM_DECODE_ROWS) at both
+        chunk shapes. On a CUDA device each of these is captured as a graph,
+        so that traffic captures none (a capture at a live tick stalls every
+        slot); on the CPU the same calls run eagerly and capture nothing.
+        Call it on the thread that drives the server: a `ThreadedTTSServer`'s
+        loop thread owns all CUDA work, so warm the `TTSServer` before
+        wrapping it. Returns its seconds."""
+        t0 = time.time()
+        self.engine.warmup_serve(verbose=verbose)
+        self.engine.warmup_staging()
+        pcm16 = self.output_dtype == "int16"
+        Q, lc = self._Q, self.left_context
+        with torch.no_grad():
+            for N, F_ in self.egress_shapes():
+                _vocode_rows_compact(self.dec_params, self.dec_cfg,
+                                     torch.zeros((N, Q, lc + F_), dtype=torch.int32),
+                                     torch.zeros((N,), dtype=torch.int32), F_, pcm16=pcm16)
+                if verbose:
+                    print(f"[server.warmup] vocode N={N} F={F_} done at "
+                          f"{time.time() - t0:.1f}s", flush=True)
+            if self.fast_first_packet:
+                eng = self.engine
+                B, ticks, K = eng.num_slots, eng.ticks_per_sync, eng.staging_rows
+                n_bt = B * ticks
+                aux = torch.zeros((n_bt * Q + 3 * n_bt + 2 * K + B,), dtype=torch.int32,
+                                  device=eng.device)
+                F_ = self._frame_bucket(1)
+                for N in sorted({n for n, _ in self.egress_shapes()}):
+                    _first_packet_vocode(self.dec_params, self.dec_cfg, aux,
+                                         torch.full((N,), -1, dtype=torch.int32), B, ticks,
+                                         Q, F_, lc + F_, pcm16=pcm16)
+        tok = self.model.speech_tokenizer
+        frames = np.zeros((tok.chunk_size + 1, Q), np.int64)   # the first and a steady chunk
+        nb = 1
+        while True:
+            tok.decode([{"audio_codes": frames}] * nb, output_dtype=self.output_dtype)
+            if verbose:
+                print(f"[server.warmup] decode batch {nb} done at {time.time() - t0:.1f}s",
+                      flush=True)
+            if nb >= min(self.num_slots, WARM_DECODE_ROWS):
+                break
+            nb <<= 1
+        if self.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.engine.device)
+        return time.time() - t0
 
     # -- submission ------------------------------------------------------
 
@@ -349,7 +432,6 @@ class TTSServer:
     def _emit_packets(self) -> List[AudioPacket]:
         """Vocode every due stream in one call per wave of rows."""
         out: List[AudioPacket] = []
-        dev = self.dec_params["_codebooks"].device
         while True:
             due = [st for st in self._states.values() if self._due(st)]
             if not due:
@@ -370,9 +452,8 @@ class TTSServer:
                 ctx[i] = c
             with self.metrics.time("server.vocode_s"), torch.no_grad():
                 wav = self._to_host(_vocode_rows_compact(
-                    self.dec_params, self.dec_cfg, torch.as_tensor(batch, device=dev),
-                    torch.as_tensor(ctx, device=dev), F_,
-                    pcm16=self.output_dtype == "int16"))
+                    self.dec_params, self.dec_cfg, torch.from_numpy(batch),
+                    torch.from_numpy(ctx), F_, pcm16=self.output_dtype == "int16"))
             now = None
             for i, (st, c, k) in enumerate(meta):
                 final = st.done and self._pending(st) == k
@@ -401,13 +482,10 @@ class TTSServer:
         arr[:len(rids)] = rids
         F_ = self._frame_bucket(1)
         with torch.no_grad():
-            codes, counts = _first_packet_extract(
-                aux, torch.as_tensor(arr, device=aux.device), self.engine.num_slots,
-                self.engine.ticks_per_sync, self._Q, F_, self.left_context + F_)
-            wav = _vocode_rows_compact(self.dec_params, self.dec_cfg, codes,
-                                       torch.zeros((N,), dtype=torch.int32,
-                                                   device=aux.device),
-                                       F_, pcm16=self.output_dtype == "int16")
+            wav, counts = _first_packet_vocode(
+                self.dec_params, self.dec_cfg, aux, torch.from_numpy(arr),
+                self.engine.num_slots, self.engine.ticks_per_sync, self._Q, F_,
+                self.left_context + F_, pcm16=self.output_dtype == "int16")
         return rids, wav, counts
 
     def _emit_fast_first(self, rids, wav_dev, counts_dev) -> List[AudioPacket]:
@@ -543,7 +621,9 @@ class TTSServer:
 class ThreadedTTSServer:
     """Thread-safe wrapper: producers submit from any thread; one loop
     thread owns the server and all of its CUDA work (prefill, graph capture
-    and replay, the vocoder) and fans events out to per-request queues.
+    and replay, the vocoder) and fans events out to per-request queues. The
+    loop starts with the wrapper, so call `TTSServer.warmup()` before
+    wrapping the server.
 
     Usage (blocking):      wav, sr = srv.synthesize(task, **kwargs)
     Usage (streaming):     for pkt in srv.synthesize_stream(task, **kwargs)

@@ -13,7 +13,9 @@ vocoding (counterpart of `qwen3_tts_tpu/runtime/streaming.py`).
 - The vocoder re-decodes up to 25 frames of left context per chunk, the
   reference's chunked-decode approximation at streaming granularity, with
   PER-ROW context so a batch mixing voice-clone rows (reference codes as
-  context) and context-free rows keeps each row's own.
+  context) and context-free rows keeps each row's own. On a CUDA device a
+  packet's vocoder is one graph replay per (B, k, context cap): the
+  schedule meets a handful of shapes.
 - The code history stays on the model's device; one device-to-host copy
   per packet carries its audio.
 """
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from ..config import CodecV2DecoderConfig, TalkerConfig
-from ..models.codec12.decoder import decode_frames
+from ..models.codec12.decoder import vocode_rows
 from ..utils.metrics import global_metrics
 from .generate import (GenerationConfig, attend_bucket_for, decode_chunk,
                        init_decode_state, kv_capacity)
@@ -64,17 +66,16 @@ def _vocode_slice(p: Params, cfg: CodecV2DecoderConfig, codes_buf: torch.Tensor,
     left-aligned as [c_b context | k new | tail], the batch is vocoded in
     one call (width ctx_cap + k; the vocoder is causal, so the tail never
     reaches the emitted samples), and the k frames' samples are cut per row
-    at c_b. Returns (B, k * upsample)."""
+    at c_b: `vocode_rows`, on a CUDA device one replay of the graph of (B,
+    ctx_cap + k, k), which the rows and their contexts enter as device
+    tensors. Returns (B, k * upsample)."""
     B, Q, T = codes_buf.shape
-    up = cfg.total_upsample
     dev = codes_buf.device
     c = torch.clamp(ctx_lens.to(device=dev, dtype=torch.long), max=ctx_cap)
     idx = torch.clamp((emit_start - c)[:, None] + torch.arange(ctx_cap + k, device=dev),
                       0, T - 1)
     chunk = torch.gather(codes_buf, 2, idx[:, None, :].expand(B, Q, -1))
-    wav = decode_frames(p, cfg, torch.clamp(chunk, min=0))[:, 0]
-    sidx = c[:, None] * up + torch.arange(k * up, device=dev)
-    return torch.gather(wav, 1, sidx)
+    return vocode_rows(p, cfg, chunk.to(torch.int32), c.to(torch.int32), k)
 
 
 class StreamingSession:

@@ -5,9 +5,14 @@ The JAX package compiles its generation programs at first use; a server
 calls `warmup_model` once at startup so that live traffic only hits the jit
 cache. The port's first-use costs are the kernels' nvcc build (the first
 launch builds the library from csrc/), the capture of the frame loop's CUDA
-graphs of each (batch, prefill bucket) (runtime/graphs.py) and cuDNN's
-choice of convolution for the vocoder. The graphs live in a bounded LRU
+graphs of each (batch, prefill bucket) and of the vocoder's whole-call
+decode graphs of each batch (runtime/graphs.py), and cuDNN's choice of
+convolution for the vocoder. The decode contexts live in a bounded LRU
 (graphs.MAX_CONTEXTS), so warm at most that many (batch, bucket) pairs.
+
+`warmup_model` warms the generate / stream API; a `TTSServer` has its own
+warm-up, `TTSServer.warmup` (every serve-tick graph, the staging prefill,
+the egress, first-packet and completion vocoder shapes).
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ def warmup_model(model, prefill_buckets: Sequence[int] = (32, 64),
     exactly like `Qwen3TTSModel._run` (generate_frames up to 1024 new
     tokens, chunked above), through every frame up to max_new_tokens, so
     each graph a call of that shape can replay is captured; then vocode the
-    codes once. On the CPU this runs the eager loop and captures nothing.
+    codes once, which captures the whole-call decode graphs of that batch.
+    On the CPU this runs the eager loop and captures nothing.
 
     `model`: a Qwen3TTSModel. Returns the warm-up's seconds."""
     from .generate import generate_frames, generate_frames_chunked
