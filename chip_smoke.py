@@ -13,6 +13,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    column-sum sideband exact), then `utils/dma_peak.py`'s sweep in GB/s
    with each reading's share of the data-sheet rate (a reading above 105%
    fails: an L2 hit or skipped bytes, not bandwidth);
+   slice 11, `misfit`: an int8 tiny talker with 4 query heads per kv head
+   defaults to kernel 1 and to the plain talker step (kernel 2 does not
+   take its shapes), runs `generate_custom_voice` without launching kernel
+   2, and with a named fused_talker_step=True still raises;
 3. the flash prefill kernel's two products alone (`flash_tile_products`:
    TMA from strided views, the wgmma descriptors, the fragment layouts)
    against torch.matmul in fp32;
@@ -44,6 +48,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
    graphed frame loop against the eager one (`graphs.eager()`), greedy and
    sampled from one seeded generator, bf16 and int8 KV: codes, lengths and
    hidden states equal, and the API call's wall, tick and RTF on each;
+   slice 11: the prefill and first code0 as a replay of a prefill graph
+   against the eager prefill (`prefill_ab`: KV cache max abs 0, first code0,
+   last hidden, consts and the generator's state equal, the replay
+   capturing nothing; then the whole frame result equal) with a bf16 and
+   an int8 KV cache and on the stream's prompts; the call's wall split
+   (`phase_split`) into clone front end, prompt assembly, prefill and
+   first code, frame loop, vocoder and the rest, graphed and inside
+   `graphs.eager()`, with the graph pool's bytes;
 6. streaming: `stream_custom_voice(..., kv_quant=True)`: first-packet
    latency, packets, frames; the audio's samples must be the longest row's
    active frames x 1920; graphed against eager: the same chunks' codes and
@@ -67,7 +79,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    48-slot server (both kernels as row tiles) drains 52 requests;
    slice 10, `server_warmup`: a fresh server's `TTSServer.warmup()`
    (seconds, serve and vocoder graphs captured, pool bytes), after which
-   the 12-request mix must capture no graph; requests/s and first-packet
+   the 12-request mix must capture no graph (since slice 11 the staging
+   prefill too is captured by it, one graph per request count, and the
+   graphed and eager mixes' equal codes hold the staging graphs to the
+   eager staging prefill); requests/s and first-packet
    p50/p95 warmed and cold (a fresh server without it), and the mix's wall
    split into frame loop, vocoder and rest;
    the graph layer: graphs captured and replayed, decode contexts, static
@@ -93,10 +108,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
 10. slice 2: `generate_voice_clone` (non-streaming ICL, B=2 texts of
    different lengths, so the prompt pads to T >= 2048 with ragged left
    padding), bf16 then int8 KV, must launch the flash prefill once per
-   layer and both decode kernels, and give finite 24 kHz waveforms;
+   layer and both decode kernels, and give finite 24 kHz waveforms (the
+   28 kernel-3 launches from one prefill graph replay: the timed call
+   captures nothing); the clone prefill graphed against eager
+   (`prefill_ab`) and the clone call's wall split;
    `stream_voice_clone` with the clip as vocoder context; a clone
-   `TTSServer` (prefill bucket 512) streams two ICL requests, each first
-   packet the vocoder over its own reference frames;
+   `TTSServer` (prefill bucket 512, kernel 3 inside its staging graphs)
+   streams two ICL requests, each first packet the vocoder over its own
+   reference frames, every code equal to the same run's inside
+   `graphs.eager()`;
 11. the 0.6B talker (`TALKER_0B6`, random int8 weights): kernel 1 without
    the small_to_mtp projection and kernel 2 at hidden 1024 against their
    twins at B=8, then `generate_custom_voice` of the smoke's texts;
@@ -1168,6 +1188,9 @@ def phase_clone(model, front, kv_quant: bool = False, base=None) -> dict:
               ref_text=CLONE_REF_TEXT, non_streaming_mode=True, seed=SEED, kv_quant=kv_quant)
     # warm-up at the timed call's shape: the graphs it replays are captured here
     model.generate_voice_clone(CLONE_TEXTS, max_new_tokens=CLONE_MAX_NEW_TOKENS, **kw)
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    g0 = graphs.stats(model.device)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1176,6 +1199,10 @@ def phase_clone(model, front, kv_quant: bool = False, base=None) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches()
+    counts = graph_counts(model.device, g0)
+    if counts["graphs_replayed"] <= 0 or counts["graphs_captured"]:
+        # the prefill's 28 kernel-3 launches below then come from a replay
+        raise AssertionError(f"the clone call after its warm-up call: {counts}")
     specs, _ = model._specs_voice_clone(CLONE_TEXTS, "english", None, None, False,
                                         front["items"], True)
     codes = run_codes(model, specs, max_new_tokens=CLONE_MAX_NEW_TOKENS, kv_quant=kv_quant)
@@ -1209,7 +1236,7 @@ def phase_clone(model, front, kv_quant: bool = False, base=None) -> dict:
     line(f"slice clone {mode}", texts=len(CLONE_TEXTS), prefill_T=front["T"],
          starts=list(front["starts"]), frames=frames, wall_s=f"{wall:.3f}",
          frames_per_s=f"{sum(frames) / wall:.2f}", rtf=f"{out['rtf']:.4f}", **extra,
-         launches=launches)
+         **counts, launches=launches)
     return out
 
 
@@ -1434,6 +1461,7 @@ def _serve_run_in(model, eager: bool, warm) -> dict:
             "warm_s": warm_s, "warm_captures": warm1["captures"] - warm0["captures"],
             "warm_codec_graphs": warm1["codec_graphs"] - warm0["codec_graphs"],
             "serve_graphs": 0 if eager else len(srv.engine._graphs.graphs),
+            "staging_graphs": 0 if eager else len(srv.engine._graphs.staging),
             "pool_bytes": warm1["pool_bytes"], "split": split}
 
 
@@ -1538,50 +1566,98 @@ def phase_serve_wide(model) -> dict:
     return r
 
 
-@contextlib.contextmanager
-def owner_device_ms():
-    """Device ms of the graph owners' calls inside the block, by CUDA events
-    around every `DecodeGraphs.run` and `ServeGraphs.chunk` ("frame_loop")
-    and `CodecGraphs.run` ("vocoder", inputs copied in and outputs out);
-    the dict yielded is filled when the block ends."""
+def graph_owners():
+    """(class or module, attribute, part) of the graph owners' calls: every
+    `DecodeGraphs.run` and `ServeGraphs.chunk` ("frame_loop") and
+    `CodecGraphs.run` ("vocoder", inputs copied in and outputs out)."""
     from qwen3_tts_tpu_torch.runtime import graphs
 
-    events = {"frame_loop": [], "vocoder": []}
-    saved = []
-    for cls, name, owner in ((graphs.DecodeGraphs, "run", "frame_loop"),
-                             (graphs.ServeGraphs, "chunk", "frame_loop"),
-                             (graphs.CodecGraphs, "run", "vocoder")):
-        real = getattr(cls, name)
+    return ((graphs.DecodeGraphs, "run", "frame_loop"),
+            (graphs.ServeGraphs, "chunk", "frame_loop"),
+            (graphs.CodecGraphs, "run", "vocoder"))
 
-        def timed_call(self, *a, real=real, owner=owner, **k):
+
+def call_parts():
+    """(class or module, attribute, part) of what one generate_* call runs,
+    on either route (graphs or `graphs.eager()`): the clone front end
+    (`create_voice_clone_prompt`: Mimi codes and the speaker embedding),
+    prompt assembly (`assemble_prompt_specs` as the API calls it), the
+    prefill and first code (`init_decode_state`), the frame loop (each
+    chunk of frames, `generate._chunk`) and the vocoder (`codec_call`)."""
+    from qwen3_tts_tpu_torch.inference import model as api
+    from qwen3_tts_tpu_torch.runtime import generate, graphs
+
+    return ((api.Qwen3TTSModel, "create_voice_clone_prompt", "front_end"),
+            (api, "assemble_prompt_specs", "prompt_assembly"),
+            (generate, "init_decode_state", "prefill"),
+            (generate, "_chunk", "frame_loop"),
+            (graphs, "codec_call", "vocoder"))
+
+
+@contextlib.contextmanager
+def owner_device_ms(parts=None):
+    """Device ms of the calls of `parts` ((owner, attribute, part) triples;
+    default: `graph_owners()`) inside the block, by CUDA events around each
+    call, summed per part; the dict yielded is filled when the block ends.
+    A part's span counts any wait for the host inside it."""
+    parts = graph_owners() if parts is None else parts
+    events = {part: [] for _, _, part in parts}
+    saved = []
+    for owner, name, part in parts:
+        real = getattr(owner, name)
+
+        def timed_call(*a, real=real, part=part, **k):
             ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            out = real(self, *a, **k)
+            out = real(*a, **k)
             ev[1].record()
-            events[owner].append(ev)
+            events[part].append(ev)
             return out
 
-        saved.append((cls, name, real))
-        setattr(cls, name, timed_call)
+        saved.append((owner, name, real))
+        setattr(owner, name, timed_call)
     out = {}
     try:
         yield out
     finally:
-        for cls, name, real in saved:
-            setattr(cls, name, real)
+        for owner, name, real in saved:
+            setattr(owner, name, real)
     torch.cuda.synchronize()
     out.update({k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()})
     out["calls"] = {k: len(v) for k, v in events.items()}
 
 
 def split_fields(wall_s: float, split: dict) -> dict:
-    """A run's wall split into the frame loop's and the vocoder's graph
-    calls (device ms) and the rest (host scheduling, prefill, copies)."""
+    """A run's wall split into its parts (device ms, `owner_device_ms`)
+    and the rest (host scheduling, copies, whatever no part covers)."""
     wall = wall_s * 1e3
-    return dict(wall_ms=f"{wall:.1f}", frame_loop_ms=f"{split['frame_loop']:.1f}",
-                vocoder_ms=f"{split['vocoder']:.1f}",
-                rest_ms=f"{wall - split['frame_loop'] - split['vocoder']:.1f}",
-                calls=split["calls"])
+    parts = {k: v for k, v in split.items() if k != "calls"}
+    return dict(wall_ms=f"{wall:.1f}", **{f"{k}_ms": f"{v:.1f}" for k, v in parts.items()},
+                rest_ms=f"{wall - sum(parts.values()):.1f}", calls=split["calls"])
+
+
+def phase_split(model, name: str, call) -> dict:
+    """One generate_* call's wall split into `call_parts()` and the rest,
+    on the graphed route and then inside `graphs.eager()`, each timed call
+    after a warm-up call of its shape (which captures on the graphed
+    route); the shared graph pool's bytes after the graphed warm-up."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    out = {}
+    for route in ("graph", "eager"):
+        with graphs.eager() if route == "eager" else contextlib.nullcontext():
+            call()
+            pool = graphs.stats(model.device)["pool_bytes"]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with owner_device_ms(call_parts()) as split:
+                call()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        out[route] = dict(split, wall_ms=wall * 1e3)
+        extra = dict(pool_mib=f"{pool / 2**20:.1f}") if route == "graph" else {}
+        line(f"split {name} {route}", **split_fields(wall, split), **extra)
+    return out
 
 
 def _aux_case(B: int, ticks: int, K: int, Qn: int, V: int, rng):
@@ -1707,6 +1783,7 @@ def phase_server_warmup(model) -> dict:
     warm = _serve_run(model, eager=False, warm="warmup")
     line("server_warmup", seconds=f"{warm['warm_s']:.3f}",
          graphs_captured=warm["warm_captures"], serve_graphs=warm["serve_graphs"],
+         staging_graphs=warm["staging_graphs"],
          codec_graphs=warm["warm_codec_graphs"],
          pool_mib=f"{warm['pool_bytes'] / 2**20:.1f}", mix_graphs_captured=warm["captures"],
          mix_graphs_replayed=warm["replays"])
@@ -1727,27 +1804,39 @@ def phase_server_warmup(model) -> dict:
 
 def phase_serve_clone(model, front) -> None:
     """TTSServer over the clone model: two streamed ICL clone requests with
-    different reference clips. Each one's first packet must be the vocoder
-    run over its OWN last reference frames and its first generated frames
-    (vocoded again here), and not over the other request's."""
+    different reference clips, their staging prefill (bucket 512) through
+    kernel 3 inside the staging graphs. Each one's first packet must be the
+    vocoder run over its OWN last reference frames and its first generated
+    frames (vocoded again here), and not over the other request's; the same
+    run inside `graphs.eager()` must give every request the same codes."""
     from qwen3_tts_tpu_torch.models.codec12.decoder import decode_frames
+    from qwen3_tts_tpu_torch.runtime import graphs
     from qwen3_tts_tpu_torch.runtime.server import AudioPacket, TTSServer
 
     wav, sr = front["wav"], front["sr"]
     refs = {"a": (wav, sr), "b": (wav[:len(wav) * 6 // 10], sr)}
     items = {rid: model.create_voice_clone_prompt(r, ref_text=CLONE_REF_TEXT)[0]
              for rid, r in refs.items()}
-    frames = {}
-    srv = TTSServer(model, num_slots=2, prefill_bucket=512, overrides=SERVE_OVERRIDES,
-                    max_new_tokens=CLONE_MAX_NEW_TOKENS, seed=SEED,
-                    code_sink=lambda rid, fr: frames.setdefault(rid, []).extend(fr))
-    reset_launches()
-    submits = [lambda rid=rid, t=t: srv.submit_voice_clone(
-        rid, text=t, language="english", voice_clone_prompt=[items[rid]], stream=True)
-        for rid, t in (("a", "A short line in the first voice."),
-                       ("b", "And another short line, in the second voice."))]
-    events, first, wall = serve_all(srv, submits)
-    launches = read_launches()
+
+    def serve(eager: bool):
+        frames = {}
+        with graphs.eager() if eager else contextlib.nullcontext():
+            srv = TTSServer(model, num_slots=2, prefill_bucket=512, overrides=SERVE_OVERRIDES,
+                            max_new_tokens=CLONE_MAX_NEW_TOKENS, seed=SEED,
+                            code_sink=lambda rid, fr: frames.setdefault(rid, []).extend(fr))
+            reset_launches()
+            submits = [lambda rid=rid, t=t: srv.submit_voice_clone(
+                rid, text=t, language="english", voice_clone_prompt=[items[rid]], stream=True)
+                for rid, t in (("a", "A short line in the first voice."),
+                               ("b", "And another short line, in the second voice."))]
+            events, first, wall = serve_all(srv, submits)
+        staging = 0 if eager else len(srv.engine._graphs.staging)
+        return srv, frames, events, first, wall, read_launches(), staging
+
+    srv, frames, events, first, wall, launches, staging = serve(False)
+    eager_frames = serve(True)[1]
+    codes_equal = set(frames) == set(eager_frames) and all(
+        np.array_equal(np.stack(frames[r]), np.stack(eager_frames[r])) for r in frames)
     tok = model.speech_tokenizer
     up, ctx = tok.get_decode_upsample_rate(), srv.left_context
     errs = {}
@@ -1766,11 +1855,137 @@ def phase_serve_clone(model, front) -> None:
     line("serve clone", requests=2, prefill_bucket=512, wall_s=f"{wall:.3f}",
          first_packet_s={r: f"{t:.3f}" for r, t in first.items()},
          first_packet_vs_own_context_max_abs=f"{own:.3g}",
-         first_packet_vs_other_context_min_abs=f"{other:.3g}", launches=launches)
+         first_packet_vs_other_context_min_abs=f"{other:.3g}", staging_graphs=staging,
+         codes_equal_eager=codes_equal, launches=launches)
     if not (own <= CLONE_CTX_TOL < other):
         raise AssertionError(f"clone serving context: {errs}")
-    if launches["talker_step_int8_kv"] <= 0:
-        raise AssertionError(f"clone serving launches {launches}")
+    if launches["talker_step_int8_kv"] <= 0 or launches["flash_prefill"] <= 0 or not staging:
+        raise AssertionError(f"clone serving launches {launches}, staging graphs {staging}")
+    if not codes_equal:
+        raise AssertionError("clone serving: graphed and eager staging give other codes")
+
+
+def prefill_ab(model, specs, tag: str, **kw) -> dict:
+    """`init_decode_state` on one batch of assembled prompts, graphed (a
+    first call captures the context's prefill graph, a second replays it)
+    and inside `graphs.eager()`, from generators of one seed: the KV cache
+    (and its scales) at max abs 0, the first code0, the last hidden, the
+    consts and the generators' states after equal; the replay captures
+    nothing and launches kernel 3 once a layer where T >= 256. Then the
+    whole frame result (`frame_result`) graphed against eager: equal."""
+    from qwen3_tts_tpu_torch.models.talker import FLASH_PREFILL_MIN_T
+    from qwen3_tts_tpu_torch.runtime import generate, graphs
+    from qwen3_tts_tpu_torch.runtime.prompts import assemble_prompt_specs
+
+    tc, dev = model.config.talker_config, model.device
+    gen_cfg = model._generation_config(model._merge_generate_kwargs(**kw))
+    with torch.no_grad():
+        inputs = assemble_prompt_specs(model.talker_params, tc, model.config, specs, bucket=32)
+        B, T = inputs[1].shape
+        S = generate.kv_capacity(gen_cfg, T)
+
+        def init():
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            state, const = generate.init_decode_state(model.talker_params, tc, gen_cfg,
+                                                      *inputs, gen, S)
+            torch.cuda.synchronize()
+            return state, const, gen.get_state()
+
+        init()   # the capture
+        s0 = graphs.stats(dev)
+        reset_launches()
+        g_state, g_const, g_gen = init()
+        launches, counts = read_launches(), graph_counts(dev, s0)
+        with graphs.eager():
+            e_state, e_const, e_gen = init()
+    if g_state.graphs is None or e_state.graphs is not None:
+        raise AssertionError(f"{tag}: prefill routes {g_state.graphs} / {e_state.graphs}")
+    kv = max(max_abs(getattr(g_state.cache, f), getattr(e_state.cache, f))
+             for f in ("k", "v", "k_scale", "v_scale") if getattr(e_state.cache, f) is not None)
+    same = (torch.equal(g_state.code0, e_state.code0)
+            and torch.equal(g_state.last_hidden, e_state.last_hidden)
+            and torch.equal(g_gen, e_gen)
+            and all(torch.equal(getattr(g_const, f), getattr(e_const, f))
+                    for f in ("valid_prefill", "seq_lens", "prefill_len", "samp_row",
+                              "sub_row", "tts_pad_embed")))
+    L = tc.num_hidden_layers
+    want_flash = L if T >= FLASH_PREFILL_MIN_T else 0
+    del g_state, e_state
+    g = frame_result(model, specs, **kw)
+    with graphs.eager():
+        e = frame_result(model, specs, **kw)
+    codes_equal = _same_result(g, e)
+    line(f"prefill graph vs eager {tag}", B=B, T=T, kv_max_abs=kv, first_code0_equal=same,
+         codes_equal=codes_equal, flash_launches=launches["flash_prefill"], **counts)
+    if kv != 0 or not same or not codes_equal:
+        raise AssertionError(f"{tag}: graphed prefill differs from eager (kv {kv}, state and "
+                             f"consts equal {same}, codes equal {codes_equal})")
+    if counts != {"graphs_captured": 0, "graphs_replayed": 1} or (
+            launches["flash_prefill"] != want_flash):
+        raise AssertionError(f"{tag}: the prefill replay: {counts}, flash launches "
+                             f"{launches['flash_prefill']} (want {want_flash})")
+    return {"launches": launches, "T": T}
+
+
+def phase_prefill_graphs(model) -> None:
+    """The prefill graphs against the eager prefill (`prefill_ab`) on the
+    custom-voice call's prompts, with a bf16 and an int8 KV cache, sampled,
+    and on the stream's (streaming text layout, int8 KV)."""
+    cv = model._specs_custom_voice(TEXTS, "vivian", "english", None, True)
+    for kv_quant in (False, True):
+        prefill_ab(model, cv, f"custom voice {'int8' if kv_quant else 'bf16'}_kv",
+                   max_new_tokens=MAX_NEW_TOKENS, kv_quant=kv_quant)
+    prefill_ab(model, model._specs_custom_voice(TEXTS, "vivian", "english", None, False),
+               "stream int8_kv", max_new_tokens=MAX_NEW_TOKENS, kv_quant=True)
+
+
+MISFIT_TALKER = dict(   # 4 query heads per kv head: kernel 2 does not take it
+    vocab_size=6400, hidden_size=256, intermediate_size=1536, num_hidden_layers=2,
+    num_attention_heads=8, num_key_value_heads=2, head_dim=64, text_hidden_size=256,
+    text_vocab_size=151936, num_code_groups=16)
+MISFIT_CP = dict(vocab_size=2048, hidden_size=256, intermediate_size=768, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2, head_dim=64, num_code_groups=16)
+
+
+def phase_misfit(device) -> None:
+    """An int8 tiny talker with 4 query heads per kv head (random weights
+    from the seed): with no flag the model defaults to kernel 1, whose
+    shapes it fits, and to the plain talker step, whose kernel it does not
+    fit (`config_misfit`); generate_custom_voice then runs, kernel 2 never
+    launched, finite whole-frame audio; a named fused_talker_step=True
+    still raises."""
+    from qwen3_tts_tpu_torch.config import CodePredictorConfig, TalkerConfig
+    from qwen3_tts_tpu_torch.ops.cuda.talker_step import config_misfit
+    from qwen3_tts_tpu_torch.utils.testing import random_talker_params
+    from qwen3_tts_tpu_torch.weights import quantize_talker_params
+
+    cfg = TalkerConfig(**MISFIT_TALKER, code_predictor_config=CodePredictorConfig(**MISFIT_CP))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = build_model(quantize_talker_params(random_talker_params(cfg, gen,
+                                                                    dtype=torch.bfloat16)),
+                        cfg, device)
+    g = model._generation_config(model._merge_generate_kwargs())
+    if not g.fused_subtalker or g.fused_talker_step:
+        raise AssertionError(f"G=4 defaults: fused_subtalker={g.fused_subtalker}, "
+                             f"fused_talker_step={g.fused_talker_step}")
+    kw = dict(speaker="vivian", language="english", seed=SEED, max_new_tokens=MAX_NEW_TOKENS)
+    reset_launches()
+    wavs, sr = model.generate_custom_voice(TEXTS, **kw)
+    launches = read_launches()
+    up = model.speech_tokenizer.get_decode_upsample_rate()
+    if not all(np.isfinite(w).all() and w.shape[0] % up == 0 for w in wavs) or sr != 24000:
+        raise AssertionError(f"G=4: waveforms {[w.shape for w in wavs]} at {sr} Hz")
+    if launches["subtalker"] <= 0 or launches["talker_step"] or launches["talker_step_int8_kv"]:
+        raise AssertionError(f"G=4 launches {launches}")
+    try:
+        model.generate_custom_voice(TEXTS, fused_talker_step=True, **kw)
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("G=4 with fused_talker_step=True did not raise")
+    line("misfit G=4", misfit=config_misfit(cfg), fused_subtalker=True,
+         fused_talker_step=False, frames=[w.shape[0] // up for w in wavs], launches=launches,
+         named_flag_raises=raised[:60])
 
 
 def frame_result(model, specs, **kw):
@@ -3243,6 +3458,7 @@ def run(cfg, device) -> list:
     kernels' JSON rows."""
     probe = phase_probe(device)
     phase_flash_tiles(cfg, device)
+    phase_misfit(device)
     t0 = time.time()
     params = model_params(cfg, device)
     line("weights", seconds=f"{time.time() - t0:.1f}",
@@ -3256,7 +3472,10 @@ def run(cfg, device) -> list:
     step = phase_talker_step(params, cfg, device, S_buf)
     cv = phase_slice(model)
     cv8 = phase_slice(model, kv_quant=True, base=cv)
+    phase_split(model, "custom voice", lambda: model.generate_custom_voice(
+        TEXTS, speaker="vivian", language="english", seed=SEED, max_new_tokens=MAX_NEW_TOKENS))
     phase_graph_ab(model)
+    phase_prefill_graphs(model)
     up = model.speech_tokenizer.get_decode_upsample_rate()
     phase_stream("custom voice int8_kv", lambda: _stream(model), lambda: stream_active_frames(
         model, model._specs_custom_voice(TEXTS, "vivian", "english", None, False),
@@ -3286,6 +3505,13 @@ def run(cfg, device) -> list:
     phase_prefill_ab(params, cfg, device)
     clone = phase_clone(clone_model, front)
     phase_clone(clone_model, front, kv_quant=True, base=clone)
+    prefill_ab(clone_model, clone_model._specs_voice_clone(
+        CLONE_TEXTS, "english", None, None, False, front["items"], True)[0], "clone",
+        max_new_tokens=CLONE_MAX_NEW_TOKENS)
+    phase_split(clone_model, "clone", lambda: clone_model.generate_voice_clone(
+        CLONE_TEXTS, language="english", ref_audio=(front["wav"], front["sr"]),
+        ref_text=CLONE_REF_TEXT, non_streaming_mode=True, seed=SEED,
+        max_new_tokens=CLONE_MAX_NEW_TOKENS))
     phase_stream("voice clone int8_kv", lambda: clone_model.stream_voice_clone(
         CLONE_STREAM_TEXT, language="english", ref_audio=(front["wav"], front["sr"]),
         ref_text=CLONE_REF_TEXT, seed=SEED, kv_quant=True,

@@ -456,16 +456,23 @@ def main(argv=None) -> None:
         return
     engine = None
     if not args.no_engine:
-        try:
-            from ..runtime.server import ThreadedTTSServer, TTSServer
+        from ..runtime.server import ThreadedTTSServer, TTSServer
 
-            engine = ThreadedTTSServer(TTSServer(
-                model, num_slots=args.num_slots, prefill_bucket=args.prefill_bucket,
-                overrides=overrides))
-            print(f"[qwen-tts-demo] engine serving: {args.num_slots} slots")
+        try:
+            server = TTSServer(model, num_slots=args.num_slots,
+                               prefill_bucket=args.prefill_bucket, overrides=overrides)
         except Exception as e:
             print(f"[qwen-tts-demo] engine unavailable ({type(e).__name__}: {e}); "
                   "serving through the static generate path")
+        else:
+            if args.warmup:
+                # the engine's graphs (serve ticks, staging prefill, vocoder)
+                # are captured here, not under the first requests; on this
+                # thread, before the loop thread takes the server over
+                secs = server.warmup()
+                print(f"[qwen-tts-demo] server warmup finished in {secs:.1f}s")
+            engine = ThreadedTTSServer(server)
+            print(f"[qwen-tts-demo] engine serving: {args.num_slots} slots")
     _HttpDemo(model, kind, overrides, args.concurrency, engine=engine).serve(
         args.ip, args.port, args.ssl_certfile, args.ssl_keyfile)
 

@@ -31,6 +31,8 @@ import torch
 from ..config import TTSModelConfig, load_config
 from ..models.speaker_encoder import extract_speaker_embedding
 from ..models.talker import prepare_talker_params
+from ..ops.cuda.subtalker import config_misfit as subtalker_misfit
+from ..ops.cuda.talker_step import config_misfit as talker_step_misfit
 from ..ops.sampling import SamplingParams
 from ..runtime.generate import (GenerationConfig, generate_frames,
                                 generate_frames_chunked)
@@ -261,10 +263,20 @@ class Qwen3TTSModel:
 
     def _generation_config(self, kw: Dict[str, Any]) -> GenerationConfig:
         """int8 loads default onto the fused sub-talker, and on a CUDA device
-        onto the fused talker step, so the public API runs the kernels."""
+        onto the fused talker step, so the public API runs the kernels. On
+        a CUDA device a kernel is the default only where the talker's shapes
+        fit it (`config_misfit` of each wrapper; the JAX kernels take every
+        shape, so a misfit runs the plain route); a flag the caller names is
+        taken as given, and a misfit then raises at the first frame."""
         sub_top_p = float(kw["subtalker_top_p"])
         int8 = self.quantized == "int8"
-        fused = bool(kw.get("fused_subtalker", int8 and sub_top_p >= 1.0))
+        tc = self.config.talker_config
+        on_card = self.device.type == "cuda"
+        fused = kw.get("fused_subtalker")
+        if fused is None:
+            fused = (int8 and sub_top_p >= 1.0
+                     and not (on_card and subtalker_misfit(tc) is not None))
+        fused = bool(fused)
         if fused and not int8:
             raise ValueError("fused_subtalker=True requires int8 weights; load with "
                              "from_pretrained(..., quantize='int8')")
@@ -273,7 +285,7 @@ class Qwen3TTSModel:
                              "subtalker_top_p < 1")
         fused_step = kw.get("fused_talker_step")
         if fused_step is None:
-            fused_step = int8 and self.device.type == "cuda"
+            fused_step = int8 and on_card and talker_step_misfit(tc) is None
         fused_step = bool(fused_step)
         if fused_step and not int8:
             raise ValueError("fused_talker_step=True requires int8 weights; load "

@@ -248,7 +248,8 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
                   mask_bias: torch.Tensor, cache: Optional[KVCache], offset,
                   attend_len: Optional[int] = None,
                   prefill_start: Optional[torch.Tensor] = None,
-                  prefill_window: Optional[int] = None) -> torch.Tensor:
+                  prefill_window: Optional[int] = None,
+                  prefill_plan: Optional[tuple] = None) -> torch.Tensor:
     """Run all layers. h: (B, T, hidden); mask_bias: (B, 1, T, S') additive
     with S' = attend_len or the cache length. Writes the new K/V at
     [offset, offset + T) of `cache` in place (an int offset), or for T = 1
@@ -261,7 +262,8 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
     prefill) and T >= FLASH_PREFILL_MIN_T, attention runs `flash_prefill`
     on this call's fresh, unquantized K/V instead (the cache's slots
     [0, T); later slots are masked on the dense path anyway; an int8 cache
-    still receives the quantized values), and `mask_bias` is not read.
+    still receives the quantized values), and `mask_bias` is not read;
+    `prefill_plan` is its work list (`flash_prefill`'s `plan`).
 
     `cache=None` (training): no cache is written or read; the dense path
     attends over this call's fresh K/V ((B, 1, T, T) mask_bias, offset 0),
@@ -300,7 +302,8 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
         if cache is not None:
             _write_kv(cache, li, offset, k, v)
         if use_flash:
-            o = flash_prefill(q, k, v, prefill_start, sliding_window=prefill_window)
+            o = flash_prefill(q, k, v, prefill_start, sliding_window=prefill_window,
+                              plan=prefill_plan)
         elif cache is None:
             o = attention(q, k, v, mask_bias)
         elif cache.quantized:
@@ -342,15 +345,19 @@ def text_project(params: Params, cfg: TalkerConfig, x: torch.Tensor) -> torch.Te
 
 def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tensor,
                    attn_mask: torch.Tensor, cache: Optional[KVCache],
-                   allow_flash: bool = True, mesh: Optional[Mesh] = None
+                   allow_flash: bool = True, mesh: Optional[Mesh] = None,
+                   plan: Optional[tuple] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[KVCache]]:
     """Prefill the talker. inputs_embeds: (B, T, H) left-padded; attn_mask:
-    (B, T) 1 = real token. Returns (logits of the last position (B, V) f32,
-    last-layer normed hiddens (B, T, H), cache).
+    (B, T) 1 = real token (on the host or the device). Returns (logits of
+    the last position (B, V) f32, last-layer normed hiddens (B, T, H),
+    cache).
 
     Prefills of T >= FLASH_PREFILL_MIN_T attend through `flash_prefill`,
     which requires contiguous left padding (the prompt layout) and has no
     backward; callers with other masks or gradients pass allow_flash=False.
+    `plan`: its work list for the mask's starts (`flash_prefill`; a
+    captured prefill must pass it).
     `cache=None` is the training route (see `decoder_stack`). `mesh`: the
     params are this rank's tensor-parallel shards (`parallel/mesh.py`); the
     logits come back whole."""
@@ -358,6 +365,7 @@ def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tenso
     S = T if cache is None else cache.k.shape[3]
     dims = StackDims.from_talker(cfg, mesh)
     dev = inputs_embeds.device
+    attn_mask = attn_mask.to(dev)
 
     # mrope with identical axes == 1-D rope on mask-cumsum positions
     positions = torch.cumsum(attn_mask, dim=-1) - 1
@@ -379,7 +387,7 @@ def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tenso
     cos, sin = rope_tables(positions, inv_freq)
     h = decoder_stack(params["layers"], params["norm"], dims, inputs_embeds,
                       cos, sin, bias, cache, 0, prefill_start=start,
-                      prefill_window=cfg.sliding_window)
+                      prefill_window=cfg.sliding_window, prefill_plan=plan)
     logits = head_logits(h[:, -1].to(torch.float32), params["codec_head"], cfg.vocab_size, mesh)
     return logits, h, cache
 

@@ -26,6 +26,7 @@ import tempfile
 import weakref
 from collections import OrderedDict
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -436,21 +437,33 @@ def row_tiles(B: int, max_rows: int = ENGINE_MAX_ROWS) -> list:
     return [slice(min(i * t, B - t), min(i * t, B - t) + t) for i in range(n)]
 
 
-def check_layer_shapes(B: int, H: int, heads: int, kvh: int, D: int, inter: int,
-                       nseg: int) -> None:
-    """What one launch of the layer engine accepts (csrc/common.cuh; the
-    wrappers run larger batches as `row_tiles`): at most 32 rows, a
-    head_dim of 64 or 128, at most 2 query heads per kv head, every GEMM's K
-    in whole 256-column warp loads (at most 16 of them) and its N in whole
-    8-row units."""
-    require(1 <= B <= ENGINE_MAX_ROWS, f"batch {B}: the engine takes 1..{ENGINE_MAX_ROWS} rows")
-    require(D in (64, 128), f"head_dim {D} must be 64 or 128")
-    require(heads % kvh == 0 and heads // kvh <= 2,
-            f"{heads} query heads over {kvh} kv heads: the attention is built for groups "
-            "of at most 2 (ATT_MAX_G in csrc/common.cuh)")
-    require(inter % nseg == 0, f"{nseg} chunks do not divide {inter}")
+def layer_misfit(B: int, H: int, heads: int, kvh: int, D: int, inter: int,
+                 nseg: int) -> Optional[str]:
+    """The first rule of what one launch of the layer engine accepts
+    (csrc/common.cuh) that these shapes break, or None: at most 32 rows (the
+    wrappers run larger batches as `row_tiles`), a head_dim of 64 or 128,
+    at most 2 query heads per kv head, every GEMM's K in whole 256-column
+    warp loads (at most 16 of them) and its N in whole 8-row units."""
+    if not 1 <= B <= ENGINE_MAX_ROWS:
+        return f"batch {B}: the engine takes 1..{ENGINE_MAX_ROWS} rows"
+    if D not in (64, 128):
+        return f"head_dim {D} must be 64 or 128"
+    if heads % kvh or heads // kvh > 2:
+        return (f"{heads} query heads over {kvh} kv heads: the attention is built for "
+                "groups of at most 2 (ATT_MAX_G in csrc/common.cuh)")
+    if inter % nseg:
+        return f"{nseg} chunks do not divide {inter}"
     for name, v in (("hidden", H), ("heads*head_dim", heads * D),
                     ("intermediate/chunks", inter // nseg)):
-        require(v % 256 == 0 and v <= 4096,
-                f"{name} = {v} must be a multiple of 256, at most 4096")
-    require(inter % 8 == 0, f"intermediate {inter} must be a multiple of 8")
+        if v % 256 or v > 4096:
+            return f"{name} = {v} must be a multiple of 256, at most 4096"
+    if inter % 8:
+        return f"intermediate {inter} must be a multiple of 8"
+    return None
+
+
+def check_layer_shapes(B: int, H: int, heads: int, kvh: int, D: int, inter: int,
+                       nseg: int) -> None:
+    """Raise ValueError with `layer_misfit`'s rule where the shapes break one."""
+    misfit = layer_misfit(B, H, heads, kvh, D, inter, nseg)
+    require(misfit is None, misfit)

@@ -18,10 +18,13 @@ gets a contiguous copy first.
 
 Its work list comes from `flash_plan`, a pure function of (T, starts,
 window): which 128-key tiles each 64-position query tile visits, which of
-them need a mask, and which CTA runs it. The wrapper builds it on the host
-from the starts (one device-to-host copy) and keeps it on the device for as
-long as the same `start` tensor is passed unchanged, so the prefill's
-layers share one plan.
+them need a mask, and which CTA runs it. Its shapes depend only on (B, T,
+Hkv, CTAs), so one pair of static buffers holds the plan of any starts. A
+caller that knows the starts on the host (the prompt's mask; a captured
+prefill, whose plan is copied into such buffers before each replay) passes
+the plan; otherwise the wrapper builds it from the starts (one
+device-to-host copy) and keeps it on the device for as long as the same
+`start` tensor is passed unchanged, so the prefill's layers share one plan.
 """
 
 from __future__ import annotations
@@ -147,9 +150,16 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     return x if strides_ok and x.data_ptr() % 16 == 0 else x.contiguous()
 
 
+def plan_shapes(B: int, T: int, Hkv: int, ctas: int) -> tuple:
+    """The shapes of `flash_plan`'s (items, offsets) for any starts."""
+    n = B * Hkv * -(-T // FP_BQ)
+    return (n, len(ITEM_FIELDS)), (max(1, min(n, ctas)) + 1,)
+
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   start: torch.Tensor, scale: Optional[float] = None,
-                  sliding_window: Optional[int] = None) -> torch.Tensor:
+                  sliding_window: Optional[int] = None,
+                  plan: Optional[tuple] = None) -> torch.Tensor:
     """Causal left-padded GQA flash attention. q: (B, T, Hq, D); k/v:
     (B, T, Hkv, D); start: (B,) int32 first valid slot per row. Returns
     (B, T, Hq, D) in q.dtype.
@@ -157,9 +167,12 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors run `flash_prefill_ref`; CUDA tensors launch the kernel, each
     launch adding one to `flash_prefill.launches`. The kernel is built for
     the released configurations' shape only (bf16, D = 128, Hq = 2 * Hkv,
-    the shape chip_smoke.py holds against the twin); any other raises. The
-    first call with a given `start` tensor reads it to the host for the
-    work list (`flash_plan`); later calls with it do not."""
+    the shape chip_smoke.py holds against the twin); any other raises.
+    `plan`: `flash_plan` of these starts as (items, offsets) int32 tensors
+    on q's device (`plan_shapes`, the device's SM count as CTAs). Without
+    it, the first call with a given `start` tensor reads it to the host for
+    the work list; later calls with it do not. A captured launch takes the
+    plan: a capture cannot read the device."""
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v, start, scale, sliding_window)
     if q.device.type != "cuda":
@@ -178,7 +191,17 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.require(tuple(start.shape) == (B,), "flash_prefill: start must be (B,)")
     build.same_device(q.device, k=k, v=v, start=start)
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
-    items, offsets = device_plan(start, T, sliding_window, Hkv, build.sm_count(q.device))
+    ctas = build.sm_count(q.device)
+    if plan is None:
+        build.require(not torch.cuda.is_current_stream_capturing(),
+                      "a captured flash prefill takes its plan (flash_plan) as an argument")
+        items, offsets = device_plan(start, T, sliding_window, Hkv, ctas)
+    else:
+        items, offsets = plan
+        build.require((tuple(items.shape), tuple(offsets.shape)) == plan_shapes(B, T, Hkv, ctas)
+                      and items.dtype == offsets.dtype == torch.int32,
+                      f"flash_prefill: want an int32 plan of shapes {plan_shapes(B, T, Hkv, ctas)}")
+        build.same_device(q.device, items=items, offsets=offsets)
     out = torch.empty((B, T, Hq, D), dtype=torch.bfloat16, device=q.device)
     args = build.FlashPrefillArgs(
         B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, window=sliding_window or 0,

@@ -194,21 +194,43 @@ def subtalker_frame_ref(cp: Dict[str, Any], cp_cfg, past_hidden: torch.Tensor,
     return torch.stack(codes_all, dim=1), emb_sum[:, None, :]
 
 
-def check_frame_shapes(B: int, Ht: int, cp_cfg, V: int, Qm1: int, has_proj: bool) -> None:
-    """What one launch of the kernel accepts: the layer engine's shapes
-    (`build.check_layer_shapes`) at the code predictor's widths, both hidden
-    sizes in whole 256-column loads, a logits row that fits shared memory,
-    at most 16 positions, and a talker width equal to the code predictor's
-    where there is no small_to_mtp projection (the 0.6B talker)."""
+def frame_misfit(B: int, Ht: int, cp_cfg, V: int, Qm1: int,
+                 has_proj: bool) -> Optional[str]:
+    """The first rule of what one launch of the kernel accepts that these
+    shapes break, or None: the layer engine's shapes (`build.layer_misfit`)
+    at the code predictor's widths, both hidden sizes in whole 256-column
+    loads, a logits row that fits shared memory, at most 16 positions, and
+    a talker width equal to the code predictor's where there is no
+    small_to_mtp projection (the 0.6B talker)."""
     Hc = cp_cfg.hidden_size
-    build.check_layer_shapes(B, Hc, cp_cfg.num_attention_heads, cp_cfg.num_key_value_heads,
-                             cp_cfg.head_dim, cp_cfg.intermediate_size, 1)
-    build.require(Ht % 256 == 0 and Hc % 256 == 0,
-                  f"talker hidden {Ht} and hidden {Hc} must be multiples of 256")
-    build.require(V <= build.MAX_SMEM_ROW and V % 4 == 0,
-                  f"vocab {V}: want a multiple of 4, at most {build.MAX_SMEM_ROW}")
-    build.require(Qm1 + 1 <= 16, f"{Qm1 + 1} positions: the kernel's attention holds 16 slots")
-    build.require(has_proj or Hc == Ht, "without a projection Hc must equal Ht")
+    misfit = build.layer_misfit(B, Hc, cp_cfg.num_attention_heads,
+                                cp_cfg.num_key_value_heads, cp_cfg.head_dim,
+                                cp_cfg.intermediate_size, 1)
+    if misfit is not None:
+        return misfit
+    if Ht % 256 or Hc % 256:
+        return f"talker hidden {Ht} and hidden {Hc} must be multiples of 256"
+    if V > build.MAX_SMEM_ROW or V % 4:
+        return f"vocab {V}: want a multiple of 4, at most {build.MAX_SMEM_ROW}"
+    if Qm1 + 1 > 16:
+        return f"{Qm1 + 1} positions: the kernel's attention holds 16 slots"
+    if not has_proj and Hc != Ht:
+        return "without a projection Hc must equal Ht"
+    return None
+
+
+def check_frame_shapes(B: int, Ht: int, cp_cfg, V: int, Qm1: int, has_proj: bool) -> None:
+    """Raise ValueError with `frame_misfit`'s rule where the shapes break one."""
+    misfit = frame_misfit(B, Ht, cp_cfg, V, Qm1, has_proj)
+    build.require(misfit is None, misfit)
+
+
+def config_misfit(cfg) -> Optional[str]:
+    """`frame_misfit` of a talker config (`TalkerConfig`): what keeps its
+    code predictor off the kernel, or None. Any batch fits (row tiles)."""
+    cp_cfg = cfg.code_predictor_config
+    return frame_misfit(1, cfg.hidden_size, cp_cfg, cp_cfg.vocab_size,
+                        cfg.num_code_groups - 1, cp_cfg.hidden_size != cfg.hidden_size)
 
 
 def _launch_state(cp: Dict[str, Any], cp_cfg, B: int, Ht: int, V: int, Qm1: int, L: int,

@@ -50,6 +50,16 @@ def pick_mlp_chunks(inter: int) -> int:
     return 1
 
 
+def config_misfit(cfg: TalkerConfig) -> Optional[str]:
+    """The first rule of the layer engine (`build.layer_misfit`, the launch
+    check's) that a talker config breaks in the kernel, or None. Any batch
+    fits (row tiles)."""
+    inter = cfg.intermediate_size
+    return build.layer_misfit(1, cfg.hidden_size, cfg.num_attention_heads,
+                              cfg.num_key_value_heads, cfg.resolved_head_dim, inter,
+                              pick_mlp_chunks(inter))
+
+
 def pick_kv_splits(B: int, kv_heads: int, attend_len: int, blocks: int) -> int:
     """Window splits of the kernel's attention: enough (row, kv head, split)
     items to cover `blocks` SMs, in whole 128-slot chunks, at most

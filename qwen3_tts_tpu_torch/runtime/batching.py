@@ -8,7 +8,10 @@
   rows and done flag, all on the device.
 - New requests are staged in batches: one prefill over a (N,
   prefill_bucket) left-padded batch writes KV blocks and first-token state
-  into staging rows.
+  into staging rows, by a fixed-N merge that padding rows leave untouched
+  (`stage_rows`). On a CUDA device each staging call is one replay of a
+  captured graph of its request count N in {1, 2, 4, 8, 16}
+  (`runtime/graphs.py::ServeGraphs.stage`).
 - `serve_chunk` advances every live slot one frame per tick, a Python loop
   over `serve_step`. At the top of each tick, staged requests are installed
   into free slots by tensor ops on the device (no host sync), so a slot
@@ -38,9 +41,9 @@
 
 - `warmup_serve` captures the serve graph of every attend bucket a live
   engine can ask for, with and without installs, and `warmup_staging`
-  runs the staging prefill once per request-count bucket with all-invalid
-  rows (the counterparts of the JAX engine's AOT warm-up): a graph captured
-  at a live tick stalls every slot for its warm pass and capture.
+  the staging graph of every request-count bucket, with all-invalid rows
+  (the counterparts of the JAX engine's AOT warm-up): a graph captured at a
+  live tick stalls every slot for its warm pass and capture.
 
 Not ported, being XLA compile plumbing: the AOT executable cache, and the
 background prewarm of the next attend bucket (`_prewarm_next_bucket`):
@@ -57,6 +60,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import TalkerConfig
 from ..models.talker import (KVCache, StackDims, code_predictor_frame_dispatch,
@@ -159,66 +163,88 @@ def stage_requests(params: Params, cfg: TalkerConfig, state: SlotState,
                    generator: torch.Generator, sampling_rows: torch.Tensor,
                    sub_sampling_rows: torch.Tensor, mesh: Optional[Mesh] = None) -> None:
     """Prefill a batch of N staged requests ((N, Lp, H) / (N, Lp) / (N, Tt,
-    H), left-padded to the bucket) and write them into staging rows, in
-    place. `meta` (N, 5) host int [req_id, max_frames, trailing_len, row,
-    valid]; rows with valid 0 are padding and write nothing. Under a mesh
-    `row` is a row of the whole pool: this rank prefills the requests whose
-    rows it owns (the noise is drawn for all N)."""
-    N, Lp, _ = embeds.shape
+    H), left-padded to the bucket; the mask on the host or the device) and
+    write them into staging rows, in place: `stage_rows` on the device.
+    `meta` (N, 5) host int [req_id, max_frames, trailing_len, row, valid];
+    rows with valid 0 are padding and write nothing. Under a mesh `row` is a
+    row of the whole pool: this rank prefills the requests whose rows it
+    owns (the noise is drawn for all N)."""
+    dev = embeds.device
+    N = embeds.shape[0]
     noise_rows = None
     if mesh is not None:
         K = state.staged_valid.shape[0]
         mine = np.flatnonzero((meta[:, 4] != 0) & (meta[:, 3] // K == mesh.dp_rank))
-        idx = torch.as_tensor(mine, dtype=torch.long, device=embeds.device)
+        idx = torch.as_tensor(mine, dtype=torch.long, device=dev)
         noise_rows = (N, idx)
-        embeds, mask, trailing = embeds[idx], mask[idx], trailing[idx]
+        embeds, mask, trailing = embeds[idx], mask.to(dev)[idx], trailing[idx]
         sampling_rows, sub_sampling_rows = sampling_rows[idx], sub_sampling_rows[idx]
         meta = meta[mine].copy()
         meta[:, 3] -= mesh.dp_rank * K
-    n = embeds.shape[0]
+    stage_rows(params, cfg, state, gen_cfg, embeds, mask.to(dev), trailing,
+               torch.as_tensor(meta, dtype=torch.int32, device=dev), tts_pad, generator,
+               sampling_rows, sub_sampling_rows, noise_rows=noise_rows, mesh=mesh)
+
+
+def stage_rows(params: Params, cfg: TalkerConfig, state: SlotState,
+               gen_cfg: GenerationConfig, embeds: torch.Tensor, mask: torch.Tensor,
+               trailing: torch.Tensor, meta: torch.Tensor, tts_pad: torch.Tensor,
+               generator: torch.Generator, sampling_rows: torch.Tensor,
+               sub_sampling_rows: torch.Tensor, noise_rows=None, mesh: Optional[Mesh] = None,
+               plan: Optional[tuple] = None) -> None:
+    """The staging prefill of N fixed rows, all on the device (`meta` (N, 5)
+    int32 as in `stage_requests`): prefill into a temporary KV cache, sample
+    each first code0, then merge into the staging pool in place as the JAX
+    package does, by an order-safe gather over the pool's K rows: pool row
+    k takes the valid entry naming it, if any. A padding row (valid 0)
+    leaves nothing, and no host value is read, so a graph captures it
+    (`plan`: the flash prefill's work list at Lp >= FLASH_PREFILL_MIN_T).
+    The pad embedding is taken only when some row is valid (the JAX
+    engine's warm-up pins the zero pad it stages with; this one does not)."""
+    N, Lp, _ = embeds.shape
     dims = StackDims.from_talker(cfg, mesh)
     dev = embeds.device
-    if n:
-        tmp = KVCache.zeros(cfg.num_hidden_layers, n, Lp, dims.kv_heads, dims.head_dim,
+    if N:
+        tmp = KVCache.zeros(cfg.num_hidden_layers, N, Lp, dims.kv_heads, dims.head_dim,
                             dtype=state.last_hidden.dtype, device=dev,
                             quantized=state.cache.quantized)
-        logits, hidden_seq, tmp = talker_prefill(params, cfg, embeds, mask, tmp, mesh=mesh)
+        logits, hidden_seq, tmp = talker_prefill(params, cfg, embeds, mask, tmp, mesh=mesh,
+                                                 plan=plan)
     else:   # no row of ours: the draw still runs, so every rank's generator moves alike
         logits = torch.zeros((0, cfg.vocab_size), device=dev)
     code0 = process_and_sample_rows(
         logits, sampling_rows, gen_cfg.sampling.top_k,
-        presence=torch.zeros((n, cfg.vocab_size), dtype=torch.bool, device=dev),
+        presence=torch.zeros((N, cfg.vocab_size), dtype=torch.bool, device=dev),
         suppress_mask=suppress_mask_for(cfg, dev),
-        ban_eos=torch.full((n,), 0 < gen_cfg.min_new_tokens, device=dev),
+        ban_eos=torch.full((N,), 0 < gen_cfg.min_new_tokens, device=dev),
         eos_id=cfg.codec_eos_token_id, generator=generator, noise_rows=noise_rows)
-    src = np.flatnonzero(meta[:, 4])
-    if not len(src):
+    if not N:
         return
-    rows = torch.as_tensor(meta[src, 3], dtype=torch.long, device=dev)
-    si = torch.as_tensor(src, dtype=torch.long, device=dev)
+    K = state.staged_valid.shape[0]
+    onehot = (meta[:, 4, None] != 0) & (meta[:, 3, None] == torch.arange(K, device=dev))
+    hit = onehot.any(dim=0)                         # (K,) pool rows written
+    src = onehot.to(torch.int32).argmax(dim=0)      # (K,) the entry each takes
 
-    def put(name, new):
-        getattr(state, name)[rows] = new[si].to(getattr(state, name).dtype)
+    def merge(pool, new, axis=0):
+        sel = hit.reshape([-1 if d == axis else 1 for d in range(pool.ndim)])
+        pool.copy_(torch.where(sel, new.index_select(axis, src).to(pool.dtype), pool))
 
     for pool, fresh in ((state.staged.k, tmp.k), (state.staged.v, tmp.v),
                         (state.staged.k_scale, tmp.k_scale),
                         (state.staged.v_scale, tmp.v_scale)):
         if pool is not None:
-            pool[:, rows] = fresh[:, si]
-    put("staged_kv_valid", mask.to(torch.bool))
-    put("staged_code0", code0)
-    put("staged_hidden", hidden_seq[:, -1, :])
-    put("staged_seq_len", mask.sum(dim=-1))
-    put("staged_trailing", trailing)
-    meta_t = torch.as_tensor(meta, dtype=torch.int32, device=dev)
-    put("staged_trailing_len", meta_t[:, 2])
-    put("staged_max_frames", meta_t[:, 1])
-    put("staged_req_id", meta_t[:, 0])
-    put("staged_sampling", sampling_rows)
-    put("staged_sub_sampling", sub_sampling_rows)
-    state.staged_valid[rows] = True
-    # in place: the engine's serve graphs read this very tensor
-    state.tts_pad.copy_(tts_pad.reshape(state.tts_pad.shape))
+            merge(pool, fresh, axis=1)
+    for name, new in (("staged_kv_valid", mask.to(torch.bool)), ("staged_code0", code0),
+                      ("staged_hidden", hidden_seq[:, -1, :]),
+                      ("staged_seq_len", mask.sum(dim=-1)), ("staged_trailing", trailing),
+                      ("staged_trailing_len", meta[:, 2]), ("staged_max_frames", meta[:, 1]),
+                      ("staged_req_id", meta[:, 0]), ("staged_sampling", sampling_rows),
+                      ("staged_sub_sampling", sub_sampling_rows)):
+        merge(getattr(state, name), new)
+    # in place: the engine's serve graphs read these very tensors
+    state.staged_valid.logical_or_(hit)
+    pad = tts_pad.reshape(state.tts_pad.shape).to(state.tts_pad.dtype)
+    state.tts_pad.copy_(torch.where(hit.any(), pad, state.tts_pad))
 
 
 def cancel_in_state(state: SlotState, rid: int) -> None:
@@ -420,16 +446,15 @@ def serve_chunk(params: Params, cfg: TalkerConfig, state: SlotState,
 
 def _pad_request(embeds, mask, trailing, Lp: int, Tt: int, dtype):
     """(1, T, H) / (1, T) / (1, Tt_in, H) request tensors -> left-padded
-    (Lp, H) / (Lp,) and right-padded (Tt, H) staging rows."""
-    T, H = embeds.shape[1], embeds.shape[2]
-    dev = embeds.device
-    e = torch.zeros((Lp, H), dtype=dtype, device=dev)
-    e[Lp - T:] = embeds[0].to(dtype)
-    m = torch.zeros((Lp,), dtype=torch.int32, device=dev)
-    m[Lp - T:] = mask[0].to(torch.int32)
-    tr = torch.zeros((Tt, trailing.shape[2]), dtype=dtype, device=dev)
+    (Lp, H) and right-padded (Tt, H) staging rows on the embeds' device, one
+    pad each (the JAX package's `_pad_request_fn`), and the left-padded
+    (Lp,) int32 mask on the host, where the staging prefill's flash plan is
+    built (a mask on the device is read once)."""
+    T = embeds.shape[1]
     tl = min(trailing.shape[1], Tt)
-    tr[:tl] = trailing[0, :tl].to(dtype)
+    e = F.pad(embeds[0].to(dtype), (0, 0, Lp - T, 0))
+    m = F.pad(mask[0].cpu().to(torch.int32), (Lp - T, 0))
+    tr = F.pad(trailing[0, :tl].to(dtype), (0, 0, 0, Tt - tl))
     return e, m, tr
 
 
@@ -649,7 +674,7 @@ class ContinuousBatchingEngine:
         if self._zero_rows is None:
             Lp, H, Tt = self.prefill_bucket, self.cfg.hidden_size, self.max_trailing
             self._zero_rows = (torch.zeros((Lp, H), dtype=self.dtype, device=self.device),
-                               torch.zeros((Lp,), dtype=torch.int32, device=self.device),
+                               torch.zeros((Lp,), dtype=torch.int32),
                                torch.zeros((Tt, H), dtype=self.dtype, device=self.device))
         embeds_rows, mask_rows, trailing_rows = [], [], []
         meta = np.zeros((Nb, 5), np.int32)
@@ -673,13 +698,25 @@ class ContinuousBatchingEngine:
             embeds_rows.append(e)
             mask_rows.append(m)
             trailing_rows.append(tr)
+        self._stage(embeds_rows, mask_rows, trailing_rows, meta, self._tts_pad_dev, srows,
+                    ssrows)
+        return n
+
+    def _stage(self, embeds_rows, mask_rows, trailing_rows, meta: np.ndarray, tts_pad,
+               srows: np.ndarray, ssrows: np.ndarray) -> None:
+        """The staging prefill of these rows: on a CUDA device one replay of
+        the staging graph of len(meta) rows (`ServeGraphs.stage`), else
+        `stage_requests` eagerly."""
         with torch.no_grad():
+            if self._graphs is not None:
+                self._graphs.stage(embeds_rows, mask_rows, trailing_rows, meta, tts_pad,
+                                   srows, ssrows, self.generator)
+                return
             stage_requests(self.params, self.cfg, self.state, self.gen_cfg,
                            torch.stack(embeds_rows), torch.stack(mask_rows),
-                           torch.stack(trailing_rows), meta, self._tts_pad_dev,
-                           self.generator, torch.as_tensor(srows, device=self.device),
+                           torch.stack(trailing_rows), meta, tts_pad, self.generator,
+                           torch.as_tensor(srows, device=self.device),
                            torch.as_tensor(ssrows, device=self.device), self.mesh)
-        return n
 
     def _attend_buckets(self) -> List[int]:
         """Every attend bucket a live engine can ask for: the multiples of
@@ -704,28 +741,25 @@ class ContinuousBatchingEngine:
 
     def warmup_staging(self, buckets=(1, 2, 4, 8, 16)) -> None:
         """Run the staging prefill once per request-count bucket up to
-        staging_rows, with all-invalid rows (request id -1, valid 0): nothing
-        is merged and the slot state is untouched, but the prefill's
-        first-use costs (cuBLAS, the flash plan, the kernels' launch state)
-        are paid. Like the JAX engine's, each call draws from the engine's
-        generator. Unlike it, the pad embedding the engine installs stays
-        the first request's: the JAX engine keeps the zero pad it warmed
-        with for every later request."""
+        staging_rows, with all-invalid rows (request id -1, valid 0):
+        nothing is merged and the slot state is untouched, but the
+        prefill's first-use costs are paid: on a CUDA device the staging
+        graph of each bucket is captured. Like the JAX engine's, each call
+        draws from the engine's generator. Unlike it, the pad embedding the
+        engine installs stays the first request's: the JAX engine keeps the
+        zero pad it warmed with for every later request."""
         Lp, H, Tt = self.prefill_bucket, self.cfg.hidden_size, self.max_trailing
-
-        def z(*shape, dt=self.dtype):
-            return torch.zeros(shape, dtype=dt, device=self.device)
-
         for nb in buckets:
             if nb > self.staging_rows:
                 continue
             meta = np.zeros((nb, 5), np.int32)
             meta[:, 0] = -1
-            rows = z(nb, 5, dt=torch.float32)
-            with torch.no_grad():
-                stage_requests(self.params, self.cfg, self.state, self.gen_cfg, z(nb, Lp, H),
-                               z(nb, Lp, dt=torch.int32), z(nb, Tt, H), meta, z(1, 1, H),
-                               self.generator, rows, rows, self.mesh)
+            rows = np.zeros((nb, 5), np.float32)
+            e = torch.zeros((Lp, H), dtype=self.dtype, device=self.device)
+            tr = torch.zeros((Tt, H), dtype=self.dtype, device=self.device)
+            self._stage([e] * nb, [torch.zeros((Lp,), dtype=torch.int32)] * nb, [tr] * nb,
+                        meta, torch.zeros((1, 1, H), dtype=self.dtype, device=self.device),
+                        rows, rows)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -10,10 +10,11 @@
   generate_frames_chunked: the same loop, attending a length bucket of the
                      KV buffer per chunk of frames
 
-On a CUDA device the loop runs as captured CUDA graphs (runtime/graphs.py),
-the counterpart of the JAX jits: `init_decode_state` prefills into the KV
-cache of a graph context and fills its static buffers, and each chunk of K
-frames is one graph replay. `generate_frames` tests EOS on the host once per
+On a CUDA device the prefill and the loop run as captured CUDA graphs
+(runtime/graphs.py), the counterpart of the JAX jits: `init_decode_state`
+is one replay of a graph context's prefill graph (the counterpart of
+`_init_decode_state`), which fills the context's static buffers, its KV
+cache among them, and each chunk of K frames is one graph replay. `generate_frames` tests EOS on the host once per
 chunk of `GRAPH_FRAMES` frames; frames past a row's EOS are inactive and
 zeroed, as the JAX while_loop zeroes them, so codes, lengths and hidden
 states equal the eager loop's. On the CPU the eager loop is the path.
@@ -187,36 +188,54 @@ def init_decode_state(params: Params, cfg: TalkerConfig,
                       attn_mask: torch.Tensor, trailing_text: torch.Tensor,
                       tts_pad_embed: torch.Tensor, generator: torch.Generator,
                       max_len: int, mesh: Optional[Mesh] = None):
-    """Prefill and sample the first code0. `max_len` is the KV capacity S.
-    Returns (DecodeState, DecodeConst). On a CUDA device (unless
-    `graphs.eager()` is in force, or under a mesh) the prefill writes into
-    the KV cache of a graph context and both are that context's static
-    buffers, which `decode_chunk` replays its graphs over. Under a mesh the
-    inputs are this dp rank's rows."""
+    """Prefill and sample the first code0. `max_len` is the KV capacity S;
+    `attn_mask` may lie on the host (the prompt assembly's) or on the
+    device. Returns (DecodeState, DecodeConst). On a CUDA device (unless
+    `graphs.eager()` is in force, or under a mesh) the prefill and the
+    first code are one replay of the prefill graph of a graph context
+    (`DecodeGraphs.prefill`), which writes the context's static buffers,
+    its KV cache among them, and `decode_chunk` replays its frame graphs
+    over them. Under a mesh the inputs are this dp rank's rows."""
     B, T, _ = inputs_embeds.shape
     dims = StackDims.from_talker(cfg, mesh)
     dev, dtype = inputs_embeds.device, inputs_embeds.dtype
     ctx = None if mesh is not None else graphs.decode_context(
         params, cfg, gen_cfg, B, max_len, dtype, trailing_text.dtype, dev)
-    if ctx is None:
-        cache = KVCache.zeros(cfg.num_hidden_layers, B, max_len, dims.kv_heads,
-                              dims.head_dim, dtype=dtype, device=dev,
-                              quantized=gen_cfg.kv_quant)
-    else:
-        cache = ctx.fresh_cache()
-    logits, hidden_seq, cache = talker_prefill(params, cfg, inputs_embeds,
-                                               attn_mask, cache, mesh=mesh)
-    samp_row, sub_row = gen_cfg.sampling_rows()
-    valid_prefill = torch.zeros((B, max_len), dtype=torch.bool, device=dev)
+    if ctx is not None:
+        return ctx.prefill(inputs_embeds, attn_mask, trailing_text, tts_pad_embed,
+                           gen_cfg.sampling_rows(), generator)
+    cache = KVCache.zeros(cfg.num_hidden_layers, B, max_len, dims.kv_heads, dims.head_dim,
+                          dtype=dtype, device=dev, quantized=gen_cfg.kv_quant)
+    samp_row, sub_row = (torch.as_tensor(r, device=dev) for r in gen_cfg.sampling_rows())
+    return prefill_state(params, cfg, gen_cfg, inputs_embeds, attn_mask.to(dev), cache,
+                         trailing_text, tts_pad_embed.to(dtype), samp_row, sub_row, generator,
+                         mesh=mesh)
+
+
+def prefill_state(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
+                  inputs_embeds: torch.Tensor, attn_mask: torch.Tensor, cache: KVCache,
+                  trailing_text: torch.Tensor, tts_pad_embed: torch.Tensor,
+                  samp_row: torch.Tensor, sub_row: torch.Tensor,
+                  generator: torch.Generator, mesh: Optional[Mesh] = None,
+                  plan: Optional[tuple] = None):
+    """The prefill into `cache` (zeroed) and the first code0 from the
+    device inputs: (DecodeState, DecodeConst) of new tensors, which hold the
+    const inputs themselves. No host value is read and no host copy made:
+    the body of a prefill graph (`plan`: the flash prefill's work list, for
+    T >= FLASH_PREFILL_MIN_T), and the eager route."""
+    B, T, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    S = cache.k.shape[3]
+    logits, hidden_seq, cache = talker_prefill(params, cfg, inputs_embeds, attn_mask, cache,
+                                               mesh=mesh, plan=plan)
+    valid_prefill = torch.zeros((B, S), dtype=torch.bool, device=dev)
     valid_prefill[:, :T] = attn_mask.to(torch.bool)
     const = DecodeConst(
-        trailing_text=trailing_text, tts_pad_embed=tts_pad_embed.to(dtype),
+        trailing_text=trailing_text, tts_pad_embed=tts_pad_embed,
         valid_prefill=valid_prefill,
         seq_lens=attn_mask.sum(dim=-1).to(torch.int32),
         prefill_len=torch.full((), T, dtype=torch.int32, device=dev),
-        samp_row=torch.as_tensor(samp_row, device=dev),
-        sub_row=torch.as_tensor(sub_row, device=dev),
-        suppress=suppress_mask_for(cfg, dev))
+        samp_row=samp_row, sub_row=sub_row, suppress=suppress_mask_for(cfg, dev))
     presence = torch.zeros((B, cfg.vocab_size), dtype=torch.bool, device=dev)
     ban = torch.full((B,), 0 < gen_cfg.min_new_tokens, device=dev)
     code0 = _sample_code0(logits, gen_cfg, cfg, const, presence, ban, generator, mesh)
@@ -225,8 +244,6 @@ def init_decode_state(params: Params, cfg: TalkerConfig,
         presence=presence, done=torch.zeros((B,), dtype=torch.bool, device=dev),
         lengths=torch.zeros((B,), dtype=torch.int32, device=dev),
         t=torch.zeros((), dtype=torch.int32, device=dev))
-    if ctx is not None:
-        return ctx.load(state, const)
     return state, const
 
 

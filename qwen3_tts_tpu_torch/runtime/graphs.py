@@ -1,31 +1,37 @@
-"""Captured CUDA graphs of the frame loop and the vocoder: the port's
-counterpart of `qwen3_tts_tpu/runtime/jit_options.py::decode_jit` and of
-the vocoder's jitted programs.
+"""Captured CUDA graphs of the prefill, the frame loop and the vocoder: the
+port's counterpart of `qwen3_tts_tpu/runtime/jit_options.py::decode_jit`,
+of `_init_decode_state` and `stage_requests`, and of the vocoder's jitted
+programs.
 
 The JAX package compiles the frame loop into one device program per set of
 static arguments (`decode_jit` over `_decode_chunk`'s scan and
 `_generate_frames`' while_loop, keyed by cfg, gen_cfg, num_frames and
-attend_len), and each vocoder call into one program per shape. Eager
-PyTorch launches every operation from the host instead (~600 for one
-vocoder call). Here the frames of a chunk, and each vocoder call, are
-captured once as a `torch.cuda.CUDAGraph`, keyed the same way, and
-replayed with one launch.
+attend_len), the prefill and the engine's staging prefill into one program
+per shape, and each vocoder call into one program per shape. Eager PyTorch
+launches every operation from the host instead (~600 for one vocoder call,
+~30 a layer for a prefill). Here each of them is captured once as a
+`torch.cuda.CUDAGraph`, keyed the same way, and replayed with one launch.
 
 Three owners of graphs:
 - `DecodeGraphs`, a graph context of the batch generators and the streaming
   session: the static buffers of one decode shape (the weights, the talker
   config, gen_cfg.canonical() with its fused flags and KV mode, the batch B,
-  the KV buffer S, the dtypes, the device), the KV cache among them (prefill
-  writes into it, outside any graph), and one graph per (K frames,
-  attend_len) over them, at most MAX_GRAPHS_PER_CONTEXT (least recently
-  used go first). Contexts live in a per-device LRU of at most MAX_CONTEXTS
-  entries and MAX_CONTEXT_BYTES of static buffers. A context that a live
-  `DecodeState` uses is never handed to a second caller, and an evicted one
-  lives on, buffers and graphs, for as long as its state does.
-- `ServeGraphs`, the one-tick graphs of one continuous-batching engine over
-  the engine's own `SlotState`, keyed by (attend_len, install): at most
-  2 * ceil(max_len / ATTEND_BUCKET) graphs, freed with the engine;
-  `ContinuousBatchingEngine.warmup_serve` captures them all.
+  the KV buffer S, the dtypes, the device), the KV cache among them, one
+  prefill graph per prompt length T (`prefill`: the prefill and the first
+  code0 into those buffers, from static input buffers and, at T >=
+  FLASH_PREFILL_MIN_T, kernel 3's plan built on the host), and one graph
+  per (K frames, attend_len) over them; at most MAX_GRAPHS_PER_CONTEXT of
+  both kinds (least recently used go first). Contexts live in a per-device
+  LRU of at most MAX_CONTEXTS entries and MAX_CONTEXT_BYTES of static
+  buffers. A context that a live `DecodeState` uses is never handed to a
+  second caller, and an evicted one lives on, buffers and graphs, for as
+  long as its state does.
+- `ServeGraphs`, the graphs of one continuous-batching engine over the
+  engine's own `SlotState`: one-tick graphs keyed by (attend_len, install),
+  at most 2 * ceil(max_len / ATTEND_BUCKET), and one staging-prefill graph
+  per request count (`stage`: at most 5, counts 1 to 16), freed with the
+  engine; `ContinuousBatchingEngine.warmup_serve` and `warmup_staging`
+  capture them all.
 - `CodecGraphs`, one per device: the 12 Hz vocoder's programs (the JAX
   package's `decode_frames_jit`, `_vocode_rows_compact`, `_vocode_slice`
   and the first-packet extract), each graph keyed by the decoder params'
@@ -46,7 +52,9 @@ Every capture:
   written again by the replay before anything reads them;
 - captures on that side stream, with capture_error_mode="thread_local" (a
   thread doing host work cannot break it), into the device's one memory
-  pool, which every graph of the device shares;
+  pool, which every graph of the device shares, with Python's cyclic
+  garbage collection off (collecting a dead server's graphs there would
+  invalidate the capture);
 - draws its sampling noise from the device's private generator, registered
   with every graph of the frame loop; a replay copies the caller's
   generator state in and the advanced state back, so a graph draws the
@@ -60,15 +68,22 @@ callers on several threads (the demo's static path) interleave whole
 replays: a replay owns the device's private generator from the copy in to
 the copy out.
 
-`eager()` turns the graphs off, the vocoder's too, so that one process can
-run the graphed and the eager loop side by side (the smoke's and the
-profiler's A/B). No configuration, CLI flag or server option selects it.
+A graph reads and writes only static tensors, whose addresses its capture
+baked in (kernel 3's TMA maps among them): inputs are copied into static
+buffers before a replay, host inputs from pinned memory, and nothing in a
+captured body reads the device from the host.
+
+`eager()` turns the graphs off, the prefill's and the vocoder's too, so
+that one process can run the graphed and the eager route side by side (the
+smoke's and the profiler's A/B). No configuration, CLI flag or server
+option selects it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import threading
 import weakref
 from collections import OrderedDict
@@ -89,8 +104,9 @@ _LOCK = threading.RLock()
 
 @contextlib.contextmanager
 def eager():
-    """Run the frame loop and the vocoder eagerly on a CUDA device inside
-    the block (A/B measurements of the graphs against the eager code)."""
+    """Run the prefill, the frame loop and the vocoder eagerly on a CUDA
+    device inside the block (A/B measurements of the graphs against the
+    eager code)."""
     prev = _EAGER[0]
     _EAGER[0] = True
     try:
@@ -100,18 +116,20 @@ def eager():
 
 
 def enabled(device) -> bool:
-    """Whether the frame loop and the vocoder on `device` run as graphs."""
+    """Whether the prefill, the frame loop and the vocoder on `device` run
+    as graphs."""
     return torch.device(device).type == "cuda" and not _EAGER[0]
 
 
 def _counters():
-    """(wrapper, attribute) of the launch counters of the kernels a frame
-    graph holds."""
+    """(wrapper, attribute) of the launch counters of the kernels a graph
+    holds."""
+    from ..ops.cuda.prefill_attention import flash_prefill
     from ..ops.cuda.subtalker import subtalker_frame_fused
     from ..ops.cuda.talker_step import talker_step_fused_cache
 
     return ((subtalker_frame_fused, "launches"), (talker_step_fused_cache, "launches"),
-            (talker_step_fused_cache, "launches_int8_kv"))
+            (talker_step_fused_cache, "launches_int8_kv"), (flash_prefill, "launches"))
 
 
 def _read_counts() -> list:
@@ -147,6 +165,45 @@ def _device(device) -> _Device:
     if index not in _DEVICES:
         _DEVICES[index] = _Device(torch.device("cuda", index))
     return _DEVICES[index]
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _copy_in(buf: torch.Tensor, x: torch.Tensor) -> None:
+    """Copy `x` into the static buffer `buf` without a sync: from pinned
+    memory where x lies on the host, else a device copy."""
+    buf.copy_(x if x.device == buf.device else x.pin_memory(), non_blocking=True)
+
+
+def _prefill_buffers(cfg, B: int, T: int, dtype, flash: bool, device) -> tuple:
+    """Static inputs of a prefill over (B, T): embeds (B, T, H), mask (B, T)
+    int32 and, where it attends through the flash kernel (`flash`), the
+    kernel's plan (items, offsets), whose shapes no set of starts changes
+    (`plan_shapes`, the device's SM count as CTAs)."""
+    bufs = [torch.zeros((B, T, cfg.hidden_size), dtype=dtype, device=device),
+            torch.zeros((B, T), dtype=torch.int32, device=device)]
+    if flash:
+        from ..ops.cuda.prefill_attention import plan_shapes
+
+        shapes = plan_shapes(B, T, cfg.num_key_value_heads, build.sm_count(device))
+        bufs += [torch.zeros(sh, dtype=torch.int32, device=device) for sh in shapes]
+    return tuple(bufs)
+
+
+def _load_plan(plan: tuple, cfg, attn_mask: torch.Tensor) -> None:
+    """`flash_plan` of the starts of `attn_mask` ((B, T) left-padded, read
+    on the host: where it lies on the device, one read) into the static
+    (items, offsets) buffers `plan`, over as many CTAs as they hold."""
+    from ..ops.cuda.prefill_attention import flash_plan
+
+    mask = attn_mask.cpu()
+    T = mask.shape[1]
+    items, offsets = flash_plan(T, (T - mask.sum(dim=-1)).tolist(), cfg.sliding_window,
+                                cfg.num_key_value_heads, plan[1].shape[0] - 1)
+    for buf, x in zip(plan, (items, offsets)):
+        _copy_in(buf, torch.from_numpy(x))
 
 
 class _Graph:
@@ -210,8 +267,8 @@ class DecodeGraphs:
         ts = [getattr(self.cache, f) for f in ("k", "v", "k_scale", "v_scale")]
         ts += [t for t in self.const if torch.is_tensor(t)]
         ts += [getattr(self.state, f) for f in _SMALL]
-        ts += [t for g in self.graphs.values() for t in (g.frames, g.active, g.hidden)]
-        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+        ts += [t for g in self.graphs.values() for t in g.static]
+        return _nbytes(ts)
 
     def fresh_cache(self):
         """The context's KV cache, zeroed (as a new one would be) for a
@@ -221,23 +278,82 @@ class DecodeGraphs:
                 t.zero_()
         return self.cache
 
-    def load(self, state, const):
-        """Copy an initialised decode state and its constants into the
-        static buffers; returns (state, const) over them. The trailing text
-        is padded with the tts_pad embedding up to the frame count, so every
-        frame reads the buffer (the loop never reaches row Tcap)."""
-        c = self.const
-        n = min(const.trailing_text.shape[1], c.trailing_text.shape[1])
-        c.trailing_text[:, :n].copy_(const.trailing_text[:, :n])
-        c.trailing_text[:, n:].copy_(const.tts_pad_embed.expand_as(c.trailing_text[:, n:]))
-        for f in ("tts_pad_embed", "valid_prefill", "seq_lens", "prefill_len", "samp_row",
-                  "sub_row"):
-            getattr(c, f).copy_(getattr(const, f))
-        for f in _SMALL:
-            getattr(self.state, f).copy_(getattr(state, f))
+    def prefill(self, inputs_embeds, attn_mask, trailing_text, tts_pad_embed, rows,
+                generator: torch.Generator):
+        """`generate.prefill_state` into this context: one replay of the
+        prefill graph of the prompt length T (captured at first use). The
+        inputs are copied into static buffers first: the embeds, the mask
+        and, at T >= FLASH_PREFILL_MIN_T, the flash prefill's plan, built
+        on the host from the mask (one device read where the mask lies on
+        the device); the trailing text, padded with the tts_pad embedding up
+        to the frame count (every frame reads the buffer; the loop never
+        reaches row Tcap), the pad embedding and the sampling rows `rows`
+        (`GenerationConfig.sampling_rows`: the knobs travel as data). Returns
+        (state, const) over the static buffers, for `decode_chunk`."""
+        from ..models import talker
+
+        B, T = inputs_embeds.shape[:2]
+        flash = T >= talker.FLASH_PREFILL_MIN_T
+        key = ("prefill", T, flash)
+        with _LOCK:
+            g = self.graphs.get(key)
+            if g is None:
+                bufs = _prefill_buffers(self.cfg, B, T, inputs_embeds.dtype, flash,
+                                        self.dev.device)
+                self._load_prefill(bufs, inputs_embeds, attn_mask, trailing_text,
+                                   tts_pad_embed, rows)
+                g = self._capture_prefill(bufs, generator)
+                self._add(key, g)
+            else:
+                self.graphs.move_to_end(key)
+                self._load_prefill(g.static, inputs_embeds, attn_mask, trailing_text,
+                                   tts_pad_embed, rows)
+            g.replay(self.dev, generator)
         out = dataclasses.replace(self.state, graphs=self)
         self._owner = weakref.ref(out)
-        return out, c
+        return out, self.const
+
+    def _load_prefill(self, bufs, inputs_embeds, attn_mask, trailing_text, tts_pad_embed,
+                      rows):
+        c = self.const
+        embeds, mask, plan = bufs[0], bufs[1], bufs[2:]
+        _copy_in(embeds, inputs_embeds)
+        _copy_in(mask, attn_mask)
+        if plan:
+            _load_plan(plan, self.cfg, attn_mask)
+        n = min(trailing_text.shape[1], c.trailing_text.shape[1])
+        _copy_in(c.trailing_text[:, :n], trailing_text[:, :n])
+        _copy_in(c.tts_pad_embed, tts_pad_embed)
+        c.trailing_text[:, n:].copy_(c.tts_pad_embed.expand_as(c.trailing_text[:, n:]))
+        for buf, row in zip((c.samp_row, c.sub_row), rows):
+            _copy_in(buf, torch.tensor(row, dtype=torch.float32))
+
+    def _capture_prefill(self, bufs, generator) -> _Graph:
+        from .generate import prefill_state
+
+        embeds, mask, plan = bufs[0], bufs[1], bufs[2:]
+        c = self.const
+
+        def body(gen):
+            state, const = prefill_state(
+                self.params, self.cfg, self.gen_cfg, embeds, mask, self.fresh_cache(),
+                c.trailing_text, c.tts_pad_embed, c.samp_row, c.sub_row, gen,
+                plan=plan or None)
+            for f in _SMALL:
+                getattr(self.state, f).copy_(getattr(state, f))
+            for f in ("valid_prefill", "seq_lens", "prefill_len"):
+                getattr(c, f).copy_(getattr(const, f))
+
+        # the warm pass may run the body itself: the replay rewrites every
+        # buffer it writes
+        g = capture(self.dev, generator, body, body)
+        g.static = bufs
+        return g
+
+    def _add(self, key, g) -> None:
+        self.graphs[key] = g
+        while len(self.graphs) > MAX_GRAPHS_PER_CONTEXT:
+            self.graphs.popitem(last=False)
 
     def run(self, params, gen_cfg, K: int, attend_len: Optional[int],
             generator: torch.Generator):
@@ -252,13 +368,11 @@ class DecodeGraphs:
         g = self.graphs.get(key)
         if g is None:
             g = self._capture(int(K), attend_len, generator)
-            self.graphs[key] = g
-            while len(self.graphs) > MAX_GRAPHS_PER_CONTEXT:
-                self.graphs.popitem(last=False)
+            self._add(key, g)
         else:
             self.graphs.move_to_end(key)
         g.replay(self.dev, generator)
-        return g.frames, g.active, g.hidden
+        return g.static
 
     def _capture(self, K: int, attend_len: Optional[int], generator) -> _Graph:
         from .generate import frame_loop
@@ -283,7 +397,7 @@ class DecodeGraphs:
                                                     for f in _SMALL}), gen)
 
         g = capture(self.dev, generator, warm, lambda gen: body(self.state, gen))
-        g.frames, g.active, g.hidden = outs
+        g.static = outs
         return g
 
 
@@ -310,12 +424,20 @@ def capture(dev: _Device, generator: Optional[torch.Generator], warm, body) -> _
         if gen is not None:
             graph.register_generator_state(gen)
         before = _read_counts()
+        # no cyclic garbage collection inside a capture: a dead cycle that
+        # holds a graph (a server and its engine's graphs) would destroy it
+        # there, and a graph's teardown is a call a capture does not permit
+        # (it invalidates the capture)
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with build.pinning() as used:
                 with torch.cuda.graph(graph, pool=dev.pool, stream=dev.stream,
                                       capture_error_mode="thread_local"):
                     body(gen)
         finally:
+            if gc_on:
+                gc.enable()
             delta = [a - b for a, b in zip(_read_counts(), before)]
             _add_counts(delta, -1)   # a capture records launches; it makes none
         dev.captures += 1
@@ -376,6 +498,70 @@ class ServeGraphs:
         self.outs = (z(B, T, engine.cfg.num_code_groups), z(B, T), z(B, T), z(B, T),
                      z(dt=torch.int64))
         self.graphs: Dict[tuple, _Graph] = {}
+        # the staging prefill's graphs, one per request count
+        self.Lp, self.Tt, self.dtype = engine.prefill_bucket, engine.max_trailing, engine.dtype
+        self.staging: Dict[int, _Graph] = {}
+
+    def stage(self, embeds_rows, mask_rows, trailing_rows, meta, tts_pad, srows, ssrows,
+              generator: torch.Generator) -> None:
+        """`batching.stage_rows` of len(meta) requests (padding rows
+        included), one replay of the staging graph of that count, captured
+        at first use (or by the engine's `warmup_staging`). The inputs go
+        into static buffers first: the rows ((Lp, H) embeds and (Tt, H)
+        trailing on the device, (Lp,) int32 masks on the host), `meta`
+        ((N, 5) int32) and the sampling rows (host numpy), the pad
+        embedding and, at Lp >= FLASH_PREFILL_MIN_T, the flash prefill's
+        plan, built from the masks on the host."""
+        from ..models import talker
+
+        N = len(meta)
+        with _LOCK:
+            g = self.staging.get(N)
+            if g is None:
+                dev, H = self.dev.device, self.cfg.hidden_size
+                bufs = _prefill_buffers(self.cfg, N, self.Lp, self.dtype,
+                                        self.Lp >= talker.FLASH_PREFILL_MIN_T, dev)
+                bufs = bufs[:2] + (
+                    torch.zeros((N, self.Tt, H), dtype=self.dtype, device=dev),
+                    torch.zeros((N, 5), dtype=torch.int32, device=dev),
+                    torch.zeros((N, 5), dtype=torch.float32, device=dev),
+                    torch.zeros((N, 5), dtype=torch.float32, device=dev),
+                    torch.zeros((1, 1, H), dtype=self.dtype, device=dev)) + bufs[2:]
+                self._load_stage(bufs, embeds_rows, mask_rows, trailing_rows, meta, tts_pad,
+                                 srows, ssrows)
+                g = self.staging[N] = self._capture_stage(bufs, generator)
+            else:
+                self._load_stage(g.static, embeds_rows, mask_rows, trailing_rows, meta,
+                                 tts_pad, srows, ssrows)
+            g.replay(self.dev, generator)
+
+    def _load_stage(self, bufs, embeds_rows, mask_rows, trailing_rows, meta, tts_pad, srows,
+                    ssrows) -> None:
+        embeds, mask, trailing, meta_b, srows_b, ssrows_b, pad = bufs[:7]
+        torch.stack(embeds_rows, out=embeds)
+        torch.stack(trailing_rows, out=trailing)
+        mask_host = torch.stack([m.cpu() for m in mask_rows])
+        _copy_in(mask, mask_host)
+        for buf, x in ((meta_b, meta), (srows_b, srows), (ssrows_b, ssrows)):
+            _copy_in(buf, torch.from_numpy(x))
+        _copy_in(pad, tts_pad.reshape(pad.shape))
+        if len(bufs) > 7:
+            _load_plan(bufs[7:], self.cfg, mask_host)
+
+    def _capture_stage(self, bufs, generator) -> _Graph:
+        from .batching import stage_rows
+
+        embeds, mask, trailing, meta, srows, ssrows, pad = bufs[:7]
+
+        def body(gen):
+            stage_rows(self.params, self.cfg, self.state, self.gen_cfg, embeds, mask, trailing,
+                       meta, pad, gen, srows, ssrows, plan=bufs[7:] or None)
+
+        # the warm pass runs the body itself: a merge written twice with the
+        # same draws writes the same values
+        g = capture(self.dev, generator, body, body)
+        g.static = bufs
+        return g
 
     def chunk(self, n_ticks: int, attend_len: int, install: bool,
               generator: torch.Generator) -> torch.Tensor:
@@ -437,7 +623,7 @@ class _CodecGraph:
         self.params, self.inputs, self.outputs, self.graph = params, inputs, outputs, graph
 
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.inputs + self.outputs)
+        return _nbytes(self.inputs + self.outputs)
 
 
 class CodecGraphs:
@@ -469,7 +655,7 @@ class CodecGraphs:
     @staticmethod
     def _load(bufs: tuple, inputs: tuple) -> None:
         for buf, x in zip(bufs, inputs):
-            buf.copy_(x if x.is_cuda else x.pin_memory(), non_blocking=True)
+            _copy_in(buf, x)
 
     def _capture(self, params, body, inputs: tuple) -> _CodecGraph:
         dev = self.dev.device

@@ -21,7 +21,7 @@ Batches are left-padded with a mask, as the reference batches them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,106 +43,145 @@ class PromptSpec:
     non_streaming: bool = False
 
 
-def _ids(ids, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(ids, np.int64).reshape(-1), device=device)
-
-
 def _embed_text(params, cfg: TalkerConfig, ids: torch.Tensor) -> torch.Tensor:
-    """text ids -> projected talker-space embeddings (1, L, H)."""
-    return text_project(params, cfg, params["text_embedding"][ids][None])
-
-
-def _embed_codec(params, ids: torch.Tensor) -> torch.Tensor:
-    return params["codec_embedding"][ids][None]
+    """text ids (n, L) -> projected talker-space embeddings (n, L, H)."""
+    return text_project(params, cfg, params["text_embedding"][ids])
 
 
 def _frame_codec_embed(params, cfg: TalkerConfig, ref_code: torch.Tensor) -> torch.Tensor:
-    """Summed per-codebook embeddings of reference frames. ref_code: (T, Q)
-    -> (1, T, H); codebook 0 reads the talker table, 1..Q-1 the code
+    """Summed per-codebook embeddings of reference frames. ref_code: (n, T,
+    Q) -> (n, T, H); codebook 0 reads the talker table, 1..Q-1 the code
     predictor's tables (reference 1984-1989)."""
     cp_tables = params["code_predictor"]["embeddings"]   # (Q-1, V, H)
-    out = params["codec_embedding"][ref_code[:, 0]]
+    out = params["codec_embedding"][ref_code[..., 0]]
     for i in range(1, cfg.num_code_groups):
-        out = out + cp_tables[i - 1][ref_code[:, i]]
-    return out[None]
+        out = out + cp_tables[i - 1][ref_code[..., i]]
+    return out
+
+
+def _spec_group_key(spec: PromptSpec):
+    """Specs with one key assemble as one group: the same segment lengths
+    and layout flags (the JAX package's vmapped group)."""
+    return (len(np.asarray(spec.input_id).reshape(-1)),
+            -1 if spec.instruct_id is None else len(np.asarray(spec.instruct_id).reshape(-1)),
+            -1 if spec.ref_id is None else len(np.asarray(spec.ref_id).reshape(-1)),
+            -1 if spec.ref_code is None else np.asarray(spec.ref_code).shape,
+            spec.language_id, bool(spec.non_streaming), spec.speaker_embed is not None)
+
+
+def _assemble_group(params, cfg: TalkerConfig, model_cfg: TTSModelConfig,
+                    specs: Sequence[PromptSpec]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Assemble n same-shape specs (one `_spec_group_key`) together: their
+    ids go to the device in one copy, every text segment is embedded and
+    projected in one call, every fixed codec id in one gather. Returns
+    (input_embeds (n, L, H), trailing_text (n, Tt, H), tts_pad_embed
+    (1, 1, H)), each row the prompt of its spec."""
+    s0, n = specs[0], len(specs)
+    dev = params["codec_embedding"].device
+
+    def stack(name, dtype=np.int64):
+        return np.stack([np.asarray(getattr(s, name), dtype) for s in specs])
+
+    input_id = stack("input_id").reshape(n, -1)
+    text = {"special": np.tile([[model_cfg.tts_bos_token_id, model_cfg.tts_eos_token_id,
+                                 model_cfg.tts_pad_token_id]], (n, 1)),
+            "role": input_id[:, :3]}   # "<|im_start|>assistant\n"
+    if s0.instruct_id is not None:
+        text["instruct"] = stack("instruct_id").reshape(n, -1)
+    if s0.ref_code is not None:
+        text["icl"] = np.concatenate([stack("ref_id").reshape(n, -1)[:, 3:-2],
+                                      input_id[:, 3:-5]], axis=1)
+    elif s0.non_streaming:
+        text["body"] = input_id[:, 3:-5]
+    else:
+        text["first"], text["rest"] = input_id[:, 3:4], input_id[:, 4:-5]
+    # think/language block (reference 2134-2147), then pad, bos
+    if s0.language_id is None:
+        think = [cfg.codec_nothink_id, cfg.codec_think_bos_id, cfg.codec_think_eos_id]
+    else:
+        think = [cfg.codec_think_id, cfg.codec_think_bos_id, int(s0.language_id),
+                 cfg.codec_think_eos_id]
+    ids = torch.as_tensor(np.concatenate(list(text.values()) + [np.tile(
+        think + [cfg.codec_pad_id, cfg.codec_bos_id], (n, 1))], axis=1), device=dev)
+    lens = [x.shape[1] for x in text.values()]
+    emb = dict(zip(text, torch.split(_embed_text(params, cfg, ids[:, :sum(lens)]), lens, 1)))
+    codec = params["codec_embedding"][ids[:1, sum(lens):]]            # (1, m, H)
+    codec_emb_0, pad_row, bos_row = codec[:, :-2], codec[:, -2:-1], codec[:, -1:]
+    tts_bos, tts_eos, tts_pad = (emb["special"][:, i:i + 1] for i in range(3))
+
+    H = codec.shape[-1]
+    if s0.speaker_embed is None:
+        codec_embed = torch.cat([codec_emb_0, pad_row, bos_row], dim=1).expand(n, -1, -1)
+    else:
+        spk = torch.stack([torch.as_tensor(s.speaker_embed).reshape(-1) for s in specs]).to(
+            device=dev, dtype=codec.dtype)
+        codec_embed = torch.cat([codec_emb_0.expand(n, -1, -1), spk[:, None],
+                                 torch.cat([pad_row, bos_row], dim=1).expand(n, -1, -1)],
+                                dim=1)
+    m = codec_embed.shape[1]
+    text_track = torch.cat([tts_pad.expand(n, m - 2, H), tts_bos], dim=1)
+    merged = text_track + codec_embed[:, :-1]
+    # instruct embeds lead the prefill (reference 2076-2080)
+    prompt = torch.cat(([emb["instruct"]] if "instruct" in emb else [])
+                       + [emb["role"], merged], dim=1)
+
+    if s0.ref_code is not None:
+        # ICL voice-clone block (generate_icl_prompt, reference 1968-2019)
+        text_embed = torch.cat([emb["icl"], tts_eos], dim=1)
+        ref_code = torch.as_tensor(stack("ref_code"), device=dev)
+        codec_icl = torch.cat([bos_row.expand(n, -1, -1),
+                               _frame_codec_embed(params, cfg, ref_code)], dim=1)
+        t_len, c_len = text_embed.shape[1], codec_icl.shape[1]
+        if s0.non_streaming:
+            icl = torch.cat([text_embed + pad_row, codec_icl + tts_pad], dim=1)
+            trailing = tts_pad
+        elif t_len > c_len:
+            icl = text_embed[:, :c_len] + codec_icl
+            trailing = text_embed[:, c_len:]
+        else:
+            icl = torch.cat([text_embed, tts_pad.expand(n, c_len - t_len, H)],
+                            dim=1) + codec_icl
+            trailing = tts_pad
+        return torch.cat([prompt, icl], dim=1), trailing, tts_pad[:1]
+
+    if s0.non_streaming:
+        # the first text token's position is dropped: the text rides codec_pad
+        body = torch.cat([emb["body"], tts_eos], dim=1) + pad_row
+        prompt = torch.cat([prompt, body, tts_pad + bos_row], dim=1)
+        trailing = tts_pad
+    else:
+        prompt = torch.cat([prompt, emb["first"] + codec_embed[:, -1:]], dim=1)
+        trailing = torch.cat([emb["rest"], tts_eos], dim=1)
+    return prompt, trailing, tts_pad[:1]
 
 
 def build_prompt(params, cfg: TalkerConfig, model_cfg: TTSModelConfig,
                  spec: PromptSpec) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Assemble one sample's prefill. Returns (input_embed (1, L, H),
     trailing_text (1, Tt, H), tts_pad_embed (1, 1, H))."""
-    dev = params["codec_embedding"].device
-    special = _embed_text(params, cfg, _ids(
-        [model_cfg.tts_bos_token_id, model_cfg.tts_eos_token_id,
-         model_cfg.tts_pad_token_id], dev))
-    tts_bos, tts_eos, tts_pad = special[:, 0:1], special[:, 1:2], special[:, 2:3]
-    input_id = _ids(spec.input_id, dev)
+    return _assemble_group(params, cfg, model_cfg, [spec])
 
-    parts: List[torch.Tensor] = []
-    if spec.instruct_id is not None:
-        parts.append(_embed_text(params, cfg, _ids(spec.instruct_id, dev)))
 
-    # think/language block (reference 2134-2147)
-    if spec.language_id is None:
-        codec_prefill = [cfg.codec_nothink_id, cfg.codec_think_bos_id,
-                         cfg.codec_think_eos_id]
-    else:
-        codec_prefill = [cfg.codec_think_id, cfg.codec_think_bos_id,
-                         int(spec.language_id), cfg.codec_think_eos_id]
-    codec_emb_0 = _embed_codec(params, _ids(codec_prefill, dev))
-    codec_emb_1 = _embed_codec(params, _ids([cfg.codec_pad_id, cfg.codec_bos_id], dev))
-    if spec.speaker_embed is None:
-        codec_embed = torch.cat([codec_emb_0, codec_emb_1], dim=1)
-    else:
-        spk = torch.as_tensor(spec.speaker_embed).to(
-            device=dev, dtype=codec_emb_0.dtype).reshape(1, 1, -1)
-        codec_embed = torch.cat([codec_emb_0, spk, codec_emb_1], dim=1)
-
-    # role: "<|im_start|>assistant\n" (first 3 tokens)
-    role_embed = _embed_text(params, cfg, input_id[:3])
-    n = codec_embed.shape[1]
-    text_track = torch.cat([tts_pad.expand(1, n - 2, tts_pad.shape[-1]), tts_bos],
-                           dim=1)
-    merged = text_track + codec_embed[:, :-1]
-    # instruct embeds lead the prefill (reference 2076-2080)
-    prompt = torch.cat(parts + [role_embed, merged], dim=1)
-
-    if spec.ref_code is not None:
-        # ICL voice-clone block (generate_icl_prompt, reference 1968-2019)
-        ref_id = _ids(spec.ref_id, dev)
-        text_embed = torch.cat([_embed_text(params, cfg, torch.cat(
-            [ref_id[3:-2], input_id[3:-5]])), tts_eos], dim=1)
-        ref_code = torch.as_tensor(np.asarray(spec.ref_code, np.int64), device=dev)
-        codec_icl = torch.cat([_embed_codec(params, _ids([cfg.codec_bos_id], dev)),
-                               _frame_codec_embed(params, cfg, ref_code)], dim=1)
-        t_len, c_len = text_embed.shape[1], codec_icl.shape[1]
-        if spec.non_streaming:
-            pad_ids = torch.full((t_len,), cfg.codec_pad_id, device=dev)
-            icl = torch.cat([text_embed + _embed_codec(params, pad_ids),
-                             codec_icl + tts_pad], dim=1)
-            trailing = tts_pad
-        elif t_len > c_len:
-            icl = text_embed[:, :c_len] + codec_icl
-            trailing = text_embed[:, c_len:]
-        else:
-            icl = torch.cat([text_embed, tts_pad.expand(1, c_len - t_len, -1)],
-                            dim=1) + codec_icl
-            trailing = tts_pad
-        return torch.cat([prompt, icl], dim=1), trailing, tts_pad
-
-    first_tok = _embed_text(params, cfg, input_id[3:4]) + codec_embed[:, -1:]
-    prompt = torch.cat([prompt, first_tok], dim=1)
-    if spec.non_streaming:
-        prompt = prompt[:, :-1]
-        body = torch.cat([_embed_text(params, cfg, input_id[3:-5]), tts_eos], dim=1)
-        pad_ids = torch.full((body.shape[1],), cfg.codec_pad_id, device=dev)
-        body = body + _embed_codec(params, pad_ids)
-        tail = tts_pad + _embed_codec(params, _ids([cfg.codec_bos_id], dev))
-        prompt = torch.cat([prompt, body, tail], dim=1)
-        trailing = tts_pad
-    else:
-        trailing = torch.cat([_embed_text(params, cfg, input_id[4:-5]), tts_eos], dim=1)
-    return prompt, trailing, tts_pad
+def _combine(groups, B: int, bucket: int):
+    """Left-pad the groups' prompts and right-pad their trailing text into
+    batch tensors: `groups` is [(prompt (n, L_g, H), trailing (n, Tt_g, H),
+    output rows (n,))] and one pad embedding (1, 1, H) ends the list. One
+    copy per group and tensor (the JAX package's `_combine_groups`); the
+    mask is built on the host."""
+    *groups, tts_pad = groups
+    L = -(-max(p.shape[1] for p, _, _ in groups) // bucket) * bucket
+    Tt = -(-max(t.shape[1] for _, t, _ in groups) // bucket) * bucket
+    H, dtype, dev = tts_pad.shape[-1], groups[0][0].dtype, tts_pad.device
+    batch = torch.zeros((B, L, H), dtype=dtype, device=dev)
+    trail = tts_pad.to(dtype).expand(B, Tt, H).clone()
+    mask = torch.zeros((B, L), dtype=torch.int32)
+    for prompt, trailing, rows in groups:
+        idx = torch.as_tensor(rows, device=dev)
+        batch[:, L - prompt.shape[1]:].index_copy_(0, idx, prompt.to(dtype))
+        trail[:, :trailing.shape[1]].index_copy_(0, idx, trailing.to(dtype))
+        mask[rows, L - prompt.shape[1]:] = 1
+    return batch, mask, trail, tts_pad
 
 
 def batch_prompts(prompts: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
@@ -150,35 +189,30 @@ def batch_prompts(prompts: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tens
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Left-pad a list of (prompt, trailing, pad) into batch tensors.
 
-    Returns (inputs_embeds (B, L, H), attn_mask (B, L) int32, trailing
-    (B, Tt, H), tts_pad_embed (1, 1, H)). Trailing hiddens are right-padded
-    with the pad embedding; `bucket` rounds L and Tt up (extra left padding
-    is masked; extra trailing columns hold the pad embedding, which matches
-    the text-exhausted branch of the dual-track merge)."""
-    tts_pad = prompts[0][2]
-    L = max(p[0].shape[1] for p in prompts)
-    Tt = max(p[1].shape[1] for p in prompts)
-    L = -(-L // bucket) * bucket
-    Tt = -(-Tt // bucket) * bucket
-    B, H = len(prompts), tts_pad.shape[-1]
-    dtype, dev = prompts[0][0].dtype, tts_pad.device
-    batch = torch.zeros((B, L, H), dtype=dtype, device=dev)
-    trail = tts_pad.to(dtype).expand(B, Tt, H).clone()
-    mask = torch.zeros((B, L), dtype=torch.int32, device=dev)
-    for i, (e, t, _) in enumerate(prompts):
-        batch[i, L - e.shape[1]:] = e[0].to(dtype)
-        trail[i, :t.shape[1]] = t[0].to(dtype)
-        mask[i, L - e.shape[1]:] = 1
-    return batch, mask, trail, tts_pad
+    Returns (inputs_embeds (B, L, H), attn_mask (B, L) int32 on the host,
+    trailing (B, Tt, H), tts_pad_embed (1, 1, H)). Trailing hiddens are
+    right-padded with the pad embedding; `bucket` rounds L and Tt up (extra
+    left padding is masked; extra trailing columns hold the pad embedding,
+    which matches the text-exhausted branch of the dual-track merge)."""
+    return _combine([(p, t, [i]) for i, (p, t, _) in enumerate(prompts)] + [prompts[0][2]],
+                    len(prompts), bucket)
 
 
 def assemble_prompt_specs(params, cfg: TalkerConfig, model_cfg: TTSModelConfig,
                           specs: Sequence[PromptSpec], bucket: int = 32
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """Assemble and batch many specs: the `batch_prompts` tuple. (The JAX
-    package groups same-shape specs into one vmapped program to save
-    dispatches; eager torch has nothing to gain from that, so each spec is
-    built on its own and the rows are identical.)"""
-    return batch_prompts([build_prompt(params, cfg, model_cfg, s) for s in specs],
-                         bucket=bucket)
+    """Assemble and batch many specs: the `batch_prompts` tuple, the mask on
+    the host (the prefill builds its flash plan from it without reading the
+    device). Same-shape specs (`_spec_group_key`) assemble as one group, as
+    the JAX package's vmapped program does, and the groups combine in one
+    copy each. Not captured: its shapes follow each text's length."""
+    groups: Dict[Any, List[int]] = {}
+    for i, s in enumerate(specs):
+        groups.setdefault(_spec_group_key(s), []).append(i)
+    built = []
+    for rows in groups.values():
+        prompt, trailing, tts_pad = _assemble_group(params, cfg, model_cfg,
+                                                    [specs[i] for i in rows])
+        built.append((prompt, trailing, rows))
+    return _combine(built + [tts_pad], len(specs), bucket)

@@ -88,12 +88,13 @@ class _ReqState:
 
 def _bucket_request(prompt: torch.Tensor, trailing: torch.Tensor, bucket: int = 16):
     """Left-pad a (1, T, H) prompt and right-pad a (1, Tt, H) trailing text to
-    length buckets, with the prompt's attention mask (the engine masks the
-    padding and takes rope positions from the mask)."""
+    length buckets, with the prompt's attention mask, on the host (the
+    engine masks the padding, takes rope positions from the mask and builds
+    the staging prefill's flash plan from it)."""
     T, Tt = prompt.shape[1], trailing.shape[1]
     L = -(-T // bucket) * bucket
     Tb = -(-Tt // bucket) * bucket
-    mask = torch.zeros((1, L), dtype=torch.int32, device=prompt.device)
+    mask = torch.zeros((1, L), dtype=torch.int32)
     mask[0, L - T:] = 1
     return (F.pad(prompt, (0, 0, L - T, 0)), mask, F.pad(trailing, (0, 0, 0, Tb - Tt)))
 

@@ -321,16 +321,21 @@ def test_server_clone_context_is_per_request(ckpt):  # noqa: F811
 
 def test_server_fused_talker_step_default(checkpoint):  # noqa: F811
     """The server's serve step follows the model's own default: kernel 2 on
-    an int8 model on a CUDA device (the port departs here from the JAX
-    rule, which serves the plain route unless asked, on the card's A/B of
-    the two routes), the plain route on the CPU; `overrides` still chooses
-    either, and the fused step carries whole 128-slot KV chunks into the
-    engine."""
+    an int8 model on a CUDA device where the talker's shapes fit it (the
+    port departs here from the JAX rule, which serves the plain route
+    unless asked, on the card's A/B of the two routes), the plain route on
+    the CPU and, on the card, at these tiny widths, which kernel 2 does not
+    take; `overrides` still chooses either, and the fused step carries whole
+    128-slot KV chunks into the engine."""
+    from qwen3_tts_tpu_torch.ops.cuda.talker_step import config_misfit
+
     _, tm = _models(checkpoint, jnp.bfloat16, torch.bfloat16, quantize="int8")
     assert _server(tm).gen_cfg.fused_talker_step is False
     tm.device = torch.device("cuda")   # the default is decided by the device type
-    assert tm._generation_config(tm._merge_generate_kwargs()).fused_talker_step
-    srv = _server(tm)
+    assert config_misfit(tm.config.talker_config) is not None
+    assert not tm._generation_config(tm._merge_generate_kwargs()).fused_talker_step
+    assert _server(tm).gen_cfg.fused_talker_step is False
+    srv = _server(tm, overrides={"fused_talker_step": True})
     assert srv.gen_cfg.fused_talker_step and srv.engine.max_len % 128 == 0
     assert _server(tm, overrides={"fused_talker_step": False}).gen_cfg.fused_talker_step is False
     srv = _server(tm, overrides={"fused_talker_step": True, "kv_quant": True})
