@@ -1,6 +1,6 @@
 """Where the time of the port's calls goes on one NVIDIA H100.
 
-    python3 chip_profile.py [--stages | --sft]
+    python3 chip_profile.py [--stages | --sft | --sft-mix]
 
 Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
 (random weights from its seed), then prints:
@@ -27,18 +27,27 @@ Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
    sampling per step (`--stages` runs this part alone).
 
 `--sft` instead profiles the SFT step at 1.7B in bf16 (chip_smoke's `sft`
-phase shapes: B=2, T=256, grad_accum 2, the speaker encoder): the ms of an
-optimizer cycle with the stacked layers walked by `unbind_layers` (as
-shipped) and by indexing layer by layer (the first design, whose backward
-builds a whole stacked gradient per layer), in the order A B B A in one
-process; then torch.profiler over one cycle: device time by kernel and the
-busy share.
+phase shapes: B=2, T=256, grad_accum 2, the speaker encoder), as captured
+graphs (the default route: one replay per mini-step) and inside
+`graphs.eager()`, in the order graph, eager, eager, graph in one process:
+the ms of an optimizer cycle, then torch.profiler over one cycle of each
+route: device time and launches by kind of kernel (GEMMs, the attention's
+softmax, the optimizer's fused multi-tensor kernels, the rest as
+elementwise), the top kernels and the busy share.
+
+`--sft-mix` runs `sft.main` at 1.7B on utterances of mixed length (several
+64-token buckets, shuffled), graphed, graphed with a bound of 8 graphs,
+and eager: ms per optimizer cycle, captures, the pool and the peak
+(`phase_sft_mix`).
 
 A diagnostic beside the smoke; it checks nothing that chip_smoke.py does not.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import subprocess
 import sys
 import time
@@ -178,7 +187,11 @@ def phase_profile(model, front, custom_voice_model) -> None:
             fn()
         kernels = {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            # a record_function range (AdamW's "Optimizer.step#AdamW.step")
+            # shows on the device's timeline too: it is no kernel
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("Optimizer.")
+                    and not getattr(e, "is_user_annotation", False)):
                 k = kernels.setdefault(e.name[:60], [0.0, 0])
                 k[0] += e.device_time / 1e3
                 k[1] += 1
@@ -287,17 +300,29 @@ def phase_engine_stages(params, cfg, device) -> None:
         build.load_library.cache_clear()
 
 
+SFT_KINDS = (   # (kind, substrings of a kernel's name), first match wins
+    ("optimizer", ("multi_tensor_apply", "foreach", "adam", "lpnorm")),
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "wgmma")),
+    ("attention", ("softmax",)),
+)
+
+
+def sft_kind(name: str) -> str:
+    low = name.lower()
+    return next((k for k, subs in SFT_KINDS if any(x in low for x in subs)), "elementwise")
+
+
 def phase_sft_profile(device) -> None:
-    """SFT cycles, layers unbound against layers indexed, then one profiled
-    cycle (see the module docstring)."""
+    """SFT cycles graphed and eager, then one profiled cycle of each (see
+    the module docstring)."""
     import numpy as np
 
     from chip_smoke import SFT_ACCUM, SFT_B, SFT_T, reference_clip, sft_batch
     from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig, TTSModelConfig
     from qwen3_tts_tpu_torch.finetune import train
-    from qwen3_tts_tpu_torch.models import talker
     from qwen3_tts_tpu_torch.models.speaker_encoder import speaker_encoder_forward
     from qwen3_tts_tpu_torch.ops.stft import mel_spectrogram
+    from qwen3_tts_tpu_torch.runtime import graphs
     from qwen3_tts_tpu_torch.utils.testing import (TALKER_1B7, random_talker_params,
                                                    speaker_encoder_state)
     from qwen3_tts_tpu_torch.weights import from_jax_tree, map_tensors
@@ -312,13 +337,12 @@ def phase_sft_profile(device) -> None:
     rng = np.random.default_rng(SEED + 11)
     tts_cfg = TTSModelConfig(talker_config=cfg, speaker_encoder_config=spk_cfg)
     batches = [sft_batch(tts_cfg, rng, SFT_T, SFT_B, ref_mel) for _ in range(SFT_ACCUM)]
-    unbound = talker.unbind_layers
+    params = train.trainable(random_talker_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED + 13), dtype=torch.bfloat16))
+    step = train.make_train_step(cfg, train.default_optimizer(params, lr=2e-5,
+                                                              grad_accum=SFT_ACCUM))
 
-    def indexed(stacked):
-        n = stacked["input_layernorm"]["weight"].shape[0]
-        return [map_tensors(stacked, lambda t, i=i: t[i]) for i in range(n)]
-
-    def cycle(params, step):
+    def cycle():
         for b in batches:
             tb = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
             with torch.no_grad():
@@ -326,49 +350,194 @@ def phase_sft_profile(device) -> None:
                                               tb.pop("ref_mels").to(torch.bfloat16))
             step(params, tb, spk)
 
-    def trained(route):
-        talker.unbind_layers = unbound if route == "unbind" else indexed
-        params = train.trainable(random_talker_params(
-            cfg, torch.Generator(device=device).manual_seed(SEED + 13), dtype=torch.bfloat16))
-        return params, train.make_train_step(cfg, train.default_optimizer(
-            params, lr=2e-5, grad_accum=SFT_ACCUM))
+    def route(name):
+        return graphs.eager() if name == "eager" else contextlib.nullcontext()
 
-    try:
-        for route in ("indexed", "unbind", "unbind", "indexed"):
-            params, step = trained(route)
-            ms = []
-            for _ in range(4):
+    cycle()   # the graphs' captures
+    walls = {"graph": [], "eager": []}
+    for name in ("graph", "eager", "eager", "graph"):
+        with route(name):
+            for _ in range(3):
                 torch.cuda.synchronize()
                 t0 = time.time()
-                cycle(params, step)
+                cycle()
                 torch.cuda.synchronize()
-                ms.append(1e3 * (time.time() - t0))
-            line("sft cycles", route=route, ms_per_cycle=f"{np.mean(ms[1:]):.1f}",
-                 cycles_ms=[f"{x:.1f}" for x in ms])
-            del params, step
-            torch.cuda.empty_cache()
-        params, step = trained("unbind")
-        cycle(params, step)
-        torch.cuda.synchronize()
+                walls[name].append(1e3 * (time.time() - t0))
+    for name, ms in walls.items():
+        line("sft cycles", route=name, ms_per_cycle=f"{np.median(ms):.1f}",
+             cycles_ms=[f"{x:.1f}" for x in ms])
+    for name in ("graph", "eager"):
+        with route(name):
+            with device_trace(str(TRACE_DIR / f"sft_cycle_{name}")) as prof:
+                cycle()
+        kernels, kinds = {}, {}
+        for e in prof.events():
+            # a record_function range (AdamW's "Optimizer.step#AdamW.step")
+            # shows on the device's timeline too: it is no kernel
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("Optimizer.")
+                    and not getattr(e, "is_user_annotation", False)):
+                k = kernels.setdefault(e.name[:60], [0.0, 0])
+                k[0] += e.device_time / 1e3
+                k[1] += 1
+                kd = kinds.setdefault(sft_kind(e.name), [0.0, 0])
+                kd[0] += e.device_time / 1e3
+                kd[1] += 1
+        total = sum(t for t, _ in kernels.values())
+        wall = float(np.median(walls[name]))
+        line("profile sft cycle", route=name, wall_ms=f"{wall:.1f}",
+             device_kernel_ms=f"{total:.1f}", busy_share=f"{total / wall:.3f}",
+             **{f"{k}_ms": f"{t:.1f}" for k, (t, _) in sorted(kinds.items())},
+             **{f"{k}_launches": n for k, (_, n) in sorted(kinds.items())})
+        for kname, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+            print(f"  {t:9.2f} ms {n:6d} launches  {kname}", flush=True)
+
+
+SFT_MIX_ROWS = 128             # utterances of the mixed-length run (64 mini-steps at B=2)
+SFT_MIX_SECONDS = (1.0, 20.0)  # their durations, uniform
+SFT_MIX_TOKENS_PER_S = 3.5     # text tokens per second of speech
+SFT_MIX_ACCUM = 4              # sft.main's default grad_accum (the reference recipe's)
+SFT_MIX_DIR = Path(__file__).resolve().parent / "build" / "sft_mix"
+
+
+def _rss_mib() -> float:
+    with open("/proc/self/status") as f:
+        kb = next(int(x.split()[1]) for x in f if x.startswith("VmRSS:"))
+    return kb / 1024
+
+
+def phase_sft_mix(device) -> None:
+    """`sft.main` end to end at TALKER_1B7 (bf16 base checkpoint written
+    under build/, the speaker encoder, B=2, grad_accum SFT_MIX_ACCUM, one
+    epoch) on SFT_MIX_ROWS utterances of SFT_MIX_SECONDS (12.5 codec frames
+    and SFT_MIX_TOKENS_PER_S text tokens a second, one stand-in id per
+    token, plus the chat template), which `sft.main` shuffles and pads to
+    multiples of 64 tokens: several (B, T) keys, as a real dataset gives.
+    Three runs in one process, in this order, each from the same base and
+    data order: the default route (graphs, MAX_TRAIN_GRAPHS), the same with
+    the bound at 8, and inside `graphs.eager()`. Each train step is timed
+    with a sync on both sides (`make_train_step` wrapped): ms per
+    optimizer cycle over all cycles and over the cycles without a capture,
+    padded tokens/s, the captures, the keys the owner held, the pool after
+    each capture (max), the run's own peak, the host's RSS growth over the
+    run and over each step that captured (the graph's host side)."""
+    import json
+    import os
+    import shutil
+
+    import numpy as np
+
+    from chip_smoke import StandInTokenizer, reference_clip
+    from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig, TTSModelConfig
+    from qwen3_tts_tpu_torch.finetune import sft, train
+    from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.utils.audio import write_wav
+    from qwen3_tts_tpu_torch.utils.testing import (TALKER_1B7, random_talker_params,
+                                                   speaker_encoder_state)
+    from qwen3_tts_tpu_torch.weights import (flatten_state_dict, save_safetensors,
+                                             talker_params_to_state_dict)
+
+    cfg = dataclasses.replace(TALKER_1B7, codec_language_id={"english": 1000})
+    spk_cfg = SpeakerEncoderConfig(enc_dim=cfg.hidden_size)
+    base = SFT_MIX_DIR / "base"
+    base.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    with open(base / "config.json", "w") as f:
+        json.dump(dataclasses.asdict(TTSModelConfig(
+            talker_config=cfg, speaker_encoder_config=spk_cfg, tts_model_type="base",
+            tts_model_size="1b7")), f)
+    sd = talker_params_to_state_dict(random_talker_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED + 20), dtype=torch.bfloat16), cfg)
+    sd.update(flatten_state_dict(speaker_encoder_state(spk_cfg, SEED + 21), "speaker_encoder"))
+    save_safetensors(str(base / "model.safetensors"), sd)
+    del sd
+    torch.cuda.empty_cache()
+    ref = SFT_MIX_DIR / "ref.wav"
+    write_wav(str(ref), reference_clip(24000)[:3 * 24000], 24000)
+    rng = np.random.default_rng(SEED + 22)
+    durations = rng.uniform(*SFT_MIX_SECONDS, SFT_MIX_ROWS)
+    with open(SFT_MIX_DIR / "train.jsonl", "w") as f:
+        for i, d in enumerate(durations):
+            text = "".join(chr(97 + x) for x in rng.integers(0, 26, int(SFT_MIX_TOKENS_PER_S * d) + 1))
+            f.write(json.dumps({"text": text, "audio_codes": rng.integers(
+                0, cfg.code_predictor_config.vocab_size,
+                (int(12.5 * d) + 1, cfg.num_code_groups)).tolist(), "ref_audio": str(ref)}) + "\n")
+    line("sft mix data", rows=SFT_MIX_ROWS, seconds=list(SFT_MIX_SECONDS),
+         write_s=f"{time.time() - t0:.1f}")
+
+    real = train.make_train_step
+
+    def run(name: str, bound: int, eager: bool) -> None:
+        steps, owners = [], []
+
+        def make(cfg_, opt):
+            step = real(cfg_, opt)
+
+            def timed(params, batch, spk):
+                r0 = _rss_mib()
+                torch.cuda.synchronize()
+                c0, s0 = graphs.stats(device)["captures"], time.perf_counter()
+                m = step(params, batch, spk)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - s0)
+                st = graphs.stats(device)
+                steps.append((tuple(batch["input_ids"].shape[:2]), ms, st["captures"] - c0,
+                              st["pool_bytes"], _rss_mib() - r0))
+                if not owners:
+                    owners.extend(t for d in graphs._DEVICES.values() for t in d.train
+                                  if t.optimizer is opt)
+                return m
+            return timed
+
+        graphs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0, rss0 = torch.cuda.memory_allocated(), _rss_mib()
+        train.make_train_step, old_bound = make, graphs.MAX_TRAIN_GRAPHS
+        graphs.MAX_TRAIN_GRAPHS = bound
+        out = SFT_MIX_DIR / f"out_{name}"
         t0 = time.time()
-        cycle(params, step)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        with device_trace(str(TRACE_DIR / "sft_cycle")) as prof:
-            cycle(params, step)
-    finally:
-        talker.unbind_layers = unbound
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name[:60], [0.0, 0])
-            k[0] += e.device_time / 1e3
-            k[1] += 1
-    total = sum(t for t, _ in kernels.values())
-    line("profile sft cycle", unprofiled_wall_s=f"{wall:.4f}", device_kernel_ms=f"{total:.1f}",
-         busy_share=f"{total / 1e3 / wall:.3f}")
-    for kname, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"  {t:9.2f} ms {n:6d} launches  {kname}", flush=True)
+        try:
+            with graphs.eager() if eager else contextlib.nullcontext():
+                sft.main(["--init_model_path", str(base), "--train_jsonl",
+                          str(SFT_MIX_DIR / "train.jsonl"), "--output_model_path", str(out),
+                          "--batch_size", "2", "--grad_accum", str(SFT_MIX_ACCUM),
+                          "--num_epochs", "1", "--speaker_row", "3000", "--device", str(device)],
+                         processor=StandInTokenizer(max_ids=None))
+        finally:
+            train.make_train_step, graphs.MAX_TRAIN_GRAPHS = real, old_bound
+        main_s = time.time() - t0
+        peak_gib = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+        held = len(owners[0].graphs) if owners else 0
+        shutil.rmtree(out, ignore_errors=True)
+        n = len(steps) // SFT_MIX_ACCUM * SFT_MIX_ACCUM
+        cycles = [steps[i:i + SFT_MIX_ACCUM] for i in range(0, n, SFT_MIX_ACCUM)]
+        cycle_ms = [sum(s[1] for s in c) for c in cycles]
+        clean = [sum(s[1] for s in c) for c in cycles if not any(s[2] for s in c)]
+        tokens = sum(b * t for (b, t), *_ in steps[:n])
+        Ts = sorted({t for (_, t), *_ in steps})
+        line("sft mix", route=name, bound=bound, mini_steps=len(steps), cycles=len(cycles),
+             T_buckets=Ts, keys=len({(s[0], i % SFT_MIX_ACCUM == SFT_MIX_ACCUM - 1)
+                                     for i, s in enumerate(steps)}),
+             captures=sum(s[2] for s in steps), graphs_held=held,
+             ms_per_cycle=f"{np.mean(cycle_ms):.1f}",
+             ms_per_cycle_without_capture=f"{np.mean(clean):.1f}" if clean else "none",
+             cycles_without_capture=len(clean),
+             train_s=f"{sum(cycle_ms) / 1e3:.2f}",
+             tokens_per_s=f"{tokens / sum(cycle_ms) * 1e3:.0f}",
+             pool_mib_max=f"{max(s[3] for s in steps) / 2**20:.1f}",
+             pool_mib_by_capture=[f"{s[3] / 2**20:.0f}" for s in steps if s[2]],
+             peak_gib=f"{peak_gib:.2f}", rss_growth_mib=f"{_rss_mib() - rss0:.0f}",
+             host_mib_by_capture=[f"{s[4]:.0f}" for s in steps if s[2]],
+             host_mib_other_steps=f"{sum(s[4] for s in steps if not s[2]):.0f}",
+             main_s=f"{main_s:.1f}")
+
+    run("graph", graphs.MAX_TRAIN_GRAPHS, False)
+    run("graph_bound8", 8, False)
+    run("eager", graphs.MAX_TRAIN_GRAPHS, True)
+    graphs.clear()
+    shutil.rmtree(SFT_MIX_DIR, ignore_errors=True)
 
 
 def main() -> int:
@@ -378,6 +547,9 @@ def main() -> int:
     device = torch.device("cuda")
     if sys.argv[1:] == ["--sft"]:      # the SFT step only (no kernel runs in it)
         phase_sft_profile(device)
+        return 0
+    if sys.argv[1:] == ["--sft-mix"]:  # sft.main on mixed lengths, graphed and eager
+        phase_sft_mix(device)
         return 0
     phase_build()
     if sys.argv[1:] == ["--stages"]:   # the decode kernels' stages only

@@ -117,6 +117,17 @@ Phases, each printing one line (any failure raises and exits non-zero):
    streams two ICL requests, each first packet the vocoder over its own
    reference frames, every code equal to the same run's inside
    `graphs.eager()`;
+   slice 12, `front_graphs`: the clone front end's graphs (the 12 Hz
+   encode per padded length, ECAPA per exact length, each captured at a
+   length's second call) against the eager programs on a 9 s cut of the
+   clip: codes equal, the x-vector within 1e-6; ms of a length's first
+   call (eager), second (the capture), a replay and eager; the clone
+   prompt's split into encode, ECAPA and host; 20 clip lengths encoded
+   once (no capture) and again, after which the vocoder's graphs are the
+   ones before; `clone server clips`: a warmed clone server (the encode of
+   every reference bucket captured) meets 8 distinct clips and one repeat
+   and captures nothing, an eager server meets 8 others; submit ms of
+   both, the prompts through the warmed graphs equal to eager;
 11. the 0.6B talker (`TALKER_0B6`, random int8 weights): kernel 1 without
    the small_to_mtp projection and kernel 2 at hidden 1024 against their
    twins at B=8, then `generate_custom_voice` of the smoke's texts;
@@ -136,6 +147,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
    `sft.main` end to end on a 0.6B base checkpoint under build/, whose
    epoch checkpoint reloads as an int8 custom-voice model with the new
    speaker and speaks;
+   slice 12, `sft_graphs`: those four cycles run as captured graphs (one
+   per (B, T, phase), 2 captures in the first cycle and none after it),
+   then four more inside `graphs.eager()`, 3 batches in turn: ms per
+   cycle and tokens/s of each route, the graph pool's bytes; and a 2-layer
+   fp32 step at 1.7B widths, graphed against eager from one start state
+   over six mini-steps on 3 batches in turn (every replay meets inputs
+   its capture never saw): losses, every leaf and both AdamW moments;
 14. the native FLAC path: native/flac_fast.c built at first use
    into build/native/; a 10 s FLAC written by utils/flac.py decodes to the
    same samples through the C loops and the pure-Python path (both walls);
@@ -242,8 +260,10 @@ FLASH_TILE_CASES = [(0, 0, 0, 0), (1, 5, 64, 128), (1, 15, 256, 256), (0, 9, 192
 # The flash/dense threshold: whole talker_prefill calls at B=4 (ragged
 # left padding), dense against flash, in one run.
 PREFILL_AB_T = (256, 512, 1024, 2048)
-# The server's route A/B: the same short mix served plain, then fused.
-ROUTE_SLOTS, ROUTE_REQUESTS, ROUTE_FRAMES = 8, 6, 16
+# The server's route A/B: the same short mix served plain and fused, in
+# ROUTE_ROUNDS measured rounds a route (one round's wall is well under a
+# second, so a single round is at the mercy of the host's load).
+ROUTE_SLOTS, ROUTE_REQUESTS, ROUTE_FRAMES, ROUTE_ROUNDS = 8, 6, 16, 5
 # A server past one launch's rows: every slot busy, drained.
 WIDE_SLOTS, WIDE_REQUESTS, WIDE_FRAMES = 48, 52, 12
 # Kernel vs twin. The twin (plain PyTorch, the reference's exact math) is
@@ -1491,21 +1511,30 @@ def phase_serve(model) -> dict:
     return g
 
 
-def _serve_mix(model, overrides, slots, n, frames, tag) -> dict:
-    """Serve n custom-voice requests (every other one streamed) on a fresh
-    TTSServer with `overrides` (None: the server's own defaults) after one
-    warm-up request; every request must complete. Returns the server, its
-    launches, requests/s and the streamed requests' first-packet p50."""
-    from qwen3_tts_tpu_torch.runtime.server import AudioPacket, AudioResult, TTSServer
+def _mix_server(model, overrides, slots, frames, tag):
+    """A fresh TTSServer with `overrides` (None: the server's own defaults),
+    warmed with one streamed request."""
+    from qwen3_tts_tpu_torch.runtime.server import TTSServer
 
     srv = TTSServer(model, num_slots=slots, overrides=overrides, max_new_tokens=frames,
                     seed=SEED)
     serve_all(srv, [lambda: srv.submit_custom_voice(f"{tag}-w", text=TEXTS[0], speaker="vivian",
                                                     language="english", stream=True)])
+    return srv
+
+
+def _serve_round(srv, n, tag) -> dict:
+    """Serve n custom-voice requests (every other one streamed) on `srv`;
+    every request must complete. Returns its launches, the graphs it
+    captured, requests/s and the streamed requests' first-packet p50."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.runtime.server import AudioPacket, AudioResult
+
     ids = [f"{tag}{i}" for i in range(n)]
     submits = [lambda rid=rid, i=i: srv.submit_custom_voice(
         rid, text=f"{TEXTS[i % len(TEXTS)]} Request {i}.", speaker="vivian",
         language="english", stream=i % 2 == 0) for i, rid in enumerate(ids)]
+    captures0 = graphs.stats(srv.model.device)["captures"]
     reset_launches()
     torch.cuda.synchronize()
     events, first, wall = serve_all(srv, submits)
@@ -1517,38 +1546,63 @@ def _serve_mix(model, overrides, slots, n, frames, tag) -> dict:
         if not (done and all(np.isfinite(e.wav).all() for e in mine)):
             raise AssertionError(f"{tag}: request {rid} did not complete: {mine}")
     fp = [first[rid] for i, rid in enumerate(ids) if i % 2 == 0]
-    return {"srv": srv, "launches": launches, "requests_per_s": n / wall, "wall": wall,
+    return {"launches": launches, "requests_per_s": n / wall, "wall": wall,
+            "captures": graphs.stats(srv.model.device)["captures"] - captures0,
             "first_packet_p50": float(np.percentile(fp, 50))}
+
+
+def _serve_mix(model, overrides, slots, n, frames, tag) -> dict:
+    """`_serve_round` of n requests on a fresh `_mix_server`; also returns
+    the server."""
+    srv = _mix_server(model, overrides, slots, frames, tag)
+    return {"srv": srv, **_serve_round(srv, n, tag)}
 
 
 def phase_serve_routes(model) -> dict:
     """The server's serve step on the card: the same short mix served on the
-    plain route (eager torch decode step), then on kernel 2, each on a fresh
-    server; requests/s and first-packet p50 of each. The server's default
-    (no override) must be the route that wins both metrics, and the plain
-    one unless the fused route wins both."""
+    plain route (eager torch decode step) and on kernel 2, each on its own
+    server. Each server first serves one unmeasured mix (every graph of the
+    mix's shapes captured), then ROUTE_ROUNDS measured ones, in the order
+    plain, fused, fused, plain, ... so that a drift of the host's speed
+    falls on both routes alike. Requests/s and first-packet p50 of each
+    route are the medians of its rounds. The server's default (no override)
+    must be the route that wins both metrics, and the plain one unless the
+    fused route wins both."""
     from qwen3_tts_tpu_torch.runtime.server import TTSServer
 
-    res = {}
-    for route in ("plain", "fused"):
-        r = _serve_mix(model, {"fused_talker_step": route == "fused"}, ROUTE_SLOTS,
-                       ROUTE_REQUESTS, ROUTE_FRAMES, route)
-        want = {"plain": 0, "fused": 1}[route]
-        if (r["launches"]["talker_step"] > 0) != bool(want):
-            raise AssertionError(f"{route} route launches {r['launches']}")
-        res[route] = r
+    routes = ("plain", "fused")
+    servers = {route: _mix_server(model, {"fused_talker_step": route == "fused"}, ROUTE_SLOTS,
+                                  ROUTE_FRAMES, route) for route in routes}
+    for route in routes:
+        _serve_round(servers[route], ROUTE_REQUESTS, f"{route}-u")
+    rounds = {route: [] for route in routes}
+    for k in range(ROUTE_ROUNDS):
+        for route in routes if k % 2 == 0 else routes[::-1]:
+            r = _serve_round(servers[route], ROUTE_REQUESTS, f"{route}{k}-")
+            if (r["launches"]["talker_step"] > 0) != (route == "fused"):
+                raise AssertionError(f"{route} route round {k} launches {r['launches']}")
+            rounds[route].append(r)
+    del servers
+    res = {route: {m: float(np.median([r[m] for r in rs]))
+                   for m in ("requests_per_s", "first_packet_p50")}
+           for route, rs in rounds.items()}
     fused_wins = (res["fused"]["requests_per_s"] > res["plain"]["requests_per_s"]
                   and res["fused"]["first_packet_p50"] < res["plain"]["first_packet_p50"])
     default = TTSServer(model, num_slots=ROUTE_SLOTS).gen_cfg.fused_talker_step
     line("serve route A/B", slots=ROUTE_SLOTS, requests=ROUTE_REQUESTS, streamed=ROUTE_REQUESTS // 2,
-         frames=ROUTE_FRAMES,
+         frames=ROUTE_FRAMES, rounds=ROUTE_ROUNDS,
          **{f"{k}_requests_per_s": f"{r['requests_per_s']:.3f}" for k, r in res.items()},
          **{f"{k}_first_packet_p50_s": f"{r['first_packet_p50']:.3f}" for k, r in res.items()},
+         **{f"{k}_rounds_requests_per_s": [f"{r['requests_per_s']:.3f}" for r in rs]
+            for k, rs in rounds.items()},
+         **{f"{k}_rounds_first_packet_p50_s": [f"{r['first_packet_p50']:.3f}" for r in rs]
+            for k, rs in rounds.items()},
+         **{f"{k}_rounds_captures": sum(r["captures"] for r in rs) for k, rs in rounds.items()},
          fused_wins_both=fused_wins, server_default="fused" if default else "plain")
     if default != fused_wins:
         raise AssertionError(f"the server defaults to the {'fused' if default else 'plain'} "
                              f"route; this run's A/B says {'fused' if fused_wins else 'plain'}")
-    return {k: {m: r[m] for m in ("requests_per_s", "first_packet_p50")} for k, r in res.items()}
+    return res
 
 
 def phase_serve_wide(model) -> dict:
@@ -1863,6 +1917,222 @@ def phase_serve_clone(model, front) -> None:
         raise AssertionError(f"clone serving launches {launches}, staging graphs {staging}")
     if not codes_equal:
         raise AssertionError("clone serving: graphed and eager staging give other codes")
+
+
+FRONT_ITERS = 5                # timed calls per route of the front-end programs
+FRONT_LENGTHS = 20             # distinct clip lengths encoded against the vocoder's graphs
+FRONT_CLIPS = 8                # distinct reference clips sent to a clone server
+XVEC_TOL = 1e-6                # the x-vector graphed against eager (max abs)
+
+
+def wall_ms(fn, n: int) -> tuple:
+    """(median host wall ms of n synchronised calls of fn, the last output)."""
+    times, out = [], None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times)), out
+
+
+def phase_front_graphs(model, front) -> dict:
+    """The clone front end's captured graphs (`runtime/graphs.py`
+    `FrontGraphs`: the 12 Hz encode per padded (rows, samples), ECAPA per
+    exact length, a key captured at its second call) against the eager
+    programs: a 9 s cut of the reference clip (a length the run has not
+    seen) through `Qwen3TTSTokenizer.encode` and
+    `extract_speaker_embedding`; the wall ms of each program's first call
+    of the length (eager: what a clip sent once costs), its second
+    (warm-up, capture and replay), a replay and the eager program (medians
+    of FRONT_ITERS); no capture at the first call, one at the second; the
+    codes equal and the x-vector within XVEC_TOL, graphed against eager;
+    `create_voice_clone_prompt`'s split into encode, ECAPA and the host's
+    part (resampling, normalisation, copies), graphed and eager; then
+    FRONT_LENGTHS clip lengths, after `graphs.clear`, encoded once each (no
+    capture) and again (one capture each), after which the vocoder's graphs
+    must be the ones before, count and keys."""
+    from qwen3_tts_tpu_torch.inference import model as api
+    from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer
+    from qwen3_tts_tpu_torch.models.speaker_encoder import extract_speaker_embedding
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    tok, sr = model.speech_tokenizer, front["sr"]
+    clip = front["wav"][:9 * sr]
+    spk_params, spk_cfg = model.speaker_encoder_params, model.config.speaker_encoder_config
+    programs = {"encode": lambda: tok.encode((clip, sr)).audio_codes[0],
+                "ecapa": lambda: extract_speaker_embedding(spk_params, spk_cfg, clip).cpu()}
+
+    def captures():
+        return graphs.stats(model.device)["captures"]
+
+    res, outs = {}, {}
+    for name, fn in programs.items():
+        c0 = captures()
+        first, outs[name, "first"] = wall_ms(fn, 1)
+        c1 = captures()
+        second, outs[name, "graph"] = wall_ms(fn, 1)
+        c2 = captures()
+        replay, again = wall_ms(fn, FRONT_ITERS)
+        with graphs.eager():
+            eager, outs[name, "eager"] = wall_ms(fn, FRONT_ITERS)
+        if (c1 - c0, c2 - c1, captures() - c2) != (0, 1, 0):
+            raise AssertionError(f"front end {name}: captures {c1 - c0}, {c2 - c1}, "
+                                 f"{captures() - c2} at a length's first, second and later calls")
+        if not np.array_equal(np.asarray(again), np.asarray(outs[name, "graph"])):
+            raise AssertionError(f"front end {name}: a replay differs from its capture's call")
+        res[name] = dict(first_ms=first, second_ms=second, replay_ms=replay, eager_ms=eager)
+    codes_equal = np.array_equal(outs["encode", "graph"], outs["encode", "eager"])
+    xvec_err = float(np.abs(outs["ecapa", "graph"].numpy() - outs["ecapa", "eager"].numpy()).max())
+
+    parts = ((Qwen3TTSTokenizer, "encode", "encode"),
+             (api, "extract_speaker_embedding", "ecapa"))
+    split = {}
+    for route in ("graph", "eager"):
+        with graphs.eager() if route == "eager" else contextlib.nullcontext():
+            model.create_voice_clone_prompt((clip, sr), ref_text=CLONE_REF_TEXT)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with owner_device_ms(parts) as sp:
+                model.create_voice_clone_prompt((clip, sr), ref_text=CLONE_REF_TEXT)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        split[route] = dict(wall_ms=wall, encode_ms=sp["encode"], ecapa_ms=sp["ecapa"],
+                            host_ms=wall - sp["encode"] - sp["ecapa"])
+
+    # the lengths start unseen (earlier phases met some of their buckets),
+    # beside a vocoder graph to keep
+    graphs.clear(model.device)
+    dev = graphs._device(model.device)
+    tok.decode([{"audio_codes": front["items"][0].ref_code}])
+    vocoder = list(dev.codec.graphs)
+    bucket = 8 * tok.get_encode_downsample_rate()
+    long_wav = np.tile(front["wav"], -(-(FRONT_LENGTHS + 1) * bucket // len(front["wav"])))
+    walls, counts = [], []
+    for _ in range(2):
+        before = captures()
+        t0 = time.perf_counter()
+        for k in range(1, FRONT_LENGTHS + 1):   # buckets 2 to FRONT_LENGTHS + 1
+            tok.encode((long_wav[:k * bucket + 77], sr))
+        walls.append(time.perf_counter() - t0)
+        counts.append(captures() - before)
+    st = graphs.stats(model.device)
+    kept = list(dev.codec.graphs) == vocoder
+    line("front_graphs", clip_s=9, **{f"{n}_{k}": f"{v:.2f}" for n, r in res.items()
+                                      for k, v in r.items()},
+         codes_equal_eager=codes_equal, xvector_max_abs=f"{xvec_err:.3g}",
+         **{f"split_{route}": {k: f"{v:.2f}" for k, v in sp.items()}
+            for route, sp in split.items()},
+         lengths=FRONT_LENGTHS, lengths_once_s=f"{walls[0]:.2f}",
+         lengths_once_captures=counts[0], lengths_again_s=f"{walls[1]:.2f}",
+         lengths_again_captures=counts[1], encode_graphs=st["encode_graphs"],
+         ecapa_graphs=st["ecapa_graphs"], vocoder_graphs=len(vocoder),
+         vocoder_graphs_kept=kept, pool_mib=f"{st['pool_bytes'] / 2**20:.1f}")
+    if not codes_equal or not xvec_err <= XVEC_TOL:
+        raise AssertionError(f"front end graphed vs eager: codes equal {codes_equal}, "
+                             f"x-vector max abs {xvec_err}")
+    if counts != [0, FRONT_LENGTHS]:
+        raise AssertionError(f"captures {counts} for {FRONT_LENGTHS} lengths seen once, then "
+                             "again (want none, then one each)")
+    if not kept or not vocoder:
+        raise AssertionError(f"{FRONT_LENGTHS} clip lengths changed the vocoder's "
+                             f"{len(vocoder)} graphs")
+    return dict(res, split=split)
+
+
+def phase_clone_server_clips(model, front) -> dict:
+    """Clone servers meeting distinct reference clips (2.5 to 9.5 s cut
+    from the reference clip at seeded lengths and offsets, each request
+    sending its clip as `ref_audio`, so that the server's submit runs the
+    front end on the thread of its ticks): a graphed server, after
+    `TTSServer.warmup()` (which captures the encode of every reference
+    bucket its prefill admits), takes FRONT_CLIPS clips and the first once
+    more; then a server inside `graphs.eager()` takes FRONT_CLIPS other
+    clips and the first of them once more (lengths neither met before, as
+    a server meets new users; the encode buckets are warm for both, the
+    eager route's through the warm-up's eager first calls). Gates: the
+    graphed server's traffic captures nothing (`graphs.replay_only`) and
+    completes; then each of its clips' prompt (`create_voice_clone_prompt`
+    inside `replay_only`, through the warmed graphs) has the eager route's
+    codes and an x-vector within XVEC_TOL. Prints the warm-up's seconds and
+    graphs, the submit ms p50 and max, the wall and requests/s of both."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.runtime.server import AudioResult, TTSServer
+
+    rng = np.random.default_rng(SEED + 19)
+    wav, sr = front["wav"], front["sr"]
+    sets = []
+    for _ in range(2):
+        clips = []
+        for _ in range(FRONT_CLIPS):
+            n = int(rng.integers(int(2.5 * sr), int(9.5 * sr)))
+            off = int(rng.integers(0, len(wav) - n))
+            clips.append(wav[off:off + n])
+        sets.append(clips + [clips[0]])
+
+    def serve(eager: bool, clips) -> dict:
+        with graphs.eager() if eager else contextlib.nullcontext():
+            srv = TTSServer(model, num_slots=4, prefill_bucket=512, overrides=SERVE_OVERRIDES,
+                            max_new_tokens=CLONE_MAX_NEW_TOKENS // 2, seed=SEED)
+            c0 = graphs.stats(model.device)
+            warm_s = 0.0 if eager else srv.warmup()
+            c1 = graphs.stats(model.device)
+            submit_ms = []
+            t0 = time.perf_counter()
+            for i, c in enumerate(clips):
+                s0 = time.perf_counter()
+                srv.submit_voice_clone(f"c{i}", text="A short line in the cloned voice.",
+                                       language="english", ref_audio=(c, sr),
+                                       ref_text=CLONE_REF_TEXT)
+                submit_ms.append(1e3 * (time.perf_counter() - s0))
+            done = [e for e in srv.run_until_drained() if isinstance(e, AudioResult)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c2 = graphs.stats(model.device)
+        return dict(warm_s=warm_s, warm_captures=c1["captures"] - c0["captures"],
+                    encode_graphs=c1["encode_graphs"], submit_ms=submit_ms, wall=wall,
+                    done=len(done), captures=c2["captures"] - c1["captures"])
+
+    graphs.clear(model.device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {"graph": serve(False, sets[0]), "eager": serve(True, sets[1])}
+    g = runs["graph"]
+    # the warmed encode graphs and the eager front end on the graphed
+    # server's clips: equal codes, the x-vector within XVEC_TOL
+    codes_equal, xvec_err = True, 0.0
+    before = graphs.stats(model.device)["captures"]
+    for c in sets[0][:FRONT_CLIPS]:
+        with graphs.replay_only():
+            a = model.create_voice_clone_prompt((c, sr), ref_text=CLONE_REF_TEXT)[0]
+        with graphs.eager():
+            b = model.create_voice_clone_prompt((c, sr), ref_text=CLONE_REF_TEXT)[0]
+        codes_equal &= np.array_equal(a.ref_code, b.ref_code)
+        xvec_err = max(xvec_err, float(np.abs(np.asarray(a.ref_spk_embedding)
+                                              - np.asarray(b.ref_spk_embedding)).max()))
+    prompt_captures = graphs.stats(model.device)["captures"] - before
+    for name, r in runs.items():
+        line(f"clone server clips {name}", clips=FRONT_CLIPS + 1, distinct=FRONT_CLIPS,
+             completed=r["done"], warmup_s=f"{r['warm_s']:.3f}",
+             warmup_captures=r["warm_captures"], encode_graphs=r["encode_graphs"],
+             submit_ms_p50=f"{np.median(r['submit_ms']):.2f}",
+             submit_ms_max=f"{max(r['submit_ms']):.2f}",
+             submit_ms=[f"{x:.2f}" for x in r["submit_ms"]], wall_s=f"{r['wall']:.3f}",
+             requests_per_s=f"{(FRONT_CLIPS + 1) / r['wall']:.3f}",
+             traffic_captures=r["captures"])
+    line("clone server clips prompts", clips=FRONT_CLIPS, codes_equal_eager=codes_equal,
+         xvector_max_abs=f"{xvec_err:.3g}", captures=prompt_captures)
+    if g["captures"] or not g["encode_graphs"] or prompt_captures:
+        raise AssertionError(f"clone server: {g['captures']} captures by the traffic after "
+                             f"a warm-up of {g['encode_graphs']} encode graphs")
+    if any(r["done"] != FRONT_CLIPS + 1 for r in runs.values()):
+        raise AssertionError(f"clone server clips: completed {[r['done'] for r in runs.values()]}")
+    if not codes_equal or not xvec_err <= XVEC_TOL:
+        raise AssertionError(f"clone server clips: prompts graphed vs eager: codes equal "
+                             f"{codes_equal}, x-vector max abs {xvec_err}")
+    graphs.clear(model.device)
+    return runs
 
 
 def prefill_ab(model, specs, tag: str, **kw) -> dict:
@@ -2461,6 +2731,8 @@ SFT_HOST_T = 64               # the 2-layer card-vs-host check's sequence length
 SFT_LOSS_REL_TOL = 1e-5
 SFT_GRAD_REL_TOL = 1e-3       # relative L2 per leaf, fp32 with TF32 off
 SFT_DIR = "build/sft"
+SFT_GRAPH_STEPS = 6           # mini-steps of the graphed-against-eager check (3 cycles)
+SFT_BATCHES = 3               # batches of one shape taken in turn: a replay meets new inputs
 
 
 def v1_config_json(cfg) -> dict:
@@ -2654,6 +2926,7 @@ def phase_sft(device, cfg=None, cfg_main=None) -> dict:
     from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel
     from qwen3_tts_tpu_torch.models.speaker_encoder import speaker_encoder_forward
     from qwen3_tts_tpu_torch.ops.stft import mel_spectrogram
+    from qwen3_tts_tpu_torch.runtime import graphs
     from qwen3_tts_tpu_torch.utils.audio import load_audio, write_wav
     from qwen3_tts_tpu_torch.utils.testing import (TALKER_0B6, TALKER_1B7, random_talker_params,
                                                    speaker_encoder_state)
@@ -2686,25 +2959,46 @@ def phase_sft(device, cfg=None, cfg_main=None) -> dict:
              if k in ("codec_head", "layers.mlp.down_proj.weight",
                       "code_predictor.lm_heads", "text_embedding")}
     T = SFT_T
-    batches = [sft_batch(tts_cfg, rng, T, SFT_B, ref_mel) for _ in range(SFT_ACCUM)]
-    losses, cycle_ms = [], []
-    for cycle in range(SFT_CYCLES):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for b in batches:
-            tb = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
-            with torch.no_grad():
-                spk = speaker_encoder_forward(spk_params, spk_cfg,
-                                              tb.pop("ref_mels").to(torch.bfloat16))
-            m = step(params, tb, spk)
-            losses.append(float(m["loss"]))
-        if not m["updated"]:
-            raise AssertionError("a cycle of grad_accum steps did not update")
-        torch.cuda.synchronize()
-        cycle_ms.append(1e3 * (time.time() - t0))
+    # SFT_BATCHES batches taken in turn: each replay meets a batch its
+    # graph's capture did not see
+    batches = [sft_batch(tts_cfg, rng, T, SFT_B, ref_mel) for _ in range(SFT_BATCHES)]
+
+    def cycles():
+        """SFT_CYCLES optimizer cycles: (losses, ms per cycle, the device's
+        capture count after the first cycle)."""
+        losses, cycle_ms, first = [], [], None
+        for cycle in range(SFT_CYCLES):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for i in range(SFT_ACCUM):
+                b = batches[(cycle * SFT_ACCUM + i) % SFT_BATCHES]
+                tb = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+                with torch.no_grad():
+                    spk = speaker_encoder_forward(spk_params, spk_cfg,
+                                                  tb.pop("ref_mels").to(torch.bfloat16))
+                m = step(params, tb, spk)
+                losses.append(float(m["loss"]))
+            if not m["updated"]:
+                raise AssertionError("a cycle of grad_accum steps did not update")
+            torch.cuda.synchronize()
+            cycle_ms.append(1e3 * (time.time() - t0))
+            if first is None:
+                first = graphs.stats(device)["captures"]
+        return losses, cycle_ms, first
+
+    # the default route (each mini-step one replay after its key's first
+    # call), then the same params and optimizer inside graphs.eager()
+    captures0 = graphs.stats(device)["captures"]
+    losses, cycle_ms, captures1 = cycles()
+    late_captures = graphs.stats(device)["captures"] - captures1
+    pool = graphs.stats(device)["pool_bytes"]
     peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30   # the training's own
     if not np.isfinite(losses).all():
         raise AssertionError(f"SFT losses {losses}")
+    # one graph per phase (fold, fold + update) of the one (B, T)
+    if captures1 - captures0 != min(SFT_ACCUM, 2) or late_captures:
+        raise AssertionError(f"SFT graphs: {captures1 - captures0} captures in the first "
+                             f"cycle, {late_captures} after it")
     flat = flatten_state_dict(params)
     moved = {k: bool((flat[k].detach() != v).any()) for k, v in watch.items()}
     states = opt.adamw.state
@@ -2716,6 +3010,20 @@ def phase_sft(device, cfg=None, cfg_main=None) -> dict:
         raise AssertionError("an AdamW state did not advance")
     ms = float(np.mean(cycle_ms[1:]))
     tokens = SFT_B * T * SFT_ACCUM
+    with graphs.eager():
+        eager_losses, eager_cycle_ms, _ = cycles()
+    if not np.isfinite(eager_losses).all() or graphs.stats(device)["captures"] != captures1:
+        raise AssertionError(f"SFT eager cycles: losses {eager_losses}")
+    eager_ms = float(np.mean(eager_cycle_ms[1:]))
+    line("sft_graphs", model="1.7B" if cfg == TALKER_1B7 else "cut", dtype="bf16", B=SFT_B,
+         T=T, grad_accum=SFT_ACCUM, ms_per_cycle_graph=f"{ms:.1f}",
+         ms_per_cycle_eager=f"{eager_ms:.1f}",
+         tokens_per_s_graph=f"{tokens / ms * 1e3:.0f}",
+         tokens_per_s_eager=f"{tokens / eager_ms * 1e3:.0f}",
+         cycles_ms_graph=[f"{x:.1f}" for x in cycle_ms],
+         cycles_ms_eager=[f"{x:.1f}" for x in eager_cycle_ms],
+         first_cycle_captures=captures1 - captures0, later_captures=late_captures,
+         pool_mib=f"{pool / 2**20:.1f}", peak_gib=f"{peak_gib:.2f}")
     # where a cycle goes: one mini-step's forward + backward, one update
     tb = {k: torch.as_tensor(v, device=device) for k, v in batches[0].items()}
     with torch.no_grad():
@@ -2736,6 +3044,8 @@ def phase_sft(device, cfg=None, cfg_main=None) -> dict:
     torch.cuda.synchronize()
     update_ms = 1e3 * (time.time() - t0)
     del params, opt, step, watch, states, flat, grads
+    graphs.clear()   # the pool's ~20 GB go back once no graph is left
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 2. full widths at 2 layers, fp32: the card against the host
@@ -2826,6 +3136,87 @@ def phase_sft(device, cfg=None, cfg_main=None) -> dict:
     return dict(ms=ms, tokens_per_s=tokens / ms * 1e3, peak_gib=peak_gib)
 
 
+
+
+def phase_sft_graphs(device, cfg=None) -> dict:
+    """The SFT step's captured graphs against the eager step: TALKER_1B7's
+    widths at 2 layers (talker and code predictor) in fp32, TF32 off, one
+    start state, SFT_GRAPH_STEPS mini-steps at grad_accum 2 over
+    SFT_BATCHES batches of one shape (and speaker vectors) taken in turn,
+    so that every replay meets inputs its capture never saw, on the default
+    route (each key's first call eager, then replays: 2 captures, 4
+    replays) and inside `graphs.eager()`: each replay's loss differs from
+    its key's capture-time loss; the losses within SFT_LOSS_REL_TOL, every
+    leaf and both AdamW moments of every leaf within SFT_GRAD_REL_TOL
+    (relative L2)."""
+    from qwen3_tts_tpu_torch.config import TTSModelConfig
+    from qwen3_tts_tpu_torch.finetune import train
+    from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.utils.testing import TALKER_1B7, random_talker_params
+    from qwen3_tts_tpu_torch.weights import map_tensors
+
+    cfg = cfg or TALKER_1B7
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2, code_predictor_config=dataclasses.replace(
+        cfg.code_predictor_config, num_hidden_layers=2))
+    rng = np.random.default_rng(SEED + 17)
+    ref_mel = np.zeros((1, 8, 128), np.float32)
+    batches = []
+    for _ in range(SFT_BATCHES):
+        b = sft_batch(TTSModelConfig(talker_config=cfg2), rng, SFT_HOST_T, SFT_B, ref_mel)
+        b.pop("ref_mels")
+        spk = rng.normal(0, 0.05, (SFT_B, cfg.hidden_size)).astype(np.float32)
+        batches.append(({k: torch.as_tensor(v, device=device) for k, v in b.items()},
+                        torch.from_numpy(spk).to(device)))
+    start = random_talker_params(cfg2, torch.Generator(device=device).manual_seed(SEED + 18),
+                                 dtype=torch.float32)
+    runs = {}
+    for route in ("graph", "eager"):
+        params = train.trainable(map_tensors(start, lambda t: t.clone()))
+        opt = train.default_optimizer(params, lr=1e-3, grad_accum=2)
+        step = train.make_train_step(cfg2, opt)
+        before = dict(graphs.stats(device))
+        with graphs.eager() if route == "eager" else contextlib.nullcontext():
+            losses = [float(step(params, *batches[i % SFT_BATCHES])["loss"])
+                      for i in range(SFT_GRAPH_STEPS)]
+        after = graphs.stats(device)
+        runs[route] = dict(
+            losses=losses, leaves=[p.detach() for p in opt.leaves],
+            moments=[(opt.adamw.state[p]["exp_avg"], opt.adamw.state[p]["exp_avg_sq"])
+                     for p in opt.leaves],
+            captures=after["captures"] - before["captures"],
+            replays=after["replays"] - before["replays"])
+        del params, opt, step
+    del start
+    g, e = runs["graph"], runs["eager"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], e["losses"]))
+    leaf_rel = max(rel_err(a, b) for a, b in zip(g["leaves"], e["leaves"]) if b.any())
+    moment_rel = max(rel_err(a, b) for ga, ea in zip(g["moments"], e["moments"])
+                     for a, b in zip(ga, ea) if b.any())
+    # mini-steps 0 and 1 are the captures (fold, fold + update); each later
+    # one replays the graph of its phase on a batch that capture never saw
+    new_inputs = all(g["losses"][i] != g["losses"][i % 2] for i in range(2, SFT_GRAPH_STEPS))
+    line("sft_graphs fp32 2-layer", steps=SFT_GRAPH_STEPS, grad_accum=2, T=SFT_HOST_T,
+         batches=SFT_BATCHES, graph_captures=g["captures"], graph_replays=g["replays"],
+         eager_captures=e["captures"], replays_differ_from_captures=new_inputs,
+         loss_rel=f"{loss_rel:.2e}", leaf_rel=f"{leaf_rel:.2e}",
+         moment_rel=f"{moment_rel:.2e}", losses=[f"{x:.5f}" for x in g["losses"]])
+    if not new_inputs:
+        raise AssertionError(f"SFT graphs: a replay's loss equals its capture's {g['losses']}")
+    if (g["captures"], g["replays"], e["captures"], e["replays"]) != (
+            2, SFT_GRAPH_STEPS - 2, 0, 0):
+        raise AssertionError(f"SFT graphs: captures / replays {g['captures']} / "
+                             f"{g['replays']} graphed, {e['captures']} / {e['replays']} eager")
+    if (loss_rel > SFT_LOSS_REL_TOL or leaf_rel > SFT_GRAD_REL_TOL
+            or moment_rel > SFT_GRAD_REL_TOL):
+        raise AssertionError(f"SFT graphed vs eager: loss {loss_rel}, leaves {leaf_rel}, "
+                             f"moments {moment_rel}")
+    del runs, g, e
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, leaf_rel=leaf_rel, moment_rel=moment_rel)
 
 
 # ---------------------------------------------------------------------------
@@ -3520,6 +3911,8 @@ def run(cfg, device) -> list:
                                                     False, front["items"], False)[0],
         kv_quant=True, max_new_tokens=CLONE_MAX_NEW_TOKENS), up, CLONE_MAX_NEW_TOKENS - 1)
     phase_serve_clone(clone_model, front)
+    phase_front_graphs(clone_model, front)
+    phase_clone_server_clips(clone_model, front)
     del model, clone_model
     from qwen3_tts_tpu_torch.runtime import graphs
 
@@ -3529,6 +3922,7 @@ def run(cfg, device) -> list:
     phase_0b6(device)
     phase_codec25(device)
     phase_sft(device)
+    phase_sft_graphs(device)
     phase_flac_native()
     phase_parallel(device)
     phase_evaluation(device)

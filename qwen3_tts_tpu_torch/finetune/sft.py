@@ -6,7 +6,10 @@ which rebuilds finetuning/sft_12hz.py):
 
 - the base checkpoint loads in bf16 on `--device` (the card unless the
   caller passes `--device cpu`); one train step per full batch, gradient
-  accumulation over `--grad_accum` steps (`finetune/train.py`);
+  accumulation over `--grad_accum` steps (`finetune/train.py`); on the card
+  with no mesh each step is one replay of a captured graph per (B, T,
+  phase) (`make_train_step`), while the speaker encoder runs eagerly per
+  batch, as the JAX package's `sft.py` runs it op by op;
 - data and tensor parallel over `torch.distributed` (`parallel/mesh.py`):
 
       torchrun --nproc_per_node N -m qwen3_tts_tpu_torch.finetune.sft ... \

@@ -19,7 +19,10 @@ no flash kernel (it has no backward). The optimizer is the JAX package's
 weight_decay=0.01)), k)`: gradients averaged over k calls (a running mean in
 the params' dtype, as MultiSteps keeps it), the average clipped by optax's
 rule (scaled by max / norm only when norm >= max), then `torch.optim.AdamW`
-(eps 1e-8, decoupled decay; states in the params' dtype).
+(eps 1e-8, decoupled decay; states in the params' dtype). On a CUDA device
+with no mesh one mini-step is one replay of a captured graph
+(`make_train_step`, `runtime/graphs.py` `TrainGraphs`), the counterpart of
+the JAX package's `sft.py` and its `jax.jit(make_train_step(...))`.
 
 Under a mesh (`parallel/mesh.py`) each rank holds its tensor-parallel
 shards and its dp share of the batch rows. The talker and sub-talker run
@@ -166,10 +169,25 @@ class SFTOptimizer:
     adamw(lr, weight_decay)), every_k_schedule=grad_accum) over the leaves of
     a parameter tree, with `torch.optim.AdamW` as its inner update.
 
-    `accumulate(grads)` folds one call's gradients into the running mean;
-    on every grad_accum-th call it clips the mean, steps AdamW and returns
-    True (the params changed). `last_norm` is the global norm of the mean
-    the last update clipped (before clipping).
+    `accumulate(grads)` folds one call's gradients into the running mean
+    (copies of them: the caller's tensors stay as they are); on every
+    grad_accum-th call it clips the mean, steps AdamW and returns True (the
+    params changed). `last_norm` is the global norm of the mean the last update
+    clipped (before clipping), read from the device when asked.
+
+    The device work reads nothing back to the host, so that one mini-step
+    can be captured as a CUDA graph (`runtime/graphs.py` `TrainGraphs`):
+    the mini-step counter lives on the host (`begin` / `finish`), the fold
+    divides by a device scalar that `begin` fills (`count`, n + 1), the
+    clip is optax's select on the device, and the fold, the norm and the
+    clip run over the leaf lists with `torch._foreach_*` (one launch per
+    operation and dtype), in place: `apply` folds in the gradients it is
+    handed (a mini-step's own, thrown away after it), the clip works in
+    the mean, which AdamW reads as the gradient and which is zeroed after
+    the step. So a mini-step holds no params-sized temporary beyond its
+    gradients. On CUDA, AdamW is
+    `capturable` (its step counts live on the device); on the CPU it keeps
+    its default settings.
 
     Under a mesh the leaves are this rank's shards and `sharded` (one bool
     per leaf, `param_flags` of the plan) marks the tensor-parallel ones:
@@ -181,43 +199,87 @@ class SFTOptimizer:
         self.leaves = param_leaves(params)
         self.mesh = mesh
         self.sharded = list(sharded) if sharded is not None else [False] * len(self.leaves)
+        device = self.leaves[0].device
         self.adamw = torch.optim.AdamW(self.leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=weight_decay)
+                                       weight_decay=weight_decay,
+                                       capturable=device.type == "cuda")
         self.clip_norm = float(clip_norm)
         self.grad_accum = int(grad_accum)
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in self.leaves]
-        self.last_norm: Optional[float] = None
+        self.count = torch.ones((), dtype=torch.float32, device=device)   # the fold's n + 1
+        self.norm = torch.zeros((), dtype=torch.float32, device=device)   # the last update's
+        self.updates = 0
+        self.version = 0    # bumped where the AdamW state tensors are replaced
+        self._dtypes: Dict[torch.dtype, List[int]] = {}
+        for i, p in enumerate(self.leaves):
+            self._dtypes.setdefault(p.dtype, []).append(i)
 
-    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        squares = [(g.to(torch.float32) ** 2).sum() for g in grads]
-        if self.mesh is None:
-            return torch.sqrt(sum(squares))
-        zero = squares[0].new_zeros(())
-        split = sum((q for q, s in zip(squares, self.sharded) if s), zero)
-        whole = sum((q for q, s in zip(squares, self.sharded) if not s), zero)
-        return torch.sqrt(all_reduce(split, self.mesh.tp_group) + whole)
+    @property
+    def last_norm(self) -> Optional[float]:
+        return float(self.norm) if self.updates else None
+
+    def begin(self) -> bool:
+        """Fill the fold's count for this mini-step (a device fill, nothing
+        read back); whether it ends with an update."""
+        self.count.fill_(self.mini_step + 1)
+        return self.mini_step + 1 >= self.grad_accum
+
+    def finish(self, update: bool) -> None:
+        """Advance the host's mini-step counter past a mini-step `begin`
+        started."""
+        self.mini_step = 0 if update else self.mini_step + 1
+        self.updates += int(update)
 
     def accumulate(self, grads: List[torch.Tensor]) -> bool:
-        n = self.mini_step
+        update = self.begin()
+        self.apply([g.clone() for g in grads], update)
+        self.finish(update)
+        return update
+
+    def apply(self, grads: List[torch.Tensor], update: bool) -> None:
+        """The device work of one mini-step: fold `grads` into the running
+        mean (MultiSteps' rule, acc += (g - acc) / count; `grads` hold the
+        step afterwards); with `update`, clip the mean in place, step AdamW
+        on it and zero it."""
         with torch.no_grad():
-            for a, g in zip(self.acc, grads):   # Welford mean, MultiSteps' rule
-                a.add_((g.to(a.dtype) - a) / (n + 1))
-        if n + 1 < self.grad_accum:
-            self.mini_step = n + 1
-            return False
-        with torch.no_grad():
+            for dt, idx in self._dtypes.items():
+                acc = [self.acc[i] for i in idx]
+                step = [grads[i].to(dt) for i in idx]
+                torch._foreach_sub_(step, acc)
+                torch._foreach_div_(step, self.count.to(dt))
+                torch._foreach_add_(acc, step)
+            if not update:
+                return
             norm = self.global_norm(self.acc)
-            self.last_norm = float(norm)
-            clip = self.last_norm >= self.clip_norm
+            self.norm.copy_(norm)
+            self.clip_(norm)
             for p, a in zip(self.leaves, self.acc):
-                p.grad = ((a / norm.to(a.dtype)) * self.clip_norm) if clip else a.clone()
+                p.grad = a
             self.adamw.step()
-            for p, a in zip(self.leaves, self.acc):
+            for p in self.leaves:
                 p.grad = None
-                a.zero_()
-        self.mini_step = 0
-        return True
+            torch._foreach_zero_(self.acc)
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        squares = torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)).square()
+        if self.mesh is None:
+            return torch.sqrt(squares.sum())
+        flags = torch.tensor(self.sharded, device=squares.device)
+        split = torch.where(flags, squares, 0.0).sum()
+        whole = torch.where(flags, 0.0, squares).sum()
+        return torch.sqrt(all_reduce(split, self.mesh.tp_group) + whole)
+
+    def clip_(self, norm: torch.Tensor) -> None:
+        """optax's clip_by_global_norm of the mean, in place: acc where
+        norm < clip_norm, else acc / norm * clip_norm (norm and clip_norm in
+        each leaf's dtype), as a select on the device."""
+        free = norm < self.clip_norm
+        one = torch.ones_like(norm)
+        for dt, idx in self._dtypes.items():
+            acc = [self.acc[i] for i in idx]
+            torch._foreach_div_(acc, torch.where(free, one, norm).to(dt))
+            torch._foreach_mul_(acc, torch.where(free, one, self.clip_norm).to(dt))
 
     def state_dict(self) -> Dict[str, Any]:
         return {"adamw": self.adamw.state_dict(), "mini_step": self.mini_step,
@@ -225,6 +287,7 @@ class SFTOptimizer:
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.adamw.load_state_dict(state["adamw"])
+        self.version += 1   # new AdamW state tensors: captured steps must go
         self.mini_step = int(state["mini_step"])
         for a, s in zip(self.acc, state["acc"]):
             a.copy_(s)
@@ -248,6 +311,31 @@ def default_optimizer(params: Params, lr: float = 2e-5, weight_decay: float = 0.
                         grad_accum=grad_accum, mesh=mesh, sharded=sharded)
 
 
+def mini_step(cfg: TalkerConfig, optimizer: SFTOptimizer, params: Params,
+              batch: Dict[str, torch.Tensor], speaker_embedding: torch.Tensor,
+              update: bool) -> Dict[str, torch.Tensor]:
+    """The device work of one mini-step, the body a training graph captures
+    (`runtime/graphs.py` `TrainGraphs`): forward and backward, then
+    `optimizer.apply(grads, update)` (which works in the fresh gradients).
+    Returns the losses as device scalars."""
+    mesh = optimizer.mesh
+    for p in optimizer.leaves:
+        p.grad = None
+    with torch.enable_grad():
+        loss, metrics = sft_loss(params, cfg, batch, speaker_embedding.detach(), mesh)
+        loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in optimizer.leaves]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["loss"] = loss.detach()
+    if mesh is not None:
+        grads = [all_reduce(g, mesh.dp_group) for g in grads]
+        metrics = {k: all_reduce(v, mesh.dp_group) for k, v in metrics.items()}
+    optimizer.apply(grads, update)
+    for p in optimizer.leaves:
+        p.grad = None
+    return metrics
+
+
 def make_train_step(cfg: TalkerConfig, optimizer: SFTOptimizer):
     """(params, batch, speaker_embedding) -> metrics. One call is one
     mini-step: forward and backward, then the optimizer folds the gradients
@@ -257,25 +345,28 @@ def make_train_step(cfg: TalkerConfig, optimizer: SFTOptimizer):
     decays it. The speaker embedding carries no gradient. Under the
     optimizer's mesh the batch is this rank's rows, the gradients are summed
     over dp before the optimizer folds them in, and the losses reported are
-    the whole batch's."""
-    mesh = optimizer.mesh
+    the whole batch's.
+
+    On a CUDA device with no mesh (outside `graphs.eager()`) each call is
+    one replay of the captured mini-step of its (B, T, phase), the JAX
+    `sft.py`'s `jax.jit(make_train_step(...))`: the first call of a key runs
+    eagerly and is the real step, the capture follows it
+    (`runtime/graphs.py` `TrainGraphs`). Elsewhere the step is eager."""
+    from ..runtime import graphs
+
+    owner: List[Any] = []
 
     def train_step(params: Params, batch: Dict[str, torch.Tensor],
                    speaker_embedding: torch.Tensor) -> Dict[str, Any]:
-        for p in optimizer.leaves:
-            p.grad = None
-        with torch.enable_grad():
-            loss, metrics = sft_loss(params, cfg, batch, speaker_embedding.detach(), mesh)
-            loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in optimizer.leaves]
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        if mesh is not None:
-            grads = [all_reduce(g, mesh.dp_group) for g in grads]
-            metrics = {k: all_reduce(v, mesh.dp_group) for k, v in metrics.items()}
-        metrics["updated"] = optimizer.accumulate(grads)
-        for p in optimizer.leaves:
-            p.grad = None
+        if optimizer.mesh is None and graphs.enabled(optimizer.leaves[0].device):
+            if not owner:
+                owner.append(graphs.TrainGraphs(optimizer, lambda p, b, s, u: mini_step(
+                    cfg, optimizer, p, b, s, u)))
+            return owner[0].step(params, batch, speaker_embedding)
+        update = optimizer.begin()
+        metrics = mini_step(cfg, optimizer, params, batch, speaker_embedding, update)
+        optimizer.finish(update)
+        metrics["updated"] = update
         return metrics
 
     return train_step

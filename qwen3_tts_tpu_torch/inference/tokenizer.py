@@ -3,8 +3,11 @@
 
 - `encode` takes wav path(s) / URL / base64 / numpy (+ sr) / (wav, sr)
   tuples. 12 Hz: pads the batch to a multiple of 8 frames, runs the Mimi
-  encoder on the tokenizer's device and trims each row to ceil(len / 1920)
-  frames: (T_i, Q) codes per input. 25 Hz: resamples to 16 kHz and returns
+  encoder on the tokenizer's device (on a CUDA device one graph replay per
+  call of a shape seen before, one graph per padded (rows, samples): the
+  JAX package's `_encode_compiled`; `runtime/graphs.py` `front_call`) and
+  trims each row to ceil(len / 1920) frames:
+  (T_i, Q) codes per input. 25 Hz: resamples to 16 kHz and returns
   Whisper-VQ codes (T_i,), CAM++ x-vectors and reference mels
   (`models/codec25/model.py`).
 - `decode` takes the encode output, a dict or a list of dicts. 12 Hz: pads
@@ -30,6 +33,7 @@ import torch
 from ..config import CodecV1Config, CodecV2Config, load_config
 from ..models.codec12 import decoder as codec_decoder
 from ..models.codec12 import encoder as codec_encoder
+from ..runtime import graphs
 from ..utils.audio import load_audio, resample, to_mono
 from ..weights import load_safetensors_dir
 
@@ -172,13 +176,17 @@ class Qwen3TTSTokenizer:
         batch = np.zeros((len(wavs), padded_len), np.float32)
         for i, w in enumerate(wavs):
             batch[i, :len(w)] = w
-        device = self.enc_params["_semantic_codebooks"].device
+        cfg, nq = self.config.encoder_config, int(self.config.encoder_valid_num_quantizers)
+        dtype = self._compute_dtype
+
+        def body(wav):
+            return (codec_encoder.encode_waveform(self.enc_params, cfg, wav, num_quantizers=nq,
+                                                  dtype=dtype),)
+
         with torch.no_grad():
-            codes = codec_encoder.encode_waveform(
-                self.enc_params, self.config.encoder_config,
-                torch.as_tensor(batch, device=device),
-                num_quantizers=int(self.config.encoder_valid_num_quantizers),
-                dtype=self._compute_dtype).cpu().numpy()
+            (codes,) = graphs.front_call(self.enc_params, cfg, "encode", (nq, dtype), body,
+                                         torch.from_numpy(batch))
+        codes = codes.cpu().numpy()
         # per-row trim to ceil(len / ds) frames (reference modeling...v2.py:984)
         out = [codes[i, :, :-(-n // ds)].T.astype(np.int64)
                for i, n in enumerate(lengths)]

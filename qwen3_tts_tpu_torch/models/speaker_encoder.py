@@ -11,7 +11,10 @@ These were XLA convolutions in the JAX package (no Pallas kernel), so plain
 torch carries them, in fp32. `extract_speaker_embedding` turns TF32 off for
 cuDNN convolutions and cuBLAS matmuls (`torch.backends.cudnn.allow_tf32`
 and `torch.backends.cuda.matmul.allow_tf32`, process-wide), so the card
-computes what the reference computes.
+computes what the reference computes; on a CUDA device a length seen
+before is one graph replay, one graph per exact sample count, as the JAX
+package jits it per length (`runtime/graphs.py` `front_call`: a length's
+first call runs eagerly, its second captures).
 """
 
 from __future__ import annotations
@@ -119,12 +122,16 @@ def extract_speaker_embedding(params: Params, cfg: SpeakerEncoderConfig,
     fp32 on the device of `params` (reference extract_speaker_embedding,
     modeling_qwen3_tts.py:1940-1954)."""
     from ..ops.stft import mel_spectrogram
+    from ..runtime import graphs
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    device = params["fc"]["weight"].device
-    audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
-    mels = mel_spectrogram(audio[None, :], n_fft=1024, num_mels=128,
-                           sampling_rate=24000, hop_size=256, win_size=1024,
-                           fmin=0, fmax=12000)
-    return speaker_encoder_forward(params, cfg, mels.permute(0, 2, 1))[0]
+    def body(wav):
+        # TF32 off here too, so that a capture records the fp32 kernels
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mels = mel_spectrogram(wav[None, :], n_fft=1024, num_mels=128,
+                               sampling_rate=24000, hop_size=256, win_size=1024,
+                               fmin=0, fmax=12000)
+        return (speaker_encoder_forward(params, cfg, mels.permute(0, 2, 1))[0],)
+
+    audio = torch.as_tensor(audio, dtype=torch.float32)
+    return graphs.front_call(params, cfg, "ecapa", (), body, audio)[0]

@@ -5,7 +5,10 @@ reflect-pad (n_fft - hop)/2, Hann window, center=False STFT, magnitude
 sqrt(re^2+im^2+1e-9), slaney-norm mel filterbank (librosa.filters.mel
 semantics), log dynamic-range compression with clip 1e-5. The window and
 filterbank are built in numpy (float64, then float32) exactly as the JAX
-package builds them; frames go through `torch.fft.rfft`.
+package builds them, once per (parameters, device) and kept there
+(`mel_constants`): a graph that captures `mel_spectrogram` must not copy
+them from pageable host memory, and the JAX package bakes them into its
+program as constants. Frames go through `torch.fft.rfft`.
 """
 
 from __future__ import annotations
@@ -82,19 +85,34 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop_size: int,
     return mag.permute(0, 2, 1)
 
 
+_MEL_CONSTANTS: dict = {}
+
+
+def mel_constants(n_fft: int, num_mels: int, sampling_rate: int, win_size: int,
+                  fmin: float, fmax: Optional[float], device) -> tuple:
+    """(Hann window zero-padded to n_fft, mel filterbank) on `device`,
+    built at the first call of their parameters and device, then kept."""
+    key = (n_fft, num_mels, sampling_rate, win_size, fmin, fmax, torch.device(device))
+    got = _MEL_CONSTANTS.get(key)
+    if got is None:
+        window = hann_window(win_size)
+        if win_size < n_fft:
+            lpad = (n_fft - win_size) // 2
+            window = np.pad(window, (lpad, n_fft - win_size - lpad))
+        basis = mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax)
+        got = _MEL_CONSTANTS[key] = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                                          for x in (window, basis))
+    return got
+
+
 def mel_spectrogram(y: torch.Tensor, n_fft: int, num_mels: int,
                     sampling_rate: int, hop_size: int, win_size: int,
                     fmin: float = 0.0, fmax: Optional[float] = None) -> torch.Tensor:
     """y: (B, T) waveform in [-1, 1] -> (B, num_mels, frames) log-mel."""
     pad = (n_fft - hop_size) // 2
     y = F.pad(y.to(torch.float32)[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    window = hann_window(win_size)
-    if win_size < n_fft:
-        lpad = (n_fft - win_size) // 2
-        window = np.pad(window, (lpad, n_fft - win_size - lpad))
-    window = torch.as_tensor(window, device=y.device)
+    window, basis = mel_constants(n_fft, num_mels, sampling_rate, win_size, fmin, fmax,
+                                  y.device)
     mag = stft_magnitude(y, n_fft, hop_size, window)
-    basis = torch.as_tensor(mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax),
-                            device=y.device)
     mel = torch.einsum("mf,bft->bmt", basis, mag)
     return torch.log(torch.clamp(mel, min=1e-5))

@@ -1,7 +1,9 @@
-"""Captured CUDA graphs of the prefill, the frame loop and the vocoder: the
-port's counterpart of `qwen3_tts_tpu/runtime/jit_options.py::decode_jit`,
-of `_init_decode_state` and `stage_requests`, and of the vocoder's jitted
-programs.
+"""Captured CUDA graphs of the prefill, the frame loop, the vocoder, the
+clone front end and the SFT step: the port's counterpart of
+`qwen3_tts_tpu/runtime/jit_options.py::decode_jit`, of `_init_decode_state`
+and `stage_requests`, of the vocoder's jitted programs, of the tokenizer's
+`_encode_compiled` and `extract_speaker_embedding`, and of its SFT script's
+`jax.jit(make_train_step(...))`.
 
 The JAX package compiles the frame loop into one device program per set of
 static arguments (`decode_jit` over `_decode_chunk`'s scan and
@@ -12,7 +14,7 @@ launches every operation from the host instead (~600 for one vocoder call,
 ~30 a layer for a prefill). Here each of them is captured once as a
 `torch.cuda.CUDAGraph`, keyed the same way, and replayed with one launch.
 
-Three owners of graphs:
+Five owners of graphs:
 - `DecodeGraphs`, a graph context of the batch generators and the streaming
   session: the static buffers of one decode shape (the weights, the talker
   config, gen_cfg.canonical() with its fused flags and KV mode, the batch B,
@@ -44,6 +46,38 @@ Three owners of graphs:
   its output buffers, which the call copies out under the lock. At most
   MAX_CODEC_GRAPHS a device, least recently used first out. The vocoder
   draws no random numbers: its graphs register no generator.
+- `FrontGraphs`, two per device, one a program of the clone front end,
+  reached through `front_call` as the vocoder's are through `codec_call`:
+  the 12 Hz encode ("encode", keyed by the padded (rows, samples), which
+  the tokenizer buckets to 8 frames as the JAX package does; at most
+  MAX_ENCODE_GRAPHS) and the ECAPA speaker embedding ("ecapa", keyed by
+  the exact sample count: stats pooling and the reflect-padded last conv
+  see the true end; at most MAX_ECAPA_GRAPHS). Each bound is its own, so
+  that clips of many lengths never evict a vocoder graph that a server's
+  warm-up captured, nor ECAPA's exact lengths an encode bucket. A key is
+  captured at its second call: its first runs eagerly and is remembered
+  (the last MAX_FRONT_SEEN keys), because most clips are sent once and a
+  capture costs several eager runs. Inside `replay_only()` (a server's
+  submit, on the thread of its live ticks) a key without a graph runs
+  eagerly and nothing is captured; `TTSServer.warmup` captures the encode
+  of every bucket its prefill admits.
+- `TrainGraphs`, one per train step (`finetune/train.py`
+  `make_train_step`, which hands it the mini-step's body): one graph per
+  (B, T, phase) of the mini-step, phase "fold" or "fold+update" (the
+  optimizer's fold of the gradients, and on every grad_accum-th call the
+  clip and the AdamW step), over static buffers of the batch dict and the
+  speaker embedding, the losses as static outputs copied out after the
+  replay; at most MAX_TRAIN_GRAPHS, least recently used first out: both
+  phases of every 64-token length up to 2048 (`sft.py` pads each batch to
+  a multiple of 64). The graphs share the device's pool, so a graph costs
+  its static inputs and its host-side graph, not its activations again.
+  Its capture differs from the others': copying the params and the AdamW
+  states for a warm pass would cost their size again, so the first call
+  of a key runs eagerly on the side stream as the real step (it also
+  creates AdamW's state), and the capture that follows records the same
+  body with every grad None (backward allocates the grads from the pool);
+  replays start at the next call of the key. Under a mesh the step stays
+  eager.
 
 Every capture:
 - runs one eager warm-up pass on the device's side stream first (PyTorch's
@@ -73,10 +107,9 @@ baked in (kernel 3's TMA maps among them): inputs are copied into static
 buffers before a replay, host inputs from pinned memory, and nothing in a
 captured body reads the device from the host.
 
-`eager()` turns the graphs off, the prefill's and the vocoder's too, so
-that one process can run the graphed and the eager route side by side (the
-smoke's and the profiler's A/B). No configuration, CLI flag or server
-option selects it.
+`eager()` turns the graphs off, every owner's, so that one process can run
+the graphed and the eager route side by side (the smoke's and the
+profiler's A/B). No configuration, CLI flag or server option selects it.
 """
 
 from __future__ import annotations
@@ -97,16 +130,20 @@ MAX_CONTEXTS = 8               # decode graph contexts per device
 MAX_CONTEXT_BYTES = 8 << 30    # their static buffers, KV caches included
 MAX_GRAPHS_PER_CONTEXT = 32
 MAX_CODEC_GRAPHS = 64          # vocoder graphs per device
+MAX_ENCODE_GRAPHS = 64         # 12 Hz encode graphs per device: a 512-frame prefill's buckets
+MAX_ECAPA_GRAPHS = 32          # speaker-embedding graphs per device
+MAX_FRONT_SEEN = 256           # keys of each front-end program seen once, remembered
+MAX_TRAIN_GRAPHS = 64          # training graphs per train step: 2 phases x 32 lengths
 _SMALL = ("code0", "last_hidden", "presence", "done", "lengths", "t")
 _EAGER = [False]
 _LOCK = threading.RLock()
+_LOCAL = threading.local()
 
 
 @contextlib.contextmanager
 def eager():
-    """Run the prefill, the frame loop and the vocoder eagerly on a CUDA
-    device inside the block (A/B measurements of the graphs against the
-    eager code)."""
+    """Run every graphed program eagerly on a CUDA device inside the block
+    (A/B measurements of the graphs against the eager code)."""
     prev = _EAGER[0]
     _EAGER[0] = True
     try:
@@ -116,9 +153,21 @@ def eager():
 
 
 def enabled(device) -> bool:
-    """Whether the prefill, the frame loop and the vocoder on `device` run
-    as graphs."""
+    """Whether the graphed programs on `device` run as graphs."""
     return torch.device(device).type == "cuda" and not _EAGER[0]
+
+
+@contextlib.contextmanager
+def replay_only():
+    """Inside the block, on this thread, the clone front end's owners
+    replay the graphs they hold and run any other key eagerly: nothing is
+    captured (a server's submit runs on the thread of its live ticks)."""
+    prev = getattr(_LOCAL, "replay_only", False)
+    _LOCAL.replay_only = True
+    try:
+        yield
+    finally:
+        _LOCAL.replay_only = prev
 
 
 def _counters():
@@ -143,7 +192,8 @@ def _add_counts(delta, sign: int = 1) -> None:
 
 class _Device:
     """Per-device graph state: the memory pool, the capture stream, the
-    private generator, the decode contexts and the vocoder's graphs."""
+    private generator, the decode contexts, the vocoder's and the front
+    end's graphs, and the training owners."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -152,6 +202,9 @@ class _Device:
         self.gen = torch.Generator(device=device)
         self.contexts: "OrderedDict[int, DecodeGraphs]" = OrderedDict()
         self.codec = CodecGraphs(self)
+        self.encode = FrontGraphs(self, "encode")
+        self.ecapa = FrontGraphs(self, "ecapa")
+        self.train: "weakref.WeakSet[TrainGraphs]" = weakref.WeakSet()
         self.captures = 0
         self.replays = 0
 
@@ -633,18 +686,26 @@ class CodecGraphs:
         self.dev = dev
         self.graphs: "OrderedDict[tuple, _CodecGraph]" = OrderedDict()
 
+    @staticmethod
+    def limit() -> int:
+        return MAX_CODEC_GRAPHS
+
+    @staticmethod
+    def key(params, cfg, program: str, static: tuple, pcm16: bool, inputs: tuple) -> tuple:
+        return (id(params), cfg, program, static, bool(pcm16),
+                tuple((tuple(x.shape), x.dtype) for x in inputs))
+
     def run(self, params, cfg, program: str, static: tuple, pcm16: bool, body,
             inputs: tuple) -> tuple:
         """`body(*inputs)` as a replay of its graph, captured at the first
         call of its key; returns copies of the graph's outputs."""
-        key = (id(params), cfg, program, static, bool(pcm16),
-               tuple((tuple(x.shape), x.dtype) for x in inputs))
+        key = self.key(params, cfg, program, static, pcm16, inputs)
         with _LOCK:
             g = self.graphs.get(key)
             if g is None:
                 g = self._capture(params, body, inputs)
                 self.graphs[key] = g
-                while len(self.graphs) > MAX_CODEC_GRAPHS:
+                while len(self.graphs) > self.limit():
                     self.graphs.popitem(last=False)
             else:
                 self.graphs.move_to_end(key)
@@ -666,6 +727,57 @@ class CodecGraphs:
         return _CodecGraph(params, bufs, tuple(outs), g)
 
 
+class FrontGraphs(CodecGraphs):
+    """The graphs of one clone front-end program on one device (see the
+    module docstring): the vocoder owner's keys and copies, a bound of its
+    own, and a key captured at its second call."""
+
+    def __init__(self, dev: _Device, program: str):
+        super().__init__(dev)
+        self.program = program
+        self.seen: "OrderedDict[tuple, None]" = OrderedDict()
+
+    def limit(self) -> int:
+        return MAX_ENCODE_GRAPHS if self.program == "encode" else MAX_ECAPA_GRAPHS
+
+    def run(self, params, cfg, program: str, static: tuple, pcm16: bool, body,
+            inputs: tuple) -> tuple:
+        """`body(*inputs)`: eagerly where its key has no graph and was not
+        seen before (or inside `replay_only()`), else as `CodecGraphs.run`."""
+        key = self.key(params, cfg, program, static, pcm16, inputs)
+        with _LOCK:
+            if key not in self.graphs and (key not in self.seen
+                                           or getattr(_LOCAL, "replay_only", False)):
+                self.seen[key] = None
+                self.seen.move_to_end(key)
+                while len(self.seen) > MAX_FRONT_SEEN:
+                    self.seen.popitem(last=False)
+                return body(*(x.to(self.dev.device) for x in inputs))
+            return super().run(params, cfg, program, static, pcm16, body, inputs)
+
+
+def params_device(tree) -> Optional[torch.device]:
+    """The device of a parameter tree: its first tensor leaf's."""
+    if torch.is_tensor(tree):
+        return tree.device
+    if isinstance(tree, dict):
+        for v in tree.values():
+            d = params_device(v)
+            if d is not None:
+                return d
+    return None
+
+
+def _owner_call(owner: str, params, cfg, program: str, static: tuple, pcm16: bool, body,
+                inputs: tuple) -> tuple:
+    device = params_device(params)
+    if not enabled(device):
+        return body(*(x.to(device) for x in inputs))
+    with _LOCK:
+        graphs = getattr(_device(device), owner)
+    return graphs.run(params, cfg, program, static, pcm16, body, inputs)
+
+
 def codec_call(params, cfg, program: str, static: tuple, pcm16: bool, body, *inputs) -> tuple:
     """`body(*inputs)` -> a tuple of tensors, one of the vocoder's programs
     over the decoder params `params` (config `cfg`; `program`, `static` and
@@ -673,18 +785,101 @@ def codec_call(params, cfg, program: str, static: tuple, pcm16: bool, body, *inp
     or on the params' device. On a CUDA device (outside `eager()`) one
     replay of the program's graph; elsewhere `body` on the inputs moved to
     the params' device."""
-    device = params["_codebooks"].device
-    if not enabled(device):
-        return body(*(x.to(device) for x in inputs))
-    with _LOCK:
-        codec = _device(device).codec
-    return codec.run(params, cfg, program, static, pcm16, body, inputs)
+    return _owner_call("codec", params, cfg, program, static, pcm16, body, inputs)
+
+
+def front_call(params, cfg, program: str, static: tuple, body, *inputs) -> tuple:
+    """`codec_call` for the clone front end's programs ("encode" over the
+    Mimi encoder's params, "ecapa" over the speaker encoder's), each on the
+    device's `FrontGraphs` of its own."""
+    return _owner_call(program, params, cfg, program, static, False, body, inputs)
+
+
+class _TrainGraph:
+    """One captured mini-step: its static inputs (the batch dict, the
+    speaker embedding), its static outputs (the losses) and the params tree
+    it trains (held, so that its identity in the key stays its own)."""
+
+    def __init__(self, params, batch: dict, speaker: torch.Tensor, outputs: dict,
+                 graph: _Graph):
+        self.params, self.batch, self.speaker = params, batch, speaker
+        self.outputs, self.graph = outputs, graph
+
+    def load(self, batch: dict, speaker: torch.Tensor) -> None:
+        for k, buf in self.batch.items():
+            _copy_in(buf, batch[k])
+        _copy_in(self.speaker, speaker)
+
+
+class TrainGraphs:
+    """The captured mini-steps of one train step (see the module
+    docstring)."""
+
+    def __init__(self, optimizer, body):
+        self.optimizer, self.body = optimizer, body
+        self.dev = _device(optimizer.leaves[0].device)
+        self.graphs: "OrderedDict[tuple, _TrainGraph]" = OrderedDict()
+        self.version = optimizer.version
+        with _LOCK:
+            self.dev.train.add(self)
+
+    @staticmethod
+    def key(params, batch: dict, speaker: torch.Tensor, update: bool) -> tuple:
+        """(B, T, phase), then what else the capture bakes in: the params
+        tree's identity and the inputs' names, shapes and dtypes."""
+        B, T = batch["input_ids"].shape[:2]
+        sig = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+        return (int(B), int(T), "fold+update" if update else "fold", id(params), sig,
+                tuple(speaker.shape), speaker.dtype)
+
+    def step(self, params, batch: dict, speaker: torch.Tensor) -> dict:
+        """One mini-step (`make_train_step`'s call): the replay of its
+        key's graph, or, at the key's first call, the eager step and then
+        the capture. Returns the losses (copies) and "updated"."""
+        opt = self.optimizer
+        with _LOCK:
+            if opt.version != self.version:   # AdamW's state tensors were replaced
+                self.graphs.clear()
+                self.version = opt.version
+            update = opt.begin()
+            key = self.key(params, batch, speaker, update)
+            g = self.graphs.get(key)
+            if g is None:
+                g, metrics = self._capture(params, batch, speaker, update)
+                self.graphs[key] = g
+                while len(self.graphs) > MAX_TRAIN_GRAPHS:
+                    self.graphs.popitem(last=False)
+            else:
+                self.graphs.move_to_end(key)
+                g.load(batch, speaker)
+                g.graph.replay(self.dev, None)
+                metrics = {k: v.clone() for k, v in g.outputs.items()}
+            opt.finish(update)
+        metrics["updated"] = update
+        return metrics
+
+    def _capture(self, params, batch: dict, speaker: torch.Tensor, update: bool) -> tuple:
+        dev = self.dev.device
+        g = _TrainGraph(params, {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                                 for k, v in batch.items()},
+                        torch.empty(speaker.shape, dtype=speaker.dtype, device=dev), {}, None)
+        g.load(batch, speaker)
+        first = {}
+
+        def run(into):
+            into.update(self.body(params, g.batch, g.speaker, update))
+
+        # the warm pass is the real step; the body sets every grad to None
+        # first, so the capture's backward allocates them from the pool
+        g.graph = capture(self.dev, None, lambda _: run(first), lambda _: run(g.outputs))
+        return g, {k: v.clone() for k, v in first.items()}
 
 
 def stats(device) -> dict:
     """Graphs captured and replayed on `device` so far (every owner), decode
-    contexts and their graphs, their static bytes, the vocoder's graphs and
-    their static bytes, and the bytes of the shared pool."""
+    contexts and their graphs, their static bytes, the vocoder's, the
+    encode's and ECAPA's graphs and their static bytes, the training
+    graphs, and the bytes of the shared pool."""
     device = torch.device(device)
     dev = None
     if device.type == "cuda":
@@ -692,12 +887,17 @@ def stats(device) -> dict:
                            else device.index)
     if dev is None:
         return {"captures": 0, "replays": 0, "contexts": 0, "graphs": 0, "static_bytes": 0,
-                "codec_graphs": 0, "codec_bytes": 0, "pool_bytes": 0}
+                "codec_graphs": 0, "codec_bytes": 0, "encode_graphs": 0, "ecapa_graphs": 0,
+                "front_bytes": 0, "train_graphs": 0, "pool_bytes": 0}
     return {"captures": dev.captures, "replays": dev.replays, "contexts": len(dev.contexts),
             "graphs": sum(len(c.graphs) for c in dev.contexts.values()),
             "static_bytes": sum(c.nbytes() for c in dev.contexts.values()),
             "codec_graphs": len(dev.codec.graphs),
             "codec_bytes": sum(g.nbytes() for g in dev.codec.graphs.values()),
+            "encode_graphs": len(dev.encode.graphs), "ecapa_graphs": len(dev.ecapa.graphs),
+            "front_bytes": sum(g.nbytes() for o in (dev.encode, dev.ecapa)
+                               for g in o.graphs.values()),
+            "train_graphs": sum(len(t.graphs) for t in dev.train),
             "pool_bytes": pool_bytes(dev)}
 
 
@@ -709,10 +909,15 @@ def pool_bytes(dev: _Device) -> int:
 
 
 def clear(device=None) -> None:
-    """Drop every decode context and vocoder graph of `device` (every
-    device: None). A context a live decode state still uses lives on until
-    that state goes."""
+    """Drop every decode context and every vocoder, front-end and training
+    graph of `device` (every device: None). A context a live decode state
+    still uses lives on until that state goes."""
     for index, dev in list(_DEVICES.items()):
         if device is None or torch.device(device).index in (None, index):
             dev.contexts.clear()
             dev.codec.graphs.clear()
+            for o in (dev.encode, dev.ecapa):
+                o.graphs.clear()
+                o.seen.clear()
+            for t in list(dev.train):
+                t.graphs.clear()

@@ -229,9 +229,14 @@ class TTSServer:
         first-packet extract of every row bucket; then, where the JAX server
         leaves it to the first completion, the completion decode of every
         power-of-two batch up to num_slots (at most WARM_DECODE_ROWS) at both
-        chunk shapes. On a CUDA device each of these is captured as a graph,
-        so that traffic captures none (a capture at a live tick stalls every
-        slot); on the CPU the same calls run eagerly and capture nothing.
+        chunk shapes; for a clone (base) model on a CUDA device, the clone
+        front end's encode of one reference at each of `reference_lengths()`
+        (the JAX server leaves it to the first request). On a CUDA device
+        each of these is captured as a graph, so that traffic captures none
+        (a capture at a live tick stalls every slot: a submit replays the
+        front end's graphs and captures none, `graphs.replay_only`); on the
+        CPU the same calls run eagerly and capture nothing, and the encode
+        is not warmed.
         Call it on the thread that drives the server: a `ThreadedTTSServer`'s
         loop thread owns all CUDA work, so warm the `TTSServer` before
         wrapping it. Returns its seconds."""
@@ -270,9 +275,27 @@ class TTSServer:
             if nb >= min(self.num_slots, WARM_DECODE_ROWS):
                 break
             nb <<= 1
+        if (self.model.tts_model_type == "base" and getattr(tok, "enc_params", None) is not None
+                and graphs.enabled(graphs.params_device(tok.enc_params))):
+            sr = tok.get_input_sample_rate()
+            for n in self.reference_lengths():
+                clip = (np.zeros(n, np.float32), sr)
+                tok.encode(clip)    # a front-end key's first call runs eagerly,
+                tok.encode(clip)    # its second captures
+            if verbose:
+                print(f"[server.warmup] encode of {len(self.reference_lengths())} reference "
+                      f"buckets done at {time.time() - t0:.1f}s", flush=True)
         if self.engine.device.type == "cuda":
             torch.cuda.synchronize(self.engine.device)
         return time.time() - t0
+
+    def reference_lengths(self) -> List[int]:
+        """The padded sample counts of one reference clip whose frames fit
+        this server's prefill bucket: one per 8-frame encode bucket, at
+        most MAX_ENCODE_GRAPHS (a longer clip's encode runs eagerly)."""
+        bucket = 8 * self.model.speech_tokenizer.get_encode_downsample_rate()
+        n = min(-(-self.engine.prefill_bucket // 8), graphs.MAX_ENCODE_GRAPHS)
+        return [k * bucket for k in range(1, n + 1)]
 
     # -- submission ------------------------------------------------------
 
@@ -362,9 +385,10 @@ class TTSServer:
                            x_vector_only_mode: bool = False, voice_clone_prompt=None,
                            stream: bool = False, max_frames: Optional[int] = None,
                            **sampling_kw) -> None:
-        specs, items = self.model._specs_voice_clone(
-            text, language, ref_audio, ref_text, x_vector_only_mode,
-            voice_clone_prompt, non_streaming=False)
+        with graphs.replay_only():   # no capture at a live tick
+            specs, items = self.model._specs_voice_clone(
+                text, language, ref_audio, ref_text, x_vector_only_mode,
+                voice_clone_prompt, non_streaming=False)
         ref_code = items[0].ref_code
         self._submit_specs(request_id, specs, stream,
                            None if ref_code is None else np.asarray(ref_code), max_frames,
