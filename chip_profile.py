@@ -1,6 +1,6 @@
 """Where the time of the port's calls goes on one NVIDIA H100.
 
-    python3 chip_profile.py [--stages | --sft | --sft-mix]
+    python3 chip_profile.py [--stages | --sft | --sft-mix | --v1]
 
 Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
 (random weights from its seed), then prints:
@@ -40,6 +40,15 @@ elementwise), the top kernels and the busy share.
 and eager: ms per optimizer cycle, captures, the pool and the peak
 (`phase_sft_mix`).
 
+`--v1` profiles the 25 Hz tokenizer's decode programs at the released
+widths (`CodecV1Config()`, random weights from the seed, in memory): the DiT
+sampler on a 10 s clip's shapes (250 codes, a 1000-frame reference mel) as
+graph replays and in `graphs.eager()`, and BigVGAN, which runs eagerly, on
+its mel: the host wall (median of V1_PROFILE_ITERS), then torch.profiler
+over one call of each: device time and launches by kind of kernel
+(convolutions, GEMMs, the attention's softmax, the rest as elementwise),
+the top kernels and the busy share.
+
 A diagnostic beside the smoke; it checks nothing that chip_smoke.py does not.
 """
 
@@ -56,9 +65,9 @@ from pathlib import Path
 import torch
 
 from chip_smoke import (CLONE_MAX_NEW_TOKENS, CLONE_REF_TEXT, CLONE_TEXTS, MAX_NEW_TOKENS,
-                        SEED, SERVE_OVERRIDES, SERVE_REQUESTS, SERVE_SLOTS, TEXTS,
+                        SEED, SERVE_OVERRIDES, SERVE_REQUESTS, SERVE_SLOTS, TEXTS, _rss_mib,
                         build_clone_model, build_model, line, model_params, phase_build,
-                        phase_clone_front_end, phase_device, serve_all)
+                        phase_clone_front_end, phase_device, serve_all, wall_ms)
 from qwen3_tts_tpu_torch.utils.profiling import device_trace
 
 # one Chrome trace per profiled call (build/ is not committed)
@@ -307,9 +316,44 @@ SFT_KINDS = (   # (kind, substrings of a kernel's name), first match wins
 )
 
 
-def sft_kind(name: str) -> str:
+V1_KINDS = (    # the 25 Hz decode's programs: cuDNN's convolutions, then as SFT_KINDS
+    ("conv", ("conv", "cudnn", "implicit", "winograd", "fft")),
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "wgmma")),
+    ("attention", ("softmax",)),
+)
+
+
+def kernel_kind(name: str, kinds=SFT_KINDS) -> str:
     low = name.lower()
-    return next((k for k, subs in SFT_KINDS if any(x in low for x in subs)), "elementwise")
+    return next((k for k, subs in kinds if any(x in low for x in subs)), "elementwise")
+
+
+def device_kernels(prof, kinds=SFT_KINDS) -> tuple:
+    """({kernel name: [device ms, launches]}, {kind: [device ms, launches]})
+    of a profiled run."""
+    kernels, by_kind = {}, {}
+    for e in prof.events():
+        # a record_function range (AdamW's "Optimizer.step#AdamW.step")
+        # shows on the device's timeline too: it is no kernel
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith("Optimizer.")
+                and not getattr(e, "is_user_annotation", False)):
+            for d, k in ((kernels, e.name[:60]), (by_kind, kernel_kind(e.name, kinds))):
+                row = d.setdefault(k, [0.0, 0])
+                row[0] += e.device_time / 1e3
+                row[1] += 1
+    return kernels, by_kind
+
+
+def print_profile(label: str, prof, wall: float, kinds=SFT_KINDS, top: int = 12, **kw) -> None:
+    kernels, by_kind = device_kernels(prof, kinds)
+    total = sum(t for t, _ in kernels.values())
+    line(label, **kw, wall_ms=f"{wall:.1f}", device_kernel_ms=f"{total:.1f}",
+         busy_share=f"{total / wall:.3f}",
+         **{f"{k}_ms": f"{t:.1f}" for k, (t, _) in sorted(by_kind.items())},
+         **{f"{k}_launches": n for k, (_, n) in sorted(by_kind.items())})
+    for kname, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {t:9.2f} ms {n:6d} launches  {kname}", flush=True)
 
 
 def phase_sft_profile(device) -> None:
@@ -370,27 +414,55 @@ def phase_sft_profile(device) -> None:
         with route(name):
             with device_trace(str(TRACE_DIR / f"sft_cycle_{name}")) as prof:
                 cycle()
-        kernels, kinds = {}, {}
-        for e in prof.events():
-            # a record_function range (AdamW's "Optimizer.step#AdamW.step")
-            # shows on the device's timeline too: it is no kernel
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.name.startswith("Optimizer.")
-                    and not getattr(e, "is_user_annotation", False)):
-                k = kernels.setdefault(e.name[:60], [0.0, 0])
-                k[0] += e.device_time / 1e3
-                k[1] += 1
-                kd = kinds.setdefault(sft_kind(e.name), [0.0, 0])
-                kd[0] += e.device_time / 1e3
-                kd[1] += 1
-        total = sum(t for t, _ in kernels.values())
-        wall = float(np.median(walls[name]))
-        line("profile sft cycle", route=name, wall_ms=f"{wall:.1f}",
-             device_kernel_ms=f"{total:.1f}", busy_share=f"{total / wall:.3f}",
-             **{f"{k}_ms": f"{t:.1f}" for k, (t, _) in sorted(kinds.items())},
-             **{f"{k}_launches": n for k, (_, n) in sorted(kinds.items())})
-        for kname, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
-            print(f"  {t:9.2f} ms {n:6d} launches  {kname}", flush=True)
+        print_profile("profile sft cycle", prof, float(np.median(walls[name])), route=name)
+
+
+V1_PROFILE_ITERS = 5           # unprofiled calls of each 25 Hz program and route
+V1_PROFILE_CODES = 250         # a 10 s clip at 25 Hz
+
+
+def phase_v1_profile(device) -> None:
+    """The 25 Hz decode's two programs, the DiT graphed and eager and
+    BigVGAN eager, then profiled (see the module docstring)."""
+    from qwen3_tts_tpu_torch.config import CodecV1Config
+    from qwen3_tts_tpu_torch.models.codec25 import bigvgan, dit
+    from qwen3_tts_tpu_torch.models.codec25.encoder import tokenizer_fp32
+    from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.utils.testing import codec_v1_state
+    from qwen3_tts_tpu_torch.weights import from_jax_tree, unflatten_state_dict
+
+    cfg = CodecV1Config()
+    dcfg, bcfg = cfg.dit_config, cfg.bigvgan_config
+    tree = from_jax_tree(unflatten_state_dict(codec_v1_state(cfg, SEED + 8)), device)
+    tokenizer_fp32()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n = V1_PROFILE_CODES
+    codes = torch.randint(0, dcfg.num_embeds, (1, n), device=device, generator=gen)
+    xv = torch.nn.functional.normalize(
+        torch.randn((1, dcfg.enc_emb_dim), device=device, generator=gen), dim=-1)
+    ref = torch.randn((1, 4 * n, dcfg.mel_dim), device=device, generator=gen)
+    noise = torch.randn((1, n * dcfg.repeats, dcfg.mel_dim), device=device, generator=gen)
+    mel = {}
+    programs = {
+        "dit": (lambda: dit.dit_sample(tree["decoder"]["dit"], dcfg, codes, xv, ref, noise),
+                ("graph", "eager")),
+        "bigvgan": (lambda: bigvgan.bigvgan_forward(tree["decoder"]["bigvgan"], bcfg,
+                                                    mel["dit"]), ("eager",)),
+    }
+    with torch.no_grad():
+        for name, (fn, routes) in programs.items():
+            for _ in range(2):   # the DiT's step is captured by the second call
+                mel[name] = fn()
+            for route in routes:
+                with graphs.eager() if route == "eager" else contextlib.nullcontext():
+                    wall, _ = wall_ms(fn, V1_PROFILE_ITERS)
+                    with device_trace(str(TRACE_DIR / f"v1_{name}_{route}")) as prof:
+                        fn()
+                print_profile(f"profile v1 {name}", prof, wall, V1_KINDS, top=10, route=route)
+    del tree, programs
+    graphs.clear(device)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 SFT_MIX_ROWS = 128             # utterances of the mixed-length run (64 mini-steps at B=2)
@@ -398,12 +470,6 @@ SFT_MIX_SECONDS = (1.0, 20.0)  # their durations, uniform
 SFT_MIX_TOKENS_PER_S = 3.5     # text tokens per second of speech
 SFT_MIX_ACCUM = 4              # sft.main's default grad_accum (the reference recipe's)
 SFT_MIX_DIR = Path(__file__).resolve().parent / "build" / "sft_mix"
-
-
-def _rss_mib() -> float:
-    with open("/proc/self/status") as f:
-        kb = next(int(x.split()[1]) for x in f if x.startswith("VmRSS:"))
-    return kb / 1024
 
 
 def phase_sft_mix(device) -> None:
@@ -550,6 +616,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--sft-mix"]:  # sft.main on mixed lengths, graphed and eager
         phase_sft_mix(device)
+        return 0
+    if sys.argv[1:] == ["--v1"]:       # the 25 Hz decode's programs
+        phase_v1_profile(device)
         return 0
     phase_build()
     if sys.argv[1:] == ["--stages"]:   # the decode kernels' stages only

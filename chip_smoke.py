@@ -140,6 +140,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
    every mismatch a near-tie of the 32768-way search), the x-vector, the
    reference mel, one DiT velocity evaluation and BigVGAN on a short mel,
    each against the same code on the host;
+   slice 13, `v1_graphs`: the DiT sampler's step and CAM++ as captured
+   graphs against `graphs.eager()` (the DiT mel within 1e-5, the x-vector
+   within 1e-6, a replay equal to its capture's call), BigVGAN and the
+   encode, which run eagerly, captured once to show they copy nothing
+   from the host; ms of each at a key's first and second call, a replay
+   and eager; the DiT's capture rule, a cold eager call beside a cold
+   capture; the tokenizer graphed against eager on a seen and an unseen
+   clip (codes, reference mel, PCM16 equal, waveform within 1e-5, no
+   capture); 5 lengths of 2-20 s sent once, again, a third time, eagerly;
 13. slice 8, SFT: four optimizer cycles of `make_train_step` at 1.7B in
    bf16 with the speaker encoder (ms per cycle, tokens/s, peak memory; the
    loss finite, the params and AdamW states moved); the loss and every
@@ -369,12 +378,17 @@ def read_launches() -> dict:
     return {name: getattr(wrapper, attr) for name, (wrapper, attr) in _counters().items()}
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     line("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -2726,6 +2740,11 @@ V1_DIT_REL_TOL = 1e-4         # one DiT velocity evaluation, relative L2
 V1_BIGVGAN_TOL = 1e-4         # BigVGAN on a short mel, max abs
 V1_DIT_CODES = 24             # the host-side DiT evaluation: 24 codes (48 frames)
 V1_BIGVGAN_FRAMES = 20
+V1_ITERS = 3                   # timed calls per route of the 25 Hz programs
+V1_LENGTHS = (2, 5, 9, 14, 20) # seconds: the clip lengths sent once, again, a third time
+V1_GRAPH_MEL_REL = 1e-5        # the DiT mel after every step, graphed against eager (rel L2)
+V1_GRAPH_WAV_TOL = 1e-5        # the decoded waveform graphed against eager (max abs)
+V1_GRAPH_XVEC_REL = 1e-6       # the CAM++ x-vector graphed against eager (rel L2)
 SFT_B, SFT_T, SFT_ACCUM, SFT_CYCLES = 2, 256, 2, 4
 SFT_HOST_T = 64               # the 2-layer card-vs-host check's sequence length
 SFT_LOSS_REL_TOL = 1e-5
@@ -2750,7 +2769,8 @@ def phase_codec25(device, cfg=None) -> dict:
     CAMPPlusConfig()), random weights from the fabricators written as a
     checkpoint directory under build/ and loaded through
     `Qwen3TTSTokenizer.from_pretrained` (the card by default): a 10 s 24 kHz
-    clip encoded and decoded back (each timed after one warm-up call), then
+    clip encoded and decoded back (each timed after two warm-up calls, so
+    that the graphed route replays, and in `graphs.eager()`), then
     every stage held to the same port code on the host in fp32, on the
     same 10 s clip (encoder, x-vector, reference mel) or a short input (one
     DiT velocity evaluation over V1_DIT_CODES codes, BigVGAN over
@@ -2763,6 +2783,7 @@ def phase_codec25(device, cfg=None) -> dict:
     from qwen3_tts_tpu_torch.models.codec25.campplus import CAMPPlusConfig
     from qwen3_tts_tpu_torch.models.codec25.mel import get_mel_audio
     from qwen3_tts_tpu_torch.models.codec25.model import XVectorExtractor
+    from qwen3_tts_tpu_torch.runtime import graphs
     from qwen3_tts_tpu_torch.utils.audio import resample
     from qwen3_tts_tpu_torch.utils.onnx_weights import write_onnx_initializers
     from qwen3_tts_tpu_torch.utils.testing import campplus_state, codec_v1_state
@@ -2790,15 +2811,21 @@ def phase_codec25(device, cfg=None) -> dict:
     weights_gib = (torch.cuda.memory_allocated() - base_mem) / 2**30
 
     clip = reference_clip(24000)
-    tok.encode((clip, 24000))
-    torch.cuda.synchronize()
-    t0 = time.time()
-    enc = tok.encode((clip, 24000))
-    encode_s = time.time() - t0
-    tok.decode(enc)
-    t0 = time.time()
-    wavs, sr = tok.decode(enc)
-    decode_s = time.time() - t0
+    routes = {}
+    for route in ("eager", "graph"):   # the graphed calls timed after their captures
+        with graphs.eager() if route == "eager" else contextlib.nullcontext():
+            for _ in range(2):
+                enc = tok.encode((clip, 24000))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            enc = tok.encode((clip, 24000))
+            encode_s = time.time() - t0
+            for _ in range(2):
+                tok.decode(enc)
+            t0 = time.time()
+            wavs, sr = tok.decode(enc)
+            routes[route] = (encode_s, time.time() - t0)
+    encode_s, decode_s = routes["graph"]
     peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30   # the tokenizer's own
     n = len(enc.audio_codes[0])
     dcfg, bcfg = cfg.dit_config, cfg.bigvgan_config
@@ -2871,10 +2898,13 @@ def phase_codec25(device, cfg=None) -> dict:
     errs = dict(mel=(mel_err, V1_MEL_TOL), xvector=(xv_err, V1_XVEC_REL_TOL),
                 ref_mel=(rm_err, V1_REF_MEL_TOL), dit=(dit_err, V1_DIT_REL_TOL),
                 bigvgan=(big_err, V1_BIGVGAN_TOL))
-    out = dict(encode_s=encode_s, decode_s=decode_s, rtf=decode_s / audio_s, peak_gib=peak_gib)
+    out = dict(encode_s=encode_s, decode_s=decode_s, rtf=decode_s / audio_s, peak_gib=peak_gib,
+               tokenizer=tok)
     line("codec25", widths="released" if cfg == CodecV1Config() else "cut", codes=n, audio_s=f"{audio_s:.2f}",
          write_s=f"{write_s:.1f}", load_s=f"{load_s:.1f}", weights_gib=f"{weights_gib:.2f}",
-         encode_s=f"{encode_s:.4f}", decode_s=f"{decode_s:.4f}", dit_s=f"{dit_s:.4f}",
+         encode_s=f"{encode_s:.4f}", encode_eager_s=f"{routes['eager'][0]:.4f}",
+         decode_s=f"{decode_s:.4f}", decode_eager_s=f"{routes['eager'][1]:.4f}",
+         dit_s=f"{dit_s:.4f}",
          bigvgan_s=f"{bigvgan_s:.4f}", decode_rtf=f"{out['rtf']:.4f}", peak_gib=f"{peak_gib:.2f}", host_clip_s=CLONE_REF_SECONDS,
          code_match=f"{match:.4f}", mismatches=len(miss), worst_gap=f"{worst_gap:.2e}",
          mel_err=f"{mel_err:.2e}", xvector_rel=f"{xv_err:.2e}", ref_mel_err=f"{rm_err:.2e}",
@@ -2885,9 +2915,244 @@ def phase_codec25(device, cfg=None) -> dict:
         raise AssertionError(f"25 Hz stages off the host run: {bad}")
     if match < V1_MIN_CODE_MATCH or worst_gap > V1_NEAR_TIE_REL:
         raise AssertionError(f"encoder codes: {match:.4f} equal, worst mismatch gap {worst_gap}")
-    del tok, card
-    torch.cuda.empty_cache()
     return out
+
+
+def _v1_inputs(tok, clip: np.ndarray) -> dict:
+    """The inputs of the 25 Hz tokenizer's four programs for a 24 kHz clip,
+    as its encode and decode make them: the Whisper mel, the CAM++ fbank
+    (on the host), then, from the encode's output, the codes, x-vector and
+    reference mel and the sampler's noise (seeded 0, as decode draws it)."""
+    from qwen3_tts_tpu_torch.models.codec25.mel import get_mel_audio
+    from qwen3_tts_tpu_torch.utils.audio import resample
+    from qwen3_tts_tpu_torch.utils.kaldi import fbank
+
+    m = tok.v1_model
+    dev, ecfg, dcfg = m.device, m.config.encoder_config, m.config.dit_config
+    wav16 = resample(clip, 24000, 16000)
+    norm = m.xvector_extractor._peak_norm(wav16)
+    feat = fbank(norm, num_mel_bins=m.xvector_extractor.cfg.feat_dim)
+    enc = tok.encode((clip, 24000))
+    n = len(enc.audio_codes[0])
+    return dict(
+        mel=get_mel_audio(wav16, padding=True, audio_vq_ds_rate=ecfg.audio_vq_ds_rate,
+                          n_mels=ecfg.n_mels, device=dev),
+        feats=torch.from_numpy((feat - feat.mean(axis=0, keepdims=True))[None]),
+        codes=torch.as_tensor(enc.audio_codes[0][None], device=dev),
+        xv=torch.as_tensor(enc.xvectors[0][None], device=dev),
+        ref=torch.as_tensor(enc.ref_mels[0][None], device=dev),
+        noise=torch.randn((1, n * dcfg.repeats, dcfg.mel_dim), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0)))
+
+
+def _rss_mib() -> float:
+    """This process's resident host memory (VmRSS), MiB."""
+    with open("/proc/self/status") as f:
+        kb = next(int(x.split()[1]) for x in f if x.startswith("VmRSS:"))
+    return kb / 1024
+
+
+def _captured(fn):
+    """fn captured once as a CUDA graph over the tensors it closes over (a
+    warm call on a side stream first): (the graph, its output, the
+    capture's host wall ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        out = fn()
+    torch.cuda.synchronize()
+    return g, out, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_v1_graphs(tok) -> dict:
+    """The 25 Hz tokenizer's four programs (`runtime/graphs.py`): the DiT
+    sampler's step (`StepGraphs`, captured at a key's DIT_CAPTURE_CALL-th
+    call) and CAM++ (`FrontGraphs`, at its second) as captured graphs
+    against their eager runs in `graphs.eager()`, on `phase_codec25`'s
+    tokenizer (released widths); BigVGAN and the Whisper-VQ encode, which
+    run eagerly, each captured once here to show that they copy nothing
+    from the host (a replay equal to the eager call). After
+    `graphs.clear`, for the 10 s clip: host wall ms of each graphed
+    program at its key's first call, second call, a replay and eager
+    (medians of V1_ITERS), with a replay equal to the second call; the DiT
+    mel within V1_GRAPH_MEL_REL of eager, the x-vector within
+    V1_GRAPH_XVEC_REL; BigVGAN's and the encode's eager ms, capture ms and
+    replay ms. The DiT's capture rule on new lengths of ~10 s (246-249
+    codes), the rules in turn 2, 1, 2, 1: each length's first and second
+    call, so that a cold eager call stands beside a cold capture. The
+    tokenizer's encode and decode graphed against eager (codes and
+    reference mel equal, x-vector within V1_GRAPH_XVEC_REL, waveform within
+    V1_GRAPH_WAV_TOL, PCM16 equal; both routes decode the graphed encode's
+    output) on that clip and on another 10 s clip (the first reversed),
+    neither of which may capture anything; the decode's wall graphed and
+    eager, and the DiT's share of the graphed one; then V1_LENGTHS clip
+    lengths encoded and decoded once, again, a third time and eagerly:
+    captures, graphs and static bytes a program, pool bytes and host RSS
+    after each round."""
+    from qwen3_tts_tpu_torch.models.codec25 import bigvgan, dit, encoder
+    from qwen3_tts_tpu_torch.models.codec25.campplus import campplus_embed
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    m = tok.v1_model
+    dev, cfg, p = m.device, m.config, m.params
+    dcfg = cfg.dit_config
+    rule = graphs.DIT_CAPTURE_CALL
+    clip = reference_clip(24000)
+    graphs.clear(dev)   # the 10 s keys start unseen: phase_codec25 met them
+    with graphs.eager():
+        x = _v1_inputs(tok, clip)
+
+    def sample(n=None, codes=x["codes"], noise=x["noise"]):
+        n = n or codes.shape[1]
+        return dit.dit_sample(p["decoder"]["dit"], dcfg, codes[:, :n], x["xv"], x["ref"],
+                              noise[:, :n * dcfg.repeats])
+
+    graphed = {
+        "campplus": (lambda: campplus_embed(m.xvector_extractor.params,
+                                            m.xvector_extractor.cfg, x["feats"]), (0, 1, 0)),
+        "dit": (sample, (0, 1, 0) if rule == 2 else (1, 0, 0)),
+    }
+    eager = {
+        "encode": lambda: encoder.encode_mel_to_codes(p["encoder"]["tokenizer"],
+                                                      cfg.encoder_config, x["mel"]),
+        "bigvgan": lambda: bigvgan.bigvgan_forward(p["decoder"]["bigvgan"], cfg.bigvgan_config,
+                                                   outs["dit", "eager"]),
+    }
+
+    def captures():
+        return graphs.stats(dev)["captures"]
+
+    res, outs = {}, {}
+    with torch.no_grad():
+        for name, (fn, want) in graphed.items():
+            c0 = captures()
+            first, _ = wall_ms(fn, 1)
+            c1 = captures()
+            second, outs[name, "graph"] = wall_ms(fn, 1)
+            c2 = captures()
+            replay, again = wall_ms(fn, V1_ITERS)
+            with graphs.eager():
+                eager_ms, outs[name, "eager"] = wall_ms(fn, V1_ITERS)
+            if (c1 - c0, c2 - c1, captures() - c2) != want:
+                raise AssertionError(f"25 Hz {name}: captures {c1 - c0}, {c2 - c1}, "
+                                     f"{captures() - c2} at a key's first, second and later "
+                                     f"calls (want {want})")
+            drift = max_abs(again, outs[name, "graph"])
+            if drift:
+                raise AssertionError(f"25 Hz {name}: a replay differs from its second call "
+                                     f"by {drift}")
+            res[name] = dict(first_ms=first, second_ms=second, replay_ms=replay,
+                             eager_ms=eager_ms, replay_drift=drift)
+        for name, fn in eager.items():
+            c0 = captures()
+            eager_ms, outs[name, "eager"] = wall_ms(fn, V1_ITERS)
+            g, out, capture_ms = _captured(fn)
+            replay, _ = wall_ms(g.replay, V1_ITERS)
+            if captures() != c0:
+                raise AssertionError(f"25 Hz {name}: the graph layer captured {name}")
+            drift = max_abs(out, outs[name, "eager"])
+            if drift:
+                raise AssertionError(f"25 Hz {name}: its captured replay differs from the eager "
+                                     f"call by {drift}")
+            res[name] = dict(eager_ms=eager_ms, capture_ms=capture_ms, replay_ms=replay,
+                             replay_drift=drift)
+            del g, out
+        # the DiT's capture rule: a cold eager call beside a cold capture
+        rules = {1: [], 2: []}
+        for r, n in ((2, 246), (1, 247), (2, 248), (1, 249)):
+            graphs.DIT_CAPTURE_CALL = r
+            try:
+                c0 = captures()
+                calls = [wall_ms(lambda: sample(n), 1) for _ in range(2)]
+            finally:
+                graphs.DIT_CAPTURE_CALL = rule
+            got = captures() - c0
+            if got != 1 or not all(torch.isfinite(o).all() for _, o in calls):
+                raise AssertionError(f"25 Hz DiT rule {r} at {n} codes: {got} captures")
+            rules[r].append((calls[0][0], calls[1][0]))
+    dit_rel = rel_err(outs["dit", "graph"], outs["dit", "eager"])
+    xv_rel = rel_err(outs["campplus", "graph"], outs["campplus", "eager"])
+    rule_ms = {f"dit_rule{r}_{k}_ms": [f"{c[i]:.2f}" for c in v]
+               for r, v in rules.items() for i, k in enumerate(("first", "second"))}
+    rule_sum = {r: float(np.mean([a + b for a, b in v])) for r, v in rules.items()}
+
+    # the tokenizer's routes, on the clip its graphs were captured on and a
+    # clip they never saw; both routes decode the graphed encode's output
+    ends = {}
+    for name, c in (("seen", clip), ("unseen", clip[::-1].copy())):
+        before = captures()
+        got, enc = {}, None
+        for route in ("graph", "eager"):
+            with graphs.eager() if route == "eager" else contextlib.nullcontext():
+                mine = tok.encode((c, 24000))
+                enc = enc or mine
+                wall, (wav, _) = wall_ms(lambda: tok.decode(enc), V1_ITERS)
+                pcm, _ = tok.decode(enc, output_dtype="int16")
+            got[route] = (mine, wav[0], pcm[0], wall)
+        (ge, gw, gp, gwall), (ee, ew, ep, ewall) = got["graph"], got["eager"]
+        ends[name] = dict(
+            captures=captures() - before, decode_ms=gwall, decode_eager_ms=ewall,
+            codes_equal=np.array_equal(ge.audio_codes[0], ee.audio_codes[0]),
+            xvector_rel=rel_err(torch.from_numpy(ge.xvectors[0]),
+                                torch.from_numpy(ee.xvectors[0])),
+            ref_mel_equal=np.array_equal(ge.ref_mels[0], ee.ref_mels[0]),
+            wav_max_abs=float(np.abs(gw - ew).max()), pcm16_equal=np.array_equal(gp, ep))
+    dit_share = res["dit"]["replay_ms"] / ends["seen"]["decode_ms"]
+
+    # clip lengths sent once, again, a third time, then eagerly
+    graphs.clear(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rounds = []
+    long_clip = np.tile(clip, -(-max(V1_LENGTHS) // CLONE_REF_SECONDS))
+    for r in ("once", "again", "third", "eager"):
+        before, t0 = captures(), time.perf_counter()
+        with graphs.eager() if r == "eager" else contextlib.nullcontext():
+            for sec in V1_LENGTHS:
+                tok.decode(tok.encode((long_clip[:sec * 24000 + 77], 24000)))
+        torch.cuda.synchronize()
+        st = graphs.stats(dev)
+        rounds.append(dict(round=r, wall_s=f"{time.perf_counter() - t0:.3f}",
+                           captures=captures() - before,
+                           **{k: st[f"{k}_graphs"] for k in graphs.V1_PROGRAMS},
+                           **{f"{k}_mib": f"{st[k + '_bytes'] / 2**20:.2f}"
+                              for k in graphs.V1_PROGRAMS},
+                           pool_mib=f"{st['pool_bytes'] / 2**20:.1f}",
+                           rss_mib=f"{_rss_mib():.0f}"))
+    line("v1_graphs", card=card(), clip_s=CLONE_REF_SECONDS,
+         **{f"{n}_{k}": f"{v:.3g}" if k == "replay_drift" else f"{v:.2f}"
+            for n, r in res.items() for k, v in r.items()},
+         dit_mel_rel=f"{dit_rel:.3g}", xvector_rel=f"{xv_rel:.3g}", dit_capture_call=rule,
+         **rule_ms, **{f"dit_rule{r}_two_calls_ms": f"{v:.2f}" for r, v in rule_sum.items()},
+         **{f"{name}_{k}": (f"{v:.4g}" if isinstance(v, float) else v)
+            for name, e in ends.items() for k, v in e.items()},
+         decode_dit_share=f"{dit_share:.3f}", lengths_s=list(V1_LENGTHS))
+    for r in rounds:
+        line("v1_graphs lengths", **r)
+    bad = [f"{name}: {k}" for name, e in ends.items() for k, ok in (
+        ("codes", e["codes_equal"]), ("x-vector", e["xvector_rel"] <= V1_GRAPH_XVEC_REL),
+        ("reference mel", e["ref_mel_equal"]), ("waveform", e["wav_max_abs"] <= V1_GRAPH_WAV_TOL),
+        ("PCM16", e["pcm16_equal"])) if not ok]
+    bad += [f"{name}: {e['captures']} captures" for name, e in ends.items() if e["captures"]]
+    if not dit_rel <= V1_GRAPH_MEL_REL or not xv_rel <= V1_GRAPH_XVEC_REL:
+        bad.append(f"programs: DiT mel {dit_rel}, x-vector {xv_rel}")
+    n = len(V1_LENGTHS)   # the DiT's and CAM++'s keys
+    want = [n * (rule == 1), n + n * (rule == 2), 0, 0]
+    if [r["captures"] for r in rounds] != want:
+        bad.append(f"captures by round {[r['captures'] for r in rounds]} (want {want})")
+    if bad:
+        raise AssertionError(f"25 Hz graphs against eager: {bad}")
+    del tok, m, p, graphed, eager, outs, x
+    graphs.clear(dev)   # the V1 graphs hold the tokenizer's weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(res, ends=ends, rounds=rounds)
 
 
 def sft_batch(tts_cfg, rng, T: int, B: int, ref_mel) -> dict:
@@ -3920,7 +4185,7 @@ def run(cfg, device) -> list:
     gc.collect()     # servers (engine <-> frame sink cycles) and their serve graphs
     torch.cuda.empty_cache()
     phase_0b6(device)
-    phase_codec25(device)
+    phase_v1_graphs(phase_codec25(device)["tokenizer"])
     phase_sft(device)
     phase_sft_graphs(device)
     phase_flac_native()

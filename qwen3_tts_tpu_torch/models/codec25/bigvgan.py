@@ -10,12 +10,16 @@ Qwen3TTSTokenizerV1DecoderBigVGANModel, modeling...v1.py:698-1067):
   `conv_transpose1d` with the same full-length output, then the same crop;
 - mixed causal / 'same' conv layouts per block depth (AMPBlock, 868-992).
 
-The kaiser filters are computed in numpy, cached per kernel size.
+The kaiser filters are computed in numpy and kept on the device per (ratio,
+kernel size, dtype, device): a forward copies nothing from pageable host
+memory, so it can be captured. It runs eagerly all the same (the JAX
+package's `_bigvgan_jit`; see `runtime/graphs.py` for why).
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from functools import lru_cache
 from typing import Any, Dict
 
@@ -54,9 +58,17 @@ def _kaiser_sinc_filter(cutoff: float, half_width: float, kernel_size: int) -> n
     return filt.reshape(1, 1, kernel_size).astype(np.float32)
 
 
-def _filter(ratio: int, kernel_size: int, channels: int, like: torch.Tensor) -> torch.Tensor:
+@lru_cache(maxsize=None)
+def _device_filter(ratio: int, kernel_size: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The (1, 1, kernel_size) sinc filter of `ratio` on `device`, built at
+    the first call of its arguments and kept for good: a forward copies
+    nothing from the host."""
     filt = _kaiser_sinc_filter(0.5 / ratio, 0.6 / ratio, kernel_size)
-    return torch.as_tensor(filt, device=like.device).to(like.dtype).expand(channels, 1, -1)
+    return torch.from_numpy(filt).to(device).to(dtype)
+
+
+def _filter(ratio: int, kernel_size: int, channels: int, like: torch.Tensor) -> torch.Tensor:
+    return _device_filter(ratio, kernel_size, like.dtype, like.device).expand(channels, 1, -1)
 
 
 def _upsample1d(x: torch.Tensor, ratio: int) -> torch.Tensor:
@@ -130,9 +142,28 @@ def _process_mel(mel: torch.Tensor) -> torch.Tensor:
     return torch.clamp(2.0 * ((db + 115) / 115.0) - 1.0, -1.0, 1.0).to(mel.dtype)
 
 
+_DETERMINISTIC = threading.Lock()   # held by a forward while it sets cuDNN's flag
+
+
 def bigvgan_forward(params: Params, cfg: BigVGANConfig, mel: torch.Tensor) -> torch.Tensor:
     """mel: (B, mel_dim, T) -> wav (B, T * prod(upsample_rates)) in [-1, 1]
-    (reference Qwen3TTSTokenizerV1DecoderBigVGANModel.forward, 1052-1067)."""
+    (reference Qwen3TTSTokenizerV1DecoderBigVGANModel.forward, 1052-1067).
+    cuDNN runs in its deterministic mode here: otherwise it may pick
+    transposed-convolution algorithms that sum with atomics, and two calls
+    on one 10 s mel differed by 4.7e-5 on an H100. The flag is process-wide,
+    so one forward at a time sets it and puts it back (`_DETERMINISTIC`);
+    another thread's convolutions meanwhile also get deterministic
+    algorithms, which changes their speed, not their tolerance."""
+    with _DETERMINISTIC:
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return _forward(params, cfg, mel)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+
+
+def _forward(params: Params, cfg: BigVGANConfig, mel: torch.Tensor) -> torch.Tensor:
     h = _process_mel(mel)
     h = conv1d(F.pad(h, (2, 2)), params["conv_pre"]["weight"], params["conv_pre"]["bias"])
     n_res = len(cfg.resblock_kernel_sizes)

@@ -162,9 +162,18 @@ def campplus_forward(p: Params, cfg: CAMPPlusConfig, feats: torch.Tensor) -> tor
 
 
 def campplus_embed(p: Params, cfg: CAMPPlusConfig, feats: torch.Tensor) -> torch.Tensor:
-    """campplus_forward without autograd (the JAX package's jitted entry)."""
+    """campplus_forward without autograd, on the device of `p` (feats may
+    lie on the host): the JAX package's jitted entry. On a CUDA device one
+    graph per feats shape, captured at the shape's second call
+    (`runtime/graphs.py` `front_call`, program "campplus"); elsewhere
+    eagerly."""
+    from ...runtime import graphs
+
+    def body(f):
+        return (campplus_forward(p, cfg, f),)
+
     with torch.no_grad():
-        return campplus_forward(p, cfg, feats)
+        return graphs.front_call(p, cfg, "campplus", (), body, feats)[0]
 
 
 def load_campplus_params(path: str, device="cpu") -> Params:

@@ -4,18 +4,23 @@ attention and the GRVQ code search (counterpart of
 
 - The conv stack runs on fixed 2 * n_window-frame chunks of the mel, each of
   which maps to one n_window attention window, so the windows stack into a
-  (num_windows, n_window, D) batch with a validity mask; the windows' count
-  and lengths stay on the host (`get_T_after_cnn` sets the last one's).
+  (num_windows, n_window, D) batch with a validity mask, built on the
+  device from the valid length (`get_T_after_cnn`): only the last window
+  is partial.
 - The nearest-code search is an argmin over distances to the (32768, 1280)
   codebook (one group, one quantizer at inference; reference
   core_vq.py:441-523), in fp32 with TF32 off (`tokenizer_fp32`).
 
 Only the encode path runs: the layers up to `audio_vq_layers` and the code
 indices (reference quantize_speech, modeling...v1.py:1337-1340).
+`encode_mel_to_codes` (the JAX package's jitted program) copies nothing
+from host memory, so it can be captured; it runs eagerly (see
+`runtime/graphs.py` for why).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -46,6 +51,23 @@ def sinusoid_positions(length: int, channels: int,
     inv = np.exp(-log_inc * np.arange(channels // 2))
     t = np.arange(length)[:, None] * inv[None, :]
     return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _device_sinusoids(length: int, channels: int, device) -> torch.Tensor:
+    """`sinusoid_positions` on `device`, built at the first call of its
+    arguments and kept for good: an encode copies nothing from the host."""
+    return torch.from_numpy(sinusoid_positions(length, channels)).to(device)
+
+
+def window_mask(T_mel: int, n_window: int, device) -> torch.Tensor:
+    """(n_chunks, n_window) bool: the positions of each attention window
+    that hold frames of a T_mel-frame mel. Windows tile the conv output
+    in order and only the last one is partial, so a position is valid
+    where its index in the flattened windows is below get_T_after_cnn."""
+    n_chunks = -(-T_mel // (2 * n_window))
+    idx = torch.arange(n_chunks * n_window, device=device).view(n_chunks, n_window)
+    return idx < get_T_after_cnn(T_mel)
 
 
 def _linear(p: Params, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
@@ -91,20 +113,16 @@ def vq_features(params: Params, cfg: WhisperVQEncoderConfig,
     W = cfg.n_window
     pe = params.get("positional_embedding")
     if pe is None:
-        pe = torch.as_tensor(sinusoid_positions(cfg.n_ctx, cfg.n_state), device=h.device)
+        pe = _device_sinusoids(cfg.n_ctx, cfg.n_state, h.device)
     h = h + pe[:W][None].to(h.dtype)
 
-    # per-window valid lengths on the host (the last window may be partial)
-    win_lens = np.full((n_chunks,), W, np.int64)
-    win_lens[-1] = get_T_after_cnn(T_mel) - W * (n_chunks - 1)
-    valid = (torch.arange(W, device=h.device)[None, :]
-             < torch.as_tensor(win_lens, device=h.device)[:, None])
-    bias = mask_to_bias(valid[:, None, None, :])
+    bias = mask_to_bias(window_mask(T_mel, W, h.device)[:, None, None, :])
     for i in range(cfg.audio_vq_layers):
         h = _attention_block(params["blocks"][str(i)], h, bias, cfg.n_head)
 
-    # pack the valid positions back into one sequence (host-static slices)
-    x = torch.cat([h[c, :int(win_lens[c])] for c in range(n_chunks)], dim=0)
+    # the valid positions back into one sequence: the windows' first
+    # get_T_after_cnn positions in order
+    x = h.reshape(n_chunks * W, -1)[:get_T_after_cnn(T_mel)]
 
     ds = params.get("audio_vq_downsample")
     if ds is not None:   # k = s = ds_rate (reference _do_quantize 247-250)

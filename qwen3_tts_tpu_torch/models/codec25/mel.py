@@ -8,7 +8,8 @@ caller's choice through `torch.fft.rfft`.
   compression): reference vq/speech_vq.py:42-115 (MelSpectrogramFeatures),
   which is `ops/stft.py`'s `mel_spectrogram` at those settings.
 
-Windows and filterbanks are built in numpy as the JAX package builds them.
+Windows and filterbanks are built in numpy as the JAX package builds them,
+once per (parameters, device) (`ops/stft.py` `mel_constants`).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ...ops.stft import hann_window, mel_filterbank, mel_spectrogram
+from ...ops.stft import mel_constants, mel_spectrogram
 
 N_FFT = 400
 HOP_LENGTH = 160
@@ -35,11 +36,11 @@ def whisper_log_mel(audio, n_mels: int = 128, padding: int = 0,
     if padding > 0:
         x = F.pad(x, (0, padding))
     x = F.pad(x[None, None], (N_FFT // 2, N_FFT // 2), mode="reflect")[0, 0]
-    window = torch.as_tensor(hann_window(N_FFT), device=x.device)
+    # Hann(400) and the slaney filterbank of 16 kHz, fmin 0, fmax 8 kHz
+    window, filters = mel_constants(N_FFT, n_mels, 16000, N_FFT, 0.0, None, x.device)
     frames = x.unfold(0, N_FFT, HOP_LENGTH) * window[None, :]
     spec = torch.fft.rfft(frames, n=N_FFT, dim=-1)
     mag = (spec.abs() ** 2).T[:, :-1]          # (freq, frames), last dropped
-    filters = torch.as_tensor(mel_filterbank(16000, N_FFT, n_mels), device=x.device)
     log_spec = torch.log10(torch.clamp(filters @ mag, min=1e-10))
     log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
     return (log_spec + 4.0) / 4.0

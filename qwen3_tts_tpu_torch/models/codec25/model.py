@@ -9,6 +9,13 @@ modeling_qwen3_tts_tokenizer_v1.py:1360-1526) and the x-vector path
 initializers; the kaldi fbank stays numpy on the host, as in the JAX
 package, and its result goes to the device. There is no onnxruntime route.
 
+Two of the JAX package's four compiled programs are graphs on a CUDA
+device (`runtime/graphs.py`): the DiT sampler's step (`dit_sample`) and
+CAM++ (`campplus_embed`). BigVGAN and the Whisper-VQ encode run eagerly:
+their graphs would repay a capture only after tens of calls of one clip
+length. Lengths are not bucketed, as in the JAX package: the DiT's
+look-ahead makes end padding change the output.
+
 Noise: the JAX package draws the sampler's noise from
 `jax.random.PRNGKey(0)`, which torch cannot reproduce. `decode` takes
 `noise=` ((B, T * repeats, mel_dim) fp32) or `generator=`; without either
@@ -64,8 +71,7 @@ class XVectorExtractor:
             ref_mel = bigvgan_ref_mel(norm[None], device=self.device)[0].T.cpu().numpy()
             feat = kaldi_fbank(norm, num_mel_bins=self.cfg.feat_dim)
             feat = feat - feat.mean(axis=0, keepdims=True)
-            emb = campplus_embed(self.params, self.cfg,
-                                 torch.as_tensor(feat[None], device=self.device))
+            emb = campplus_embed(self.params, self.cfg, torch.from_numpy(feat[None]))
         emb = emb.cpu().numpy().flatten()
         emb = emb / max(np.linalg.norm(emb), 1e-12)
         return emb.astype(np.float32), ref_mel.astype(np.float32)

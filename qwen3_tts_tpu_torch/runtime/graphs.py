@@ -1,8 +1,10 @@
 """Captured CUDA graphs of the prefill, the frame loop, the vocoder, the
-clone front end and the SFT step: the port's counterpart of
+clone front end, the 25 Hz tokenizer's sampler and x-vector, and the SFT
+step: the port's counterpart of
 `qwen3_tts_tpu/runtime/jit_options.py::decode_jit`, of `_init_decode_state`
 and `stage_requests`, of the vocoder's jitted programs, of the tokenizer's
-`_encode_compiled` and `extract_speaker_embedding`, and of its SFT script's
+`_encode_compiled` and `extract_speaker_embedding`, of the 25 Hz
+tokenizer's `_dit_sample_jit` and `campplus_embed`, and of its SFT script's
 `jax.jit(make_train_step(...))`.
 
 The JAX package compiles the frame loop into one device program per set of
@@ -14,7 +16,7 @@ launches every operation from the host instead (~600 for one vocoder call,
 ~30 a layer for a prefill). Here each of them is captured once as a
 `torch.cuda.CUDAGraph`, keyed the same way, and replayed with one launch.
 
-Five owners of graphs:
+Six owners of graphs:
 - `DecodeGraphs`, a graph context of the batch generators and the streaming
   session: the static buffers of one decode shape (the weights, the talker
   config, gen_cfg.canonical() with its fused flags and KV mode, the batch B,
@@ -46,9 +48,9 @@ Five owners of graphs:
   its output buffers, which the call copies out under the lock. At most
   MAX_CODEC_GRAPHS a device, least recently used first out. The vocoder
   draws no random numbers: its graphs register no generator.
-- `FrontGraphs`, two per device, one a program of the clone front end,
-  reached through `front_call` as the vocoder's are through `codec_call`:
-  the 12 Hz encode ("encode", keyed by the padded (rows, samples), which
+- `FrontGraphs`, three per device, one a program, reached through
+  `front_call` as the vocoder's are through `codec_call`: the clone front
+  end's 12 Hz encode ("encode", keyed by the padded (rows, samples), which
   the tokenizer buckets to 8 frames as the JAX package does; at most
   MAX_ENCODE_GRAPHS) and the ECAPA speaker embedding ("ecapa", keyed by
   the exact sample count: stats pooling and the reflect-padded last conv
@@ -60,7 +62,35 @@ Five owners of graphs:
   capture costs several eager runs. Inside `replay_only()` (a server's
   submit, on the thread of its live ticks) a key without a graph runs
   eagerly and nothing is captured; `TTSServer.warmup` captures the encode
-  of every bucket its prefill admits.
+  of every bucket its prefill admits. A third `FrontGraphs` holds CAM++,
+  the 25 Hz tokenizer's x-vector ("campplus", keyed by the host fbank's
+  frame count; at most MAX_CAMPPLUS_GRAPHS).
+- `StepGraphs`, one per device: the 25 Hz DiT sampler's Euler step
+  (`step_loop`), y += v(y, t0) * (t1 - t0) with y, t0 and t1 static
+  buffers; a call fills the conditioning's buffers once (computed eagerly
+  before: the internal ECAPA, the input embedding's fixed columns, RoPE
+  tables, three block biases), then per step copies t0 and t1 from the
+  time grid on the device and replays. Keyed by the shapes the step reads
+  ((B, Tc) and the CFG batch) and guidance_scale: num_steps and the
+  sway change only the grid, and the reference mel reaches only the
+  conditioning. Lengths are exact, as in the JAX package (the DiT's
+  look-ahead makes end padding change the output). A key is captured at
+  its DIT_CAPTURE_CALL-th call, the capture's warm pass being that call's
+  first step; at most MAX_DIT_STEP_GRAPHS. DIT_CAPTURE_CALL is 2 because
+  most clips are decoded once: at new ~10 s lengths on an H100 a first
+  call that captured took 198-470 ms against 181-358 for a cold eager
+  call, while over a length's first two calls capturing at the first was
+  2-14% faster (chip_smoke's `v1_graphs` sets it to 1 and 2 in turn).
+The 25 Hz tokenizer's other two programs, BigVGAN and the Whisper-VQ
+encode, run eagerly: they read no host memory, so they can be captured,
+but on an H100 a replay saved 4-5 of BigVGAN's ~85 ms and 1-3 of the
+encode's 7-9 at 10 s, against ~118 and ~106 ms more for the call that
+captured, which a clip length repays only after 33-41 and 117-390 later
+calls (chip_smoke's `v1_graphs`, PERF.md). The DiT step and CAM++ repay
+theirs after 1-2 and 3-6. Their bounds cap memory and are not fitted to a
+traffic mix: 5 DiT keys of 2-20 s held 38.2 MiB of static inputs (the
+biases grow as T^2) and 5 CAM++ keys 1.5 MiB, beside one shared pool of
+~0.5 GiB.
 - `TrainGraphs`, one per train step (`finetune/train.py`
   `make_train_step`, which hands it the mini-step's body): one graph per
   (B, T, phase) of the mini-step, phase "fold" or "fold+update" (the
@@ -132,8 +162,12 @@ MAX_GRAPHS_PER_CONTEXT = 32
 MAX_CODEC_GRAPHS = 64          # vocoder graphs per device
 MAX_ENCODE_GRAPHS = 64         # 12 Hz encode graphs per device: a 512-frame prefill's buckets
 MAX_ECAPA_GRAPHS = 32          # speaker-embedding graphs per device
+MAX_DIT_STEP_GRAPHS = 16       # 25 Hz DiT steps per device, one per (B, Tc): T^2 biases
+MAX_CAMPPLUS_GRAPHS = 32       # CAM++ x-vectors per device, one per fbank frame count
+DIT_CAPTURE_CALL = 2           # the call of a DiT step key that captures it: 1 or 2
 MAX_FRONT_SEEN = 256           # keys of each front-end program seen once, remembered
 MAX_TRAIN_GRAPHS = 64          # training graphs per train step: 2 phases x 32 lengths
+V1_PROGRAMS = ("dit_step", "campplus")
 _SMALL = ("code0", "last_hidden", "presence", "done", "lengths", "t")
 _EAGER = [False]
 _LOCK = threading.RLock()
@@ -201,9 +235,11 @@ class _Device:
         self.stream = torch.cuda.Stream(device)
         self.gen = torch.Generator(device=device)
         self.contexts: "OrderedDict[int, DecodeGraphs]" = OrderedDict()
-        self.codec = CodecGraphs(self)
-        self.encode = FrontGraphs(self, "encode")
-        self.ecapa = FrontGraphs(self, "ecapa")
+        self.codec = CodecGraphs(self, MAX_CODEC_GRAPHS)
+        self.encode = FrontGraphs(self, MAX_ENCODE_GRAPHS)
+        self.ecapa = FrontGraphs(self, MAX_ECAPA_GRAPHS)
+        self.campplus = FrontGraphs(self, MAX_CAMPPLUS_GRAPHS)
+        self.dit_step = StepGraphs(self, MAX_DIT_STEP_GRAPHS)
         self.train: "weakref.WeakSet[TrainGraphs]" = weakref.WeakSet()
         self.captures = 0
         self.replays = 0
@@ -679,39 +715,51 @@ class _CodecGraph:
         return _nbytes(self.inputs + self.outputs)
 
 
-class CodecGraphs:
-    """The vocoder's graphs of one device (see the module docstring)."""
+class KeyedGraphs:
+    """The graphs of one device's vocoder or of one of its programs, at
+    most `bound` of them, least recently used first out (see the module
+    docstring): keys, static copies in and out, captures, and the keys
+    met once (`seen`) by an owner that captures at a key's second call."""
 
-    def __init__(self, dev: _Device):
-        self.dev = dev
+    def __init__(self, dev: _Device, bound: int):
+        self.dev, self.bound = dev, bound
         self.graphs: "OrderedDict[tuple, _CodecGraph]" = OrderedDict()
-
-    @staticmethod
-    def limit() -> int:
-        return MAX_CODEC_GRAPHS
+        self.seen: "OrderedDict[tuple, None]" = OrderedDict()
 
     @staticmethod
     def key(params, cfg, program: str, static: tuple, pcm16: bool, inputs: tuple) -> tuple:
         return (id(params), cfg, program, static, bool(pcm16),
                 tuple((tuple(x.shape), x.dtype) for x in inputs))
 
-    def run(self, params, cfg, program: str, static: tuple, pcm16: bool, body,
-            inputs: tuple) -> tuple:
-        """`body(*inputs)` as a replay of its graph, captured at the first
-        call of its key; returns copies of the graph's outputs."""
-        key = self.key(params, cfg, program, static, pcm16, inputs)
-        with _LOCK:
-            g = self.graphs.get(key)
-            if g is None:
-                g = self._capture(params, body, inputs)
-                self.graphs[key] = g
-                while len(self.graphs) > self.limit():
-                    self.graphs.popitem(last=False)
-            else:
-                self.graphs.move_to_end(key)
-                self._load(g.inputs, inputs)
-            g.graph.replay(self.dev, None)
-            return tuple(o.clone() for o in g.outputs)
+    def _first_sight(self, key: tuple) -> bool:
+        """Whether `key` runs eagerly now: it has no graph and was not seen
+        before (or this is inside `replay_only()`). Remembers it."""
+        if key in self.graphs or (key in self.seen
+                                  and not getattr(_LOCAL, "replay_only", False)):
+            return False
+        self.seen[key] = None
+        self.seen.move_to_end(key)
+        while len(self.seen) > MAX_FRONT_SEEN:
+            self.seen.popitem(last=False)
+        return True
+
+    def _replay(self, key: tuple, params, body, inputs: tuple) -> tuple:
+        """`body(*inputs)` as a replay of the graph of `key`, captured now
+        if it has none; returns copies of the graph's outputs."""
+        g = self.graphs.get(key)
+        if g is None:
+            g = self._capture(params, body, inputs)
+            self._add(key, g)
+        else:
+            self.graphs.move_to_end(key)
+            self._load(g.inputs, inputs)
+        g.graph.replay(self.dev, None)
+        return tuple(o.clone() for o in g.outputs)
+
+    def _add(self, key: tuple, g: _CodecGraph) -> None:
+        self.graphs[key] = g
+        while len(self.graphs) > self.bound:
+            self.graphs.popitem(last=False)
 
     @staticmethod
     def _load(bufs: tuple, inputs: tuple) -> None:
@@ -727,33 +775,70 @@ class CodecGraphs:
         return _CodecGraph(params, bufs, tuple(outs), g)
 
 
-class FrontGraphs(CodecGraphs):
-    """The graphs of one clone front-end program on one device (see the
-    module docstring): the vocoder owner's keys and copies, a bound of its
-    own, and a key captured at its second call."""
-
-    def __init__(self, dev: _Device, program: str):
-        super().__init__(dev)
-        self.program = program
-        self.seen: "OrderedDict[tuple, None]" = OrderedDict()
-
-    def limit(self) -> int:
-        return MAX_ENCODE_GRAPHS if self.program == "encode" else MAX_ECAPA_GRAPHS
+class CodecGraphs(KeyedGraphs):
+    """The vocoder's graphs of one device, a key captured at its first
+    call."""
 
     def run(self, params, cfg, program: str, static: tuple, pcm16: bool, body,
             inputs: tuple) -> tuple:
-        """`body(*inputs)`: eagerly where its key has no graph and was not
-        seen before (or inside `replay_only()`), else as `CodecGraphs.run`."""
+        """`body(*inputs)` as a replay of its graph; returns copies of the
+        graph's outputs."""
         key = self.key(params, cfg, program, static, pcm16, inputs)
         with _LOCK:
-            if key not in self.graphs and (key not in self.seen
-                                           or getattr(_LOCAL, "replay_only", False)):
-                self.seen[key] = None
-                self.seen.move_to_end(key)
-                while len(self.seen) > MAX_FRONT_SEEN:
-                    self.seen.popitem(last=False)
+            return self._replay(key, params, body, inputs)
+
+
+class FrontGraphs(KeyedGraphs):
+    """The graphs of one program on one device, a key captured at its
+    second call."""
+
+    def run(self, params, cfg, program: str, static: tuple, pcm16: bool, body,
+            inputs: tuple) -> tuple:
+        """`body(*inputs)`: eagerly at a key's first sight, else as a
+        replay of its graph."""
+        key = self.key(params, cfg, program, static, pcm16, inputs)
+        with _LOCK:
+            if self._first_sight(key):
                 return body(*(x.to(self.dev.device) for x in inputs))
-            return super().run(params, cfg, program, static, pcm16, body, inputs)
+            return self._replay(key, params, body, inputs)
+
+
+def _steps(body, y: torch.Tensor, grid: torch.Tensor, inputs: tuple) -> torch.Tensor:
+    for i in range(grid.shape[0] - 1):
+        body(y, grid[i], grid[i + 1], *inputs)
+    return y
+
+
+class StepGraphs(KeyedGraphs):
+    """The 25 Hz DiT sampler's step on one device (see the module
+    docstring): one graph of the step per key, captured at the key's
+    DIT_CAPTURE_CALL-th call and replayed for its other steps."""
+
+    def loop(self, params, cfg, static: tuple, body, y0: torch.Tensor, grid: torch.Tensor,
+             inputs: tuple) -> torch.Tensor:
+        """`step_loop` on this device: y, t0 and t1 are static buffers of
+        the step's graph; each step fills t0 and t1 from `grid` by device
+        copies, then replays. Before the capturing call the steps run
+        eagerly; at it, the capture's warm pass is the first step."""
+        ins = (y0, grid[0], grid[1]) + tuple(inputs)
+        key = self.key(params, cfg, "dit_step", static, False, ins)
+        with _LOCK:
+            if DIT_CAPTURE_CALL > 1 and self._first_sight(key):
+                return _steps(body, y0.to(self.dev.device, copy=True), grid, inputs)
+            g = self.graphs.get(key)
+            start = 0
+            if g is None:
+                g = self._capture(params, body, ins)
+                self._add(key, g)
+                start = 1
+            else:
+                self.graphs.move_to_end(key)
+                self._load(g.inputs, ins)
+            y, t0, t1 = g.inputs[:3]
+            for i in range(start, grid.shape[0] - 1):
+                self._load((t0, t1), (grid[i], grid[i + 1]))
+                g.graph.replay(self.dev, None)
+            return y.clone()
 
 
 def params_device(tree) -> Optional[torch.device]:
@@ -789,10 +874,28 @@ def codec_call(params, cfg, program: str, static: tuple, pcm16: bool, body, *inp
 
 
 def front_call(params, cfg, program: str, static: tuple, body, *inputs) -> tuple:
-    """`codec_call` for the clone front end's programs ("encode" over the
-    Mimi encoder's params, "ecapa" over the speaker encoder's), each on the
+    """`codec_call` for the programs captured at a key's second call: the
+    clone front end's ("encode" over the Mimi encoder's params, "ecapa"
+    over the speaker encoder's) and CAM++ ("campplus"), each on the
     device's `FrontGraphs` of its own."""
     return _owner_call(program, params, cfg, program, static, False, body, inputs)
+
+
+def step_loop(params, cfg, static: tuple, body, y0: torch.Tensor, grid: torch.Tensor,
+              *inputs) -> torch.Tensor:
+    """y = a copy of y0, then `body(y, grid[i], grid[i + 1], *inputs)` for
+    each i < len(grid) - 1, each call writing y in place; returns y. On a
+    CUDA device (outside `eager()`) the step is one graph keyed by the
+    params' identity, `cfg`, `static` and the inputs' shapes and dtypes
+    (`StepGraphs`); elsewhere the steps run eagerly on the params' device."""
+    device = params_device(params)
+    if not enabled(device):
+        return _steps(body, y0.to(device, copy=True), grid, inputs)
+    if grid.shape[0] < 2:
+        return y0.clone()
+    with _LOCK:
+        owner = _device(device).dit_step
+    return owner.loop(params, cfg, static, body, y0, grid, inputs)
 
 
 class _TrainGraph:
@@ -879,7 +982,9 @@ def stats(device) -> dict:
     """Graphs captured and replayed on `device` so far (every owner), decode
     contexts and their graphs, their static bytes, the vocoder's, the
     encode's and ECAPA's graphs and their static bytes, the training
-    graphs, and the bytes of the shared pool."""
+    graphs, the DiT step's and CAM++'s graphs and their static bytes
+    (`<program>_graphs`, `<program>_bytes`), and the bytes of the shared
+    pool."""
     device = torch.device(device)
     dev = None
     if device.type == "cuda":
@@ -888,7 +993,9 @@ def stats(device) -> dict:
     if dev is None:
         return {"captures": 0, "replays": 0, "contexts": 0, "graphs": 0, "static_bytes": 0,
                 "codec_graphs": 0, "codec_bytes": 0, "encode_graphs": 0, "ecapa_graphs": 0,
-                "front_bytes": 0, "train_graphs": 0, "pool_bytes": 0}
+                "front_bytes": 0, "train_graphs": 0,
+                **{f"{p}_{k}": 0 for p in V1_PROGRAMS for k in ("graphs", "bytes")},
+                "pool_bytes": 0}
     return {"captures": dev.captures, "replays": dev.replays, "contexts": len(dev.contexts),
             "graphs": sum(len(c.graphs) for c in dev.contexts.values()),
             "static_bytes": sum(c.nbytes() for c in dev.contexts.values()),
@@ -898,6 +1005,9 @@ def stats(device) -> dict:
             "front_bytes": sum(g.nbytes() for o in (dev.encode, dev.ecapa)
                                for g in o.graphs.values()),
             "train_graphs": sum(len(t.graphs) for t in dev.train),
+            **{f"{p}_graphs": len(getattr(dev, p).graphs) for p in V1_PROGRAMS},
+            **{f"{p}_bytes": sum(g.nbytes() for g in getattr(dev, p).graphs.values())
+               for p in V1_PROGRAMS},
             "pool_bytes": pool_bytes(dev)}
 
 
@@ -909,14 +1019,15 @@ def pool_bytes(dev: _Device) -> int:
 
 
 def clear(device=None) -> None:
-    """Drop every decode context and every vocoder, front-end and training
-    graph of `device` (every device: None). A context a live decode state
-    still uses lives on until that state goes."""
+    """Drop every decode context and every vocoder, front-end, 25 Hz
+    tokenizer and training graph of `device` (every device: None). A
+    context a live decode state still uses lives on until that state
+    goes."""
     for index, dev in list(_DEVICES.items()):
         if device is None or torch.device(device).index in (None, index):
             dev.contexts.clear()
             dev.codec.graphs.clear()
-            for o in (dev.encode, dev.ecapa):
+            for o in (dev.encode, dev.ecapa, dev.campplus, dev.dit_step):
                 o.graphs.clear()
                 o.seen.clear()
             for t in list(dev.train):

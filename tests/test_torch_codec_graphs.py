@@ -323,7 +323,8 @@ def test_codec_graph_keys_lru_and_copies(monkeypatch):
     dev = graphs._Device.__new__(graphs._Device)
     dev.device, dev.captures, dev.replays = torch.device("cpu"), 0, 0
     dev.contexts = graphs.OrderedDict()
-    dev.codec = graphs.CodecGraphs(dev)
+    monkeypatch.setattr(graphs, "MAX_CODEC_GRAPHS", 3)
+    dev.codec = graphs.CodecGraphs(dev, graphs.MAX_CODEC_GRAPHS)
 
     def fake_capture(d, generator, warm, body):
         assert generator is None
@@ -346,7 +347,6 @@ def test_codec_graph_keys_lru_and_copies(monkeypatch):
     monkeypatch.setattr(graphs.CodecGraphs, "_capture", fake_codec_capture)
     monkeypatch.setattr(graphs.CodecGraphs, "_load",
                         staticmethod(lambda bufs, xs: [b.copy_(x) for b, x in zip(bufs, xs)]))
-    monkeypatch.setattr(graphs, "MAX_CODEC_GRAPHS", 3)
     params = {"_codebooks": torch.zeros(1)}
 
     def call(x, program="rows", static=(4,), pcm16=False, p=params):

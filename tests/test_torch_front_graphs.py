@@ -54,14 +54,17 @@ class _FakeGraph:
 
 @pytest.fixture
 def fake_front(monkeypatch):
-    """A stand-in CPU device whose vocoder and front-end owners capture by
-    running the body once and replay by running it again into the static
-    outputs; the graph layer on."""
+    """A stand-in CPU device whose vocoder, front-end and 25 Hz tokenizer
+    owners capture by running the body once and replay by running it again
+    into the static outputs; the graph layer on."""
     dev = graphs._Device.__new__(graphs._Device)
     dev.device, dev.captures, dev.replays = torch.device("cpu"), 0, 0
     dev.contexts = graphs.OrderedDict()
-    dev.codec = graphs.CodecGraphs(dev)
-    dev.encode, dev.ecapa = graphs.FrontGraphs(dev, "encode"), graphs.FrontGraphs(dev, "ecapa")
+    dev.codec = graphs.CodecGraphs(dev, graphs.MAX_CODEC_GRAPHS)
+    dev.encode = graphs.FrontGraphs(dev, graphs.MAX_ENCODE_GRAPHS)
+    dev.ecapa = graphs.FrontGraphs(dev, graphs.MAX_ECAPA_GRAPHS)
+    dev.campplus = graphs.FrontGraphs(dev, graphs.MAX_CAMPPLUS_GRAPHS)
+    dev.dit_step = graphs.StepGraphs(dev, graphs.MAX_DIT_STEP_GRAPHS)
 
     def fake_capture(self, params, body, inputs):
         bufs = tuple(x.clone() for x in inputs)
@@ -74,8 +77,8 @@ def fake_front(monkeypatch):
 
         return graphs._CodecGraph(params, bufs, outs, _FakeGraph(run))
 
-    monkeypatch.setattr(graphs.CodecGraphs, "_capture", fake_capture)
-    monkeypatch.setattr(graphs.CodecGraphs, "_load",
+    monkeypatch.setattr(graphs.KeyedGraphs, "_capture", fake_capture)
+    monkeypatch.setattr(graphs.KeyedGraphs, "_load",
                         staticmethod(lambda bufs, xs: [b.copy_(x) for b, x in zip(bufs, xs)]))
     monkeypatch.setattr(graphs, "enabled", lambda device: not graphs._EAGER[0])
     monkeypatch.setattr(graphs, "_device", lambda device: dev)
@@ -194,8 +197,8 @@ def test_front_graphs_never_evict_vocoder_graphs(fake_front, monkeypatch):
     """Clips of many lengths past MAX_ENCODE_GRAPHS: the encode's own LRU
     goes, least recently used first; the vocoder's graphs stay, keys and
     all."""
-    monkeypatch.setattr(graphs, "MAX_ENCODE_GRAPHS", 2)
-    monkeypatch.setattr(graphs, "MAX_CODEC_GRAPHS", 3)
+    monkeypatch.setattr(fake_front.encode, "bound", 2)
+    monkeypatch.setattr(fake_front.codec, "bound", 3)
     dec_params = {"_codebooks": torch.zeros(1)}
     for n in (2, 3, 4):
         graphs.codec_call(dec_params, None, "rows", (n,), False, lambda a: (a * 2,),
@@ -212,7 +215,7 @@ def test_front_graphs_never_evict_vocoder_graphs(fake_front, monkeypatch):
 
 
 def test_ecapa_lengths_never_evict_encode_graphs(fake_front, monkeypatch):
-    monkeypatch.setattr(graphs, "MAX_ECAPA_GRAPHS", 2)
+    monkeypatch.setattr(fake_front.ecapa, "bound", 2)
     enc, spk = {"w": torch.zeros(1)}, {"v": torch.zeros(1)}
     for _ in range(2):
         graphs.front_call(enc, None, "encode", (), _double, torch.ones(1, 8))
