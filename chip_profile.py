@@ -1,6 +1,6 @@
 """Where the time of the port's calls goes on one NVIDIA H100.
 
-    python3 chip_profile.py [--stages | --sft | --sft-mix | --v1]
+    python3 chip_profile.py [--stages | --sft | --sft-mix | --v1 | --vocoder-device]
 
 Builds the kernels and the same in-memory 1.7B int8 models as chip_smoke.py
 (random weights from its seed), then prints:
@@ -49,6 +49,15 @@ over one call of each: device time and launches by kind of kernel
 (convolutions, GEMMs, the attention's softmax, the rest as elementwise),
 the top kernels and the busy share.
 
+`--vocoder-device` runs chip_smoke's `vocoder_device` phase with its
+second-card route only, on a host with two cards or more: the one-card
+reference and default servers, then the vocoder on card
+1 (codes and PCM16 equal the reference's, no capture after the warm-up),
+each with requests/s, audio s per wall s, first-packet p50 / p95 and the
+serving card's busy share; on the smoke's mix, then on the serving phase's
+(12 requests over 8 slots, half streamed, 64 frames), where the vocoder
+takes a third of a one-card server's wall.
+
 A diagnostic beside the smoke; it checks nothing that chip_smoke.py does not.
 """
 
@@ -67,7 +76,8 @@ import torch
 from chip_smoke import (CLONE_MAX_NEW_TOKENS, CLONE_REF_TEXT, CLONE_TEXTS, MAX_NEW_TOKENS,
                         SEED, SERVE_OVERRIDES, SERVE_REQUESTS, SERVE_SLOTS, TEXTS, _rss_mib,
                         build_clone_model, build_model, line, model_params, phase_build,
-                        phase_clone_front_end, phase_device, serve_all, wall_ms)
+                        phase_clone_front_end, phase_device, phase_vocoder_device, serve_all,
+                        wall_ms)
 from qwen3_tts_tpu_torch.utils.profiling import device_trace
 
 # one Chrome trace per profiled call (build/ is not committed)
@@ -621,6 +631,13 @@ def main() -> int:
         phase_v1_profile(device)
         return 0
     phase_build()
+    if sys.argv[1:] == ["--vocoder-device"]:   # the server's vocoder on a second card
+        model = build_model(model_params(TALKER_1B7, device), TALKER_1B7, device)
+        phase_vocoder_device(model, routes=("c",))
+        phase_vocoder_device(model, routes=("c",), mix=dict(
+            slots=SERVE_SLOTS, requests=SERVE_REQUESTS,
+            streams=tuple(range(0, SERVE_REQUESTS, 2)), frames=MAX_NEW_TOKENS))
+        return 0
     if sys.argv[1:] == ["--stages"]:   # the decode kernels' stages only
         phase_engine_stages(model_params(TALKER_1B7, device), TALKER_1B7, device)
         return 0

@@ -95,6 +95,17 @@ Phases, each printing one line (any failure raises and exits non-zero):
    POST /tts and 4 POST /tts_stream from worker threads, all audio of whole
    frames and together the frames the engine generated, a stream closed
    after its first packet frees its slot, the engine route serving all;
+   slice 14, `vocoder_device`: servers of 2 slots serving 6 requests (2
+   streamed, 32 frames), each warmed: one card with fast_first_packet off
+   (the reference) and on; (a) the vocoder on the serving card named:
+   codes equal, audio PCM16-equal and within 1e-5, no capture after the
+   warm-up; (b) on the host's CPU: codes equal, audio within 1e-5 of the
+   card's, the decoder params where they belong, no capture on the card
+   (the phase's vocoder has its weights scaled so that its audio is not
+   clamped to +-1); (c) on a second card where there is one (codes and PCM16
+   equal, no capture on either card), else a line saying it did not run;
+   requests/s, audio s per wall s, first packet p50 / p95 and the serving
+   card's busy share (torch.profiler) of each;
 8. the clone model (the same talker as a base model, the speaker encoder at
    the released widths, the default-width Mimi encoder): a 10 s reference
    clip's codes and speaker embedding on the card against the host twins;
@@ -194,6 +205,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -230,6 +242,25 @@ CLONE_MAX_NEW_TOKENS = 48
 CLONE_STREAM_TEXT = CLONE_TEXT * 2
 # Serving: more requests than slots, so staging and installs mid-chunk run.
 SERVE_SLOTS, SERVE_REQUESTS = 8, 12
+# The server's vocoder device (slice 14): a mix of 6 requests, 2 streamed,
+# over 2 slots at 32 frames, small enough for the route whose vocoder runs
+# on the host's CPU (its warm-up vocodes every egress shape and completion
+# batch there: 60.6 s of warm-up and a 16.0 s mix at 4 slots on the H100's
+# host, 8 threads).
+VOC_MIX = dict(slots=2, requests=6, streams=(0, 3), frames=32)
+# The phase's vocoder: the smoke vocoder's draw with every weight matrix
+# scaled by VOC_WEIGHT_SCALE. At the default widths that draw (std 0.05)
+# grows each layer's output ~5x and clamps every sample to +-1 (a
+# full-scale share of 1.0000 in this phase's first runs), so samples
+# compared one by one would compare signs; scaled by 8 ** -0.5 each layer's
+# gain is the same draw's at an eighth of the width, whose output stays
+# inside [-1, 1] (pre-clamp std 0.043 at decoder_dim 192 on the CPU; RMS
+# 0.0871 and no sample at full scale at the default widths on the H100).
+# (b): the CPU's vocoder against the card's on the same codes, fp32 with
+# TF32 off on both: max abs 1.3e-6 on the H100's host (8 threads), so
+# the vocoder's graphed-against-eager bound, 1e-5 (CODEC_TOL), holds it.
+VOC_CPU_TOL = 1e-5
+VOC_WEIGHT_SCALE = 8 ** -0.5
 CODEC_TOL = 1e-5              # the vocoder graphed against eager, float samples (max abs)
 CODEC_ITERS = 5
 # A streamed clone packet vocoded again from its own context and frames: the
@@ -1868,6 +1899,219 @@ def phase_server_warmup(model) -> dict:
              mix_graphs_captured=r["captures"])
     line("server_warmup split", **split_fields(warm["wall"], warm["split"]))
     return {"warm": warm, "cold": cold}
+
+
+def busy_share(prof, index: int, wall_s: float) -> float:
+    """The share of `wall_s` in which card `index` ran anything (a kernel, a
+    copy or a set) in the torch.profiler run `prof`: the union of their
+    spans over the wall."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.device_index == index)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6 / wall_s
+
+
+def _voc_server(model, mix: dict, **kw) -> dict:
+    """A TTSServer of the vocoder_device phase (`mix`'s slots, kernel 2 in
+    int8-KV mode, the smoke's seed; `kw`: vocoder_device or
+    fast_first_packet), warmed with `warmup()`, then `mix`'s requests,
+    profiled: every request's codes (the code sink) and float audio, the
+    mix's requests/s, audio s per wall s, first-packet p50 / p95, the
+    serving card's busy share, and the graphs each card captured after the
+    warm-up."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+    from qwen3_tts_tpu_torch.runtime.server import AudioPacket, AudioResult, TTSServer
+
+    codes = {}
+    srv = TTSServer(model, num_slots=mix["slots"], overrides=SERVE_OVERRIDES,
+                    max_new_tokens=mix["frames"], seed=SEED,
+                    code_sink=lambda rid, fr: codes.setdefault(rid, []).extend(fr), **kw)
+    serving = torch.device("cuda", torch.cuda.current_device())
+    cards = [serving] + [d for d in [srv.vocoder_device]
+                         if d is not None and d.type == "cuda" and d != serving]
+    warm_s = srv.warmup()
+    ids = [f"v{i}" for i in range(mix["requests"])]
+    stream = {rid: i in mix["streams"] for i, rid in enumerate(ids)}
+    submits = [lambda rid=rid, i=i: srv.submit_custom_voice(
+        rid, text=f"{TEXTS[i % len(TEXTS)]} Request {i}.", speaker="vivian",
+        language="english", stream=stream[rid]) for i, rid in enumerate(ids)]
+    c0 = {d: graphs.stats(d)["captures"] for d in cards}
+    reset_launches()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        events, first, wall = serve_all(srv, submits)
+        for d in cards:
+            torch.cuda.synchronize(d)
+    launches = read_launches()
+    captures = {str(d): graphs.stats(d)["captures"] - c0[d] for d in cards}
+    audio = {}
+    for rid in ids:
+        mine = [e for e in events if e.request_id == rid]
+        ok = (mine and mine[-1].final and all(isinstance(e, AudioPacket) for e in mine)
+              if stream[rid] else len(mine) == 1 and isinstance(mine[0], AudioResult))
+        if not (ok and all(np.isfinite(e.wav).all() for e in mine)):
+            raise AssertionError(f"vocoder_device {kw}: request {rid} did not complete: {mine}")
+        audio[rid] = np.concatenate([e.wav for e in mine])
+    if min(launches["subtalker"], launches["talker_step_int8_kv"]) <= 0:
+        raise AssertionError(f"vocoder_device {kw}: launches {launches}")
+    fp = np.array([first[rid] for rid in ids if stream[rid]])
+    return {"srv": srv, "mix": mix, "codes": {rid: np.stack(fr) for rid, fr in codes.items()},
+            "audio": audio, "warm_s": warm_s, "wall": wall, "captures": captures,
+            "launches": launches, "requests_per_s": len(ids) / wall,
+            "audio_s_per_s": sum(a.shape[0] for a in audio.values()) / 24000 / wall,
+            "first_packet_p50": float(np.percentile(fp, 50)),
+            "first_packet_p95": float(np.percentile(fp, 95)),
+            "busy": busy_share(prof, serving.index, wall)}
+
+
+def _pcm16(wav: np.ndarray) -> np.ndarray:
+    from qwen3_tts_tpu_torch.models.codec12.decoder import to_pcm16
+
+    return to_pcm16(torch.from_numpy(wav)).numpy()
+
+
+def _voc_against(run: dict, ref: dict, tag: str) -> dict:
+    """`run`'s codes equal `ref`'s, request by request, and its audio has
+    their shapes. Returns, over every request's concatenated samples, the
+    max abs difference, the PCM16 samples that differ, the samples, and
+    `ref`'s RMS and share of samples at full scale (clamped to +-1)."""
+    if set(run["codes"]) != set(ref["codes"]):
+        raise AssertionError(f"{tag}: requests {sorted(run['codes'])} vs {sorted(ref['codes'])}")
+    diffs, pcm_off = [], 0
+    for rid, fr in ref["codes"].items():
+        if not np.array_equal(run["codes"][rid], fr):
+            raise AssertionError(f"{tag}: request {rid}'s codes differ from the one-card server's")
+        a, b = run["audio"][rid], ref["audio"][rid]
+        if a.shape != b.shape:
+            raise AssertionError(f"{tag}: request {rid}'s audio {a.shape} vs {b.shape}")
+        diffs.append(np.abs(a - b))
+        pcm_off += int((_pcm16(a) != _pcm16(b)).sum())
+    d = np.concatenate(diffs)
+    audio = np.concatenate([ref["audio"][rid] for rid in ref["codes"]])
+    return {"max_abs": float(d.max()), "pcm16_off": pcm_off, "samples": d.size,
+            "rms": float(np.sqrt(np.mean(audio ** 2))),
+            "full_scale": float(np.mean(np.abs(audio) >= 1.0))}
+
+
+def _voc_same_card(run: dict, ref: dict, tag: str) -> dict:
+    """`_voc_against`, held to a card's vocoder: float within CODEC_TOL and
+    PCM16 equal."""
+    r = _voc_against(run, ref, tag)
+    if r["max_abs"] > CODEC_TOL or r["pcm16_off"]:
+        raise AssertionError(f"{tag}: audio max abs {r['max_abs']:.3g} (bar {CODEC_TOL}), "
+                             f"{r['pcm16_off']} PCM16 samples differ")
+    if any(run["captures"].values()):
+        raise AssertionError(f"{tag}: graphs captured after the warm-up: {run['captures']}")
+    return r
+
+
+def _voc_line(name: str, r: dict, **extra) -> None:
+    mix = r["mix"]
+    line(f"vocoder_device {name}", slots=mix["slots"], requests=mix["requests"],
+         streamed=len(mix["streams"]), frames=mix["frames"], warmup_s=f"{r['warm_s']:.3f}",
+         wall_s=f"{r['wall']:.3f}", requests_per_s=f"{r['requests_per_s']:.3f}",
+         audio_s_per_wall_s=f"{r['audio_s_per_s']:.3f}",
+         first_packet_p50_s=f"{r['first_packet_p50']:.3f}",
+         first_packet_p95_s=f"{r['first_packet_p95']:.3f}",
+         serving_card_busy_share=f"{r['busy']:.4f}", captures_after_warmup=r["captures"],
+         **extra)
+
+
+def voc_model(model):
+    """`model` (a shallow copy) with a shallow copy of its tokenizer whose
+    decoder weight matrices are scaled by VOC_WEIGHT_SCALE (the codebooks
+    and every vector kept)."""
+    from qwen3_tts_tpu_torch.weights import map_tensors
+
+    tok = copy.copy(model.speech_tokenizer)
+    tok.dec_params = {k: v if k == "_codebooks" else map_tensors(
+        v, lambda t: t * VOC_WEIGHT_SCALE if t.ndim >= 2 else t)
+        for k, v in model.speech_tokenizer.dec_params.items()}
+    out = copy.copy(model)
+    out.speech_tokenizer = tok
+    return out
+
+
+def phase_vocoder_device(model, routes=("a", "b", "c"), mix=VOC_MIX) -> dict:
+    """`TTSServer(vocoder_device=...)` (slice 14) on the int8 custom-voice
+    model, kernels 1 and 2 on, every server warmed with `warmup()` and then
+    serving `mix`: the reference, a one-card server built
+    with fast_first_packet=False (which a vocoder device implies, so both
+    schedule alike), and the default one-card server (its fast first packet
+    on: what losing it costs, printed), all over `voc_model(model)`, whose
+    audio is not clamped; then the `routes`: (a) the vocoder
+    on the serving card named explicitly: codes equal the reference's, each
+    request's audio PCM16-equal and within CODEC_TOL, no capture after the
+    warm-up; (b) the vocoder on the host's CPU, the talker on the card:
+    codes equal, audio within VOC_CPU_TOL of the card's vocoder, the
+    server's decoder params on the CPU and the model's on the card, no
+    capture on the card after the warm-up; (c) where the host has a second card, the vocoder there: codes
+    and PCM16 equal, no capture on either card after the warm-up; else one
+    line that says (c) did not run. Requests/s, audio s per wall s,
+    first-packet p50 / p95 and the serving card's busy share of each."""
+    from qwen3_tts_tpu_torch.runtime import graphs
+
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = voc_model(model)
+    # the first profiler session starts CUPTI; not inside a measured mix
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    ref = _voc_server(model, mix, fast_first_packet=False)
+    default = _voc_server(model, mix)
+    _voc_line("one card", ref, fast_first_packet=False)
+    _voc_line("one card default", default, fast_first_packet=True)
+    out = {"ref": ref, "default": default}
+    if "a" in routes:
+        named = out["a"] = _voc_server(
+            model, mix, vocoder_device=torch.device("cuda", torch.cuda.current_device()))
+        a = _voc_same_card(named, ref, "(a) the serving card named")
+        _voc_line("(a) serving card named", named, codes_equal=True,
+                  audio_max_abs=f"{a['max_abs']:.3g}", pcm16_equal=True,
+                  audio_rms=f"{a['rms']:.4g}", full_scale_share=f"{a['full_scale']:.4f}")
+    if "b" in routes:
+        cpu = out["b"] = _voc_server(model, mix, vocoder_device="cpu")
+        srv = cpu["srv"]
+        if (graphs.params_device(srv.dec_params).type != "cpu"
+                or graphs.params_device(model.speech_tokenizer.dec_params).type != "cuda"):
+            raise AssertionError("(b): the server's decoder params must lie on the CPU and "
+                                 "the model's on the card")
+        b = _voc_against(cpu, ref, "(b) the vocoder on the CPU")
+        _voc_line("(b) vocoder on the cpu", cpu, codes_equal=True,
+                  audio_max_abs_vs_card=f"{b['max_abs']:.3g}", tolerance=VOC_CPU_TOL,
+                  pcm16_samples_off=b["pcm16_off"], samples=b["samples"],
+                  audio_rms=f"{b['rms']:.4g}", full_scale_share=f"{b['full_scale']:.4f}",
+                  torch_threads=torch.get_num_threads())
+        if b["max_abs"] > VOC_CPU_TOL:
+            raise AssertionError(f"(b): audio max abs {b['max_abs']:.3g} off the card's "
+                                 f"vocoder (bar {VOC_CPU_TOL})")
+        if any(cpu["captures"].values()):
+            raise AssertionError(f"(b): graphs captured after the warm-up: {cpu['captures']}")
+    if "c" in routes:
+        n = torch.cuda.device_count()
+        if n < 2:
+            line("vocoder_device (c) second card", ran=False,
+                 reason=f"this host has {n} CUDA device; the route needs 2")
+        else:
+            second = out["c"] = _voc_server(model, mix, vocoder_device=1)
+            c = _voc_same_card(second, ref, "(c) the vocoder on a second card")
+            _voc_line("(c) second card", second, codes_equal=True,
+                      audio_max_abs=f"{c['max_abs']:.3g}", pcm16_equal=True,
+                      audio_rms=f"{c['rms']:.4g}", full_scale_share=f"{c['full_scale']:.4f}",
+                      vocoder_card=torch.cuda.get_device_name(1))
+    for r in out.values():
+        del r["srv"]
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_serve_clone(model, front) -> None:
@@ -4145,6 +4389,7 @@ def run(cfg, device) -> list:
     phase_graph_memory(model, stream_ab["codes"])
     phase_warmup(model)
     phase_http(model)
+    phase_vocoder_device(model)
     t0 = time.time()
     clone_model = build_clone_model(params, cfg, device)
     line("clone weights", seconds=f"{time.time() - t0:.1f}",

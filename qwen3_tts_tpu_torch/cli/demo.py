@@ -3,7 +3,8 @@
 
     python -m qwen3_tts_tpu_torch CKPT_DIR [--quantize int8] [--warmup] [--port 8000] ...
 
-It serves from one CUDA card. When gradio is installed it launches Blocks
+It serves from one CUDA card (`--vocoder-device N` moves the engine's
+vocoder to card N). When gradio is installed it launches Blocks
 UIs per model kind (custom_voice / voice_design / base voice-clone with
 prompt save/load); when it is not, a stdlib JSON-over-HTTP API with the same
 three task modes, over `ThreadedTTSServer` (continuous batching, the frame
@@ -72,8 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefill-bucket", type=int, default=128,
                    help="engine max prompt length (token positions)")
     p.add_argument("--vocoder-device", type=int, default=None,
-                   help="a device to dedicate to the vocoder: rejected, the "
-                        "port serves from one card")
+                   help="CUDA device index to dedicate to the vocoder "
+                        "(multi-card hosts: vocoding overlaps the talker "
+                        "ticks of the serving card)")
     return p
 
 
@@ -425,12 +427,16 @@ def _launch_gradio(model, kind: str, overrides, args) -> None:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.vocoder_device is not None:
-        parser.error("--vocoder-device: the PyTorch port serves from one card "
-                     "(the vocoder shares it with the talker)")
 
     import torch
 
+    vocoder_device = None
+    if args.vocoder_device is not None:
+        n = torch.cuda.device_count()
+        if not 0 <= args.vocoder_device < n:
+            parser.error(f"--vocoder-device {args.vocoder_device}: this host has {n} "
+                         "CUDA device(s)")
+        vocoder_device = torch.device("cuda", args.vocoder_device)
     from ..inference.model import Qwen3TTSModel
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -460,7 +466,8 @@ def main(argv=None) -> None:
 
         try:
             server = TTSServer(model, num_slots=args.num_slots,
-                               prefill_bucket=args.prefill_bucket, overrides=overrides)
+                               prefill_bucket=args.prefill_bucket, overrides=overrides,
+                               vocoder_device=vocoder_device)
         except Exception as e:
             print(f"[qwen-tts-demo] engine unavailable ({type(e).__name__}: {e}); "
                   "serving through the static generate path")

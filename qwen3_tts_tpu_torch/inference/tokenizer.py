@@ -39,10 +39,15 @@ from ..weights import load_safetensors_dir
 
 
 def resolve_device(device) -> torch.device:
-    """torch.device(device); asking for CUDA where there is none raises."""
+    """torch.device(device); asking for CUDA where there is none, or for a
+    CUDA device index the host does not have, raises."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not available")
+        if device.index is not None and device.index >= torch.cuda.device_count():
+            raise RuntimeError(f"device {device} requested but this host has "
+                               f"{torch.cuda.device_count()} CUDA device(s)")
     return device
 
 

@@ -263,7 +263,8 @@ def same_device(device, **tensors) -> None:
 _CONVERTED: "OrderedDict[tuple, tuple]" = OrderedDict()
 _STATE: "OrderedDict[tuple, LaunchState]" = OrderedDict()
 MAX_CACHED = 256   # entries either cache keeps (the least recently used go first)
-# lists collecting the LaunchStates used inside a graph capture (`pinning`)
+# (device index or None, list) collecting the LaunchStates used inside a
+# graph capture (`pinning`)
 _PINNING: list = []
 
 
@@ -319,21 +320,25 @@ def launch_state(key: tuple, weights, make) -> LaunchState:
             del _STATE[victim]
     else:
         _STATE.move_to_end(key)
-    for got in _PINNING:
-        got.append(state)
+    for device, got in _PINNING:
+        if device is None or key[1] == device:
+            got.append(state)
     return state
 
 
 @contextlib.contextmanager
-def pinning():
+def pinning(device: Optional[int] = None):
     """Collect, in a list, every `LaunchState` a wrapper uses inside the
-    block (a graph capture), for `pin`."""
+    block (a graph capture), for `pin`; with `device`, only the states of
+    that CUDA device index (the second item of a state's key), so that a
+    capture on one card pins nothing of another."""
     got: list = []
-    _PINNING.append(got)
+    entry = (device, got)
+    _PINNING.append(entry)
     try:
         yield got
     finally:
-        _PINNING.remove(got)
+        _PINNING[:] = [e for e in _PINNING if e is not entry]
 
 
 def pin(states) -> "callable":

@@ -123,9 +123,12 @@ Every capture:
   with every graph of the frame loop; a replay copies the caller's
   generator state in and the advanced state back, so a graph draws the
   numbers the eager loop draws from the same state;
-- pins the kernel wrappers' `LaunchState`s it used for the graph's life
-  (`build.pin`), and counts each kernel launch it holds once per replay in
-  the wrapper's launch counter (the capture itself launches nothing);
+- runs with its device current (a server's vocoder device may be another
+  card than the caller's), as does every replay;
+- pins the kernel wrappers' `LaunchState`s of its device it used for the
+  graph's life (`build.pin`), and counts each kernel launch it holds once
+  per replay in the wrapper's launch counter (the capture itself launches
+  nothing);
 - raises if it fails: nothing falls back to the eager loop.
 Captures, replays and the context LRU hold one process-wide lock, so that
 callers on several threads (the demo's static path) interleave whole
@@ -306,7 +309,7 @@ class _Graph:
         weakref.finalize(self, build.pin(states))
 
     def replay(self, dev: _Device, generator: Optional[torch.Generator]) -> None:
-        with _LOCK:
+        with _LOCK, torch.cuda.device(dev.device):
             if generator is not None:
                 dev.gen.set_state(generator.get_state())
             self.graph.replay()
@@ -493,7 +496,10 @@ class DecodeGraphs:
 def capture(dev: _Device, generator: Optional[torch.Generator], warm, body) -> _Graph:
     """`warm(gen)` eagerly on the device's side stream, then `body(gen)`
     captured there; `gen` is the device's private generator, set from
-    `generator`'s state (None: a graph that draws no random numbers)."""
+    `generator`'s state (None: a graph that draws no random numbers). Both
+    run with the device current, whichever device the caller's is:
+    `torch.cuda.graph` synchronises the current device before a capture,
+    and the capture records on the current device's stream."""
     gen = None if generator is None else dev.gen
     if generator is not None:
         gd = torch.device(generator.device)
@@ -501,7 +507,7 @@ def capture(dev: _Device, generator: Optional[torch.Generator], warm, body) -> _
                                  else torch.cuda.current_device()) != dev.device.index:
             raise ValueError(f"the sampling generator is on {generator.device}; the graphs "
                              f"of {dev.device} draw from a generator on that device")
-    with _LOCK:
+    with _LOCK, torch.cuda.device(dev.device):
         cur = torch.cuda.current_stream(dev.device)
         dev.stream.wait_stream(cur)
         with torch.cuda.stream(dev.stream):
@@ -520,7 +526,7 @@ def capture(dev: _Device, generator: Optional[torch.Generator], warm, body) -> _
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with build.pinning() as used:
+            with build.pinning(dev.device.index) as used:
                 with torch.cuda.graph(graph, pool=dev.pool, stream=dev.stream,
                                       capture_error_mode="thread_local"):
                     body(gen)

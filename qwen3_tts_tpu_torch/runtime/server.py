@@ -22,6 +22,11 @@
   decode) is one replay of a captured graph (`runtime/graphs.py`
   `CodecGraphs`), and `warmup()` captures every graph the server can ask
   for, the engine's serve ticks among them, before traffic arrives.
+- `vocoder_device` dedicates another device to the vocoder (packet egress,
+  the completion decode and their warm-up), on a copy of the decoder params:
+  a second card, whose queue vocodes while the serving card's runs talker
+  ticks, or the CPU. First packets then vocode from the host's frames like
+  any packet (the chunk aux lies on the serving card).
 
 `ThreadedTTSServer` is the thread-safe wrapper for HTTP handlers: producer
 threads submit and wait on per-request queues, one loop thread owns the
@@ -30,6 +35,7 @@ server, and with it every CUDA operation, graph capture and replay.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from dataclasses import dataclass, field
@@ -39,7 +45,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..inference.tokenizer import resolve_device
 from ..models.codec12.decoder import cut_rows, vocode_rows
+from ..weights import map_tensors
 from . import graphs
 from .batching import ContinuousBatchingEngine, Request
 from .generate import GenerationConfig
@@ -147,7 +155,17 @@ def _first_packet_vocode(dec_params, cfg, aux: torch.Tensor, rids: torch.Tensor,
 class TTSServer:
     """Single-threaded text-level server: submit_* then step() /
     run_until_drained(). Built from a loaded `Qwen3TTSModel` whose speech
-    tokenizer carries the 12 Hz vocoder; runs on the model's device."""
+    tokenizer carries the 12 Hz vocoder; runs on the model's device.
+
+    `vocoder_device` (a `torch.device`, a string, or an int: `cuda:N`):
+    the device of every vocoder call (packet egress, the completion decode
+    and their warm-up), on a copy of the decoder params made once here; the
+    model's tokenizer keeps its own. A second card's queue then vocodes
+    while the serving card's runs talker ticks; the codes are the same, and
+    the audio too wherever the two devices compute the vocoder alike (the
+    CPU's convolutions sum in another order than the card's). With it,
+    `fast_first_packet` is off, as in the JAX package: the chunk aux it
+    reads lies on the serving card."""
 
     def __init__(self, model, num_slots: int = 16, max_new_tokens: Optional[int] = None,
                  prefill_bucket: int = 128, max_trailing: int = 512,
@@ -160,9 +178,6 @@ class TTSServer:
         tok = model.speech_tokenizer
         if tok is None or tok.dec_params is None:
             raise RuntimeError("TTSServer requires a loaded 12Hz speech tokenizer (vocoder)")
-        if vocoder_device is not None:
-            raise NotImplementedError("a dedicated vocoder device needs a second card; "
-                                      "the port serves from one")
         self.model = model
         kw = model._merge_generate_kwargs(**(overrides or {}))
         if max_new_tokens is not None:
@@ -175,6 +190,16 @@ class TTSServer:
         # so the port departs from that rule.
         self.gen_cfg: GenerationConfig = model._generation_config(kw)
         self.dec_params = tok.dec_params
+        self._decode_tok = tok
+        self.vocoder_device = None
+        if vocoder_device is not None:
+            dev = resolve_device(torch.device("cuda", vocoder_device)
+                                 if isinstance(vocoder_device, int) else vocoder_device)
+            self.vocoder_device = dev
+            self.dec_params = map_tensors(tok.dec_params, lambda t: t.to(dev))
+            # the tokenizer's decode runs on its dec_params' device
+            self._decode_tok = copy.copy(tok)
+            self._decode_tok.dec_params = self.dec_params
         self.dec_cfg = tok.config.decoder_config
         self.sample_rate = tok.get_output_sample_rate()
         self.up = int(self.dec_cfg.total_upsample)
@@ -183,8 +208,9 @@ class TTSServer:
         # while a stream awaits its first packet, engine chunks are capped at
         # this many ticks (0: pure-throughput serving)
         self.first_packet_ticks = int(first_packet_ticks)
-        # first packets vocode from the in-flight chunk's on-device aux
-        self.fast_first_packet = bool(fast_first_packet)
+        # first packets vocode from the in-flight chunk's on-device aux, which
+        # lies on the serving card: off with a vocoder device of its own
+        self.fast_first_packet = bool(fast_first_packet) and self.vocoder_device is None
         # while a first packet is pending, steady streams' packets wait
         # (unless their backlog passes 3 * packet_frames)
         self.defer_bulk_egress = bool(defer_bulk_egress)
@@ -236,7 +262,9 @@ class TTSServer:
         (a capture at a live tick stalls every slot: a submit replays the
         front end's graphs and captures none, `graphs.replay_only`); on the
         CPU the same calls run eagerly and capture nothing, and the encode
-        is not warmed.
+        is not warmed. The egress and completion-decode calls run on the
+        vocoder device (the first-packet extract is off there), which ends
+        synchronised with the serving card.
         Call it on the thread that drives the server: a `ThreadedTTSServer`'s
         loop thread owns all CUDA work, so warm the `TTSServer` before
         wrapping it. Returns its seconds."""
@@ -268,7 +296,8 @@ class TTSServer:
         frames = np.zeros((tok.chunk_size + 1, Q), np.int64)   # the first and a steady chunk
         nb = 1
         while True:
-            tok.decode([{"audio_codes": frames}] * nb, output_dtype=self.output_dtype)
+            self._decode_tok.decode([{"audio_codes": frames}] * nb,
+                                    output_dtype=self.output_dtype)
             if verbose:
                 print(f"[server.warmup] decode batch {nb} done at {time.time() - t0:.1f}s",
                       flush=True)
@@ -285,8 +314,9 @@ class TTSServer:
             if verbose:
                 print(f"[server.warmup] encode of {len(self.reference_lengths())} reference "
                       f"buckets done at {time.time() - t0:.1f}s", flush=True)
-        if self.engine.device.type == "cuda":
-            torch.cuda.synchronize(self.engine.device)
+        for dev in (self.engine.device, self.vocoder_device):
+            if dev is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return time.time() - t0
 
     def reference_lengths(self) -> List[int]:
@@ -475,6 +505,12 @@ class TTSServer:
                 if c + k > 0:
                     batch[i, :, :c + k] = np.stack(st.history[lo:lo + c + k]).T
                 ctx[i] = c
+            # on a CUDA vocoder device the codes and contexts go from pinned
+            # memory into the egress graph's static buffers, the replay and
+            # the copy of its output follow them, all on that device's
+            # current stream; the wav's copy to the host is the one sync, and
+            # it waits for that stream alone: on a card of its own, no tick
+            # the serving card has queued waits for the vocoder
             with self.metrics.time("server.vocode_s"), torch.no_grad():
                 wav = self._to_host(_vocode_rows_compact(
                     self.dec_params, self.dec_cfg, torch.from_numpy(batch),
@@ -565,8 +601,9 @@ class TTSServer:
             nb = 1 << (len(decode_batch) - 1).bit_length()
             codes_in = [c for _, c, _ in decode_batch]
             codes_in += [np.zeros((1, self._Q), np.int64)] * (nb - len(codes_in))
+            # on the vocoder device, its stream ordered as the egress's
             with self.metrics.time("server.decode_s"):
-                wavs, sr = self.model.speech_tokenizer.decode(
+                wavs, sr = self._decode_tok.decode(
                     [{"audio_codes": c} for c in codes_in], output_dtype=self.output_dtype)
             for (st, codes, ref_len), wav in zip(decode_batch, wavs):
                 if ref_len:
@@ -646,9 +683,10 @@ class TTSServer:
 class ThreadedTTSServer:
     """Thread-safe wrapper: producers submit from any thread; one loop
     thread owns the server and all of its CUDA work (prefill, graph capture
-    and replay, the vocoder) and fans events out to per-request queues. The
-    loop starts with the wrapper, so call `TTSServer.warmup()` before
-    wrapping the server.
+    and replay, the vocoder), on the serving card and on a vocoder device of
+    its own alike, and fans events out to per-request queues. The loop
+    starts with the wrapper, so call `TTSServer.warmup()` before wrapping
+    the server.
 
     Usage (blocking):      wav, sr = srv.synthesize(task, **kwargs)
     Usage (streaming):     for pkt in srv.synthesize_stream(task, **kwargs)

@@ -16,6 +16,7 @@ import base64
 import io
 import json
 import socket
+import sys
 import threading
 import time
 import urllib.error
@@ -141,9 +142,10 @@ def test_threaded_server_poisoned_step_fails_every_request(tm, monkeypatch):
         srv.close()
 
 
-def test_cli_parser_surface():
-    """The JAX CLI's flags, the same overrides; --vocoder-device is parsed
-    and rejected by main (one card)."""
+def test_cli_parser_surface(capsys):
+    """The JAX CLI's flags, the same overrides; --vocoder-device names a
+    CUDA card, and an index the host does not have is a parser error that
+    names the host's device count (before any model loads)."""
     args = demo.build_parser().parse_args(
         ["ckpt", "--port", "9000", "--dtype", "float32", "--top-k", "5", "--no-sample",
          "--kv-quant", "--warmup"])
@@ -153,8 +155,43 @@ def test_cli_parser_surface():
 
     flags = {a.dest for a in demo.build_parser()._actions}
     assert flags == {a.dest for a in j_parser()._actions}
-    with pytest.raises(SystemExit):
+    assert demo.build_parser().parse_args(["ckpt", "--vocoder-device", "1"]).vocoder_device == 1
+    with pytest.raises(SystemExit) as e:
         demo.main(["ckpt", "--vocoder-device", "1"])
+    assert e.value.code == 2
+    assert f"this host has {torch.cuda.device_count()} CUDA device(s)" in capsys.readouterr().err
+
+
+def test_cli_vocoder_device_reaches_the_server(tm, monkeypatch):
+    """`--vocoder-device N` on a host with more than N cards builds
+    `TTSServer(..., vocoder_device=torch.device("cuda", N))` (the JAX CLI
+    indexes jax.devices()); without it, vocoder_device is None."""
+    from qwen3_tts_tpu_torch.inference import model as model_mod
+    from qwen3_tts_tpu_torch.runtime import server as server_mod
+
+    built = []
+
+    class StubServer:
+        def __init__(self, model, **kw):
+            built.append(kw)
+
+    class StubHttp:
+        def __init__(self, model, kind, overrides, concurrency, engine=None):
+            self.engine = engine
+
+        def serve(self, *a):
+            return None
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(model_mod.Qwen3TTSModel, "from_pretrained",
+                        classmethod(lambda cls, *a, **kw: tm))
+    monkeypatch.setattr(server_mod, "TTSServer", StubServer)
+    monkeypatch.setattr(server_mod, "ThreadedTTSServer", lambda server: server)
+    monkeypatch.setattr(demo, "_HttpDemo", StubHttp)
+    monkeypatch.setitem(sys.modules, "gradio", None)   # no gradio: the HTTP demo
+    demo.main(["ckpt", "--vocoder-device", "1"])
+    demo.main(["ckpt"])
+    assert [kw["vocoder_device"] for kw in built] == [torch.device("cuda", 1), None]
 
 
 def _free_port() -> int:

@@ -491,7 +491,8 @@ def test_capture_runs_without_cyclic_gc(monkeypatch, fails):
     """No cyclic garbage collection inside a capture (a dead server's graphs
     torn down there invalidate it, as a 48-slot server's staging capture
     showed on the card), before it the warm pass runs with it, and after it,
-    failed or not, collection is on again."""
+    failed or not, collection is on again. The capture runs with its
+    graph device current."""
     import contextlib
     import gc
 
@@ -506,6 +507,8 @@ def test_capture_runs_without_cyclic_gc(monkeypatch, fails):
     dev = graphs._Device.__new__(graphs._Device)
     dev.device, dev.stream, dev.pool, dev.captures = torch.device("cpu"), Stream(), None, 0
     seen = []
+    monkeypatch.setattr(torch.cuda, "device", lambda d: seen.append(("device", d))
+                        or contextlib.nullcontext())
 
     def body(gen):
         seen.append(("body", gc.isenabled()))
@@ -515,4 +518,4 @@ def test_capture_runs_without_cyclic_gc(monkeypatch, fails):
     assert gc.isenabled()
     with pytest.raises(RuntimeError) if fails else contextlib.nullcontext():
         graphs.capture(dev, None, lambda gen: seen.append(("warm", gc.isenabled())), body)
-    assert seen == [("warm", True), ("body", False)] and gc.isenabled()
+    assert seen == [("device", dev.device), ("warm", True), ("body", False)] and gc.isenabled()

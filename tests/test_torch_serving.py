@@ -326,7 +326,8 @@ def test_server_fused_talker_step_default(checkpoint):  # noqa: F811
     unless asked, on the card's A/B of the two routes), the plain route on
     the CPU and, on the card, at these tiny widths, which kernel 2 does not
     take; `overrides` still chooses either, and the fused step carries whole
-    128-slot KV chunks into the engine."""
+    128-slot KV chunks into the engine. A vocoder device on a CUDA card the
+    host lacks raises."""
     from qwen3_tts_tpu_torch.ops.cuda.talker_step import config_misfit
 
     _, tm = _models(checkpoint, jnp.bfloat16, torch.bfloat16, quantize="int8")
@@ -341,5 +342,7 @@ def test_server_fused_talker_step_default(checkpoint):  # noqa: F811
     srv = _server(tm, overrides={"fused_talker_step": True, "kv_quant": True})
     assert srv.gen_cfg.fused_talker_step and srv.gen_cfg.kv_quant
     assert srv.engine.max_len % 128 == 0 and srv.engine.state.cache.quantized
-    with pytest.raises(NotImplementedError, match="card"):
+    # a vocoder device on a CUDA card that is absent raises (no fallback to
+    # the CPU)
+    with pytest.raises(RuntimeError, match="CUDA"):
         _server(tm, vocoder_device="cuda:1")
