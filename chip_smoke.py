@@ -16,7 +16,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
    slice 11, `misfit`: an int8 tiny talker with 4 query heads per kv head
    defaults to kernel 1 and to the plain talker step (kernel 2 does not
    take its shapes), runs `generate_custom_voice` without launching kernel
-   2, and with a named fused_talker_step=True still raises;
+   2, and with a named fused_talker_step=True still raises; slice 15: that
+   talker and an fp32 load with kernel 3's groups and head_dim each answer
+   a non-streaming prompt of 384 tokens (past FLASH_PREFILL_MIN_T) without
+   launching kernel 3 (`prefill_uses_flash`: `flash_misfit`'s rule is
+   printed), their prefill graph and codes equal to `graphs.eager()`;
 3. the flash prefill kernel's two products alone (`flash_tile_products`:
    TMA from strided views, the wgmma descriptors, the fragment layouts)
    against torch.matmul in fp32;
@@ -100,9 +104,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    (the reference) and on; (a) the vocoder on the serving card named:
    codes equal, audio PCM16-equal and within 1e-5, no capture after the
    warm-up; (b) on the host's CPU: codes equal, audio within 1e-5 of the
-   card's, the decoder params where they belong, no capture on the card
-   (the phase's vocoder has its weights scaled so that its audio is not
-   clamped to +-1); (c) on a second card where there is one (codes and PCM16
+   card's, the decoder params where they belong, no capture on the card;
+   (c) on a second card where there is one (codes and PCM16
    equal, no capture on either card), else a line saying it did not run;
    requests/s, audio s per wall s, first packet p50 / p95 and the serving
    card's busy share (torch.profiler) of each;
@@ -198,6 +201,14 @@ kernel's achievable floor beside its data-sheet bound; one JSON line with
 every kernel's numbers, and the last line
 {"ok": true, "device": {...}}.
 
+Every 12 Hz vocoder of the smoke is its seed's draw with the weight
+matrices scaled by VOC_WEIGHT_SCALE, and the 25 Hz draw's last BigVGAN conv
+is scaled by V1_POST_SCALE (slice 15; the draws themselves clamp most
+samples to +-1, which the `codec_graphs unscaled draw` and `codec25
+unscaled draw` lines show); every phase that checks audio prints its RMS
+and full-scale share and fails above MAX_FULL_SCALE_SHARE (`audio_levels`,
+`unclamped`).
+
 Imports nothing of JAX: the port runs on hosts that have no JAX installed.
 """
 
@@ -205,7 +216,6 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
-import copy
 import dataclasses
 import gc
 import json
@@ -248,19 +258,22 @@ SERVE_SLOTS, SERVE_REQUESTS = 8, 12
 # batch there: 60.6 s of warm-up and a 16.0 s mix at 4 slots on the H100's
 # host, 8 threads).
 VOC_MIX = dict(slots=2, requests=6, streams=(0, 3), frames=32)
-# The phase's vocoder: the smoke vocoder's draw with every weight matrix
-# scaled by VOC_WEIGHT_SCALE. At the default widths that draw (std 0.05)
-# grows each layer's output ~5x and clamps every sample to +-1 (a
-# full-scale share of 1.0000 in this phase's first runs), so samples
+# The smoke's 12 Hz vocoders (`scaled_vocoder_params`): the seed's draw
+# with every weight matrix scaled by VOC_WEIGHT_SCALE. At the default
+# widths the draw itself (std 0.05) grows each layer's output ~5x and
+# clamps every sample to +-1 (a full-scale share of 1.0000), so samples
 # compared one by one would compare signs; scaled by 8 ** -0.5 each layer's
 # gain is the same draw's at an eighth of the width, whose output stays
 # inside [-1, 1] (pre-clamp std 0.043 at decoder_dim 192 on the CPU; RMS
 # 0.0871 and no sample at full scale at the default widths on the H100).
+# Every phase that holds audio to something prints its RMS and full-scale
+# share and fails above MAX_FULL_SCALE_SHARE (`audio_levels`).
 # (b): the CPU's vocoder against the card's on the same codes, fp32 with
 # TF32 off on both: max abs 1.3e-6 on the H100's host (8 threads), so
 # the vocoder's graphed-against-eager bound, 1e-5 (CODEC_TOL), holds it.
 VOC_CPU_TOL = 1e-5
 VOC_WEIGHT_SCALE = 8 ** -0.5
+MAX_FULL_SCALE_SHARE = 0.01
 CODEC_TOL = 1e-5              # the vocoder graphed against eager, float samples (max abs)
 CODEC_ITERS = 5
 # A streamed clone packet vocoded again from its own context and frames: the
@@ -382,6 +395,28 @@ def tree_bytes(tree) -> int:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def audio_levels(*wavs) -> dict:
+    """The RMS and the share of samples at full scale (+-1 in float, +-32767
+    in PCM16) over `wavs` (numpy arrays or tensors), as a phase's line
+    fields."""
+    x = np.concatenate([np.asarray(w.cpu() if torch.is_tensor(w) else w).reshape(-1)
+                        for w in wavs])
+    full = 32767 if x.dtype == np.int16 else 1.0
+    y = x.astype(np.float64) / full
+    return {"audio_rms": float(np.sqrt(np.mean(y ** 2))) if y.size else 0.0,
+            "full_scale_share": float(np.mean(np.abs(y) >= 1.0)) if y.size else 0.0}
+
+
+def unclamped(tag: str, levels: dict) -> dict:
+    """`levels` (`audio_levels`), after failing where more than
+    MAX_FULL_SCALE_SHARE of the samples sit at full scale: audio checks
+    there would compare signs, not amplitudes."""
+    if levels["full_scale_share"] > MAX_FULL_SCALE_SHARE:
+        raise AssertionError(f"{tag}: {levels['full_scale_share']:.4f} of the samples at full "
+                             f"scale (bar {MAX_FULL_SCALE_SHARE}), RMS {levels['audio_rms']:.4g}")
+    return levels
 
 
 def _counters() -> dict:
@@ -954,7 +989,7 @@ class StandInTokenizer:
         return {"input_ids": np.asarray([ids], dtype=np.int64)}
 
 
-def build_model(params, cfg, device, size="1b7"):
+def build_model(params, cfg, device, size="1b7", quantized="int8"):
     from qwen3_tts_tpu_torch.config import TTSModelConfig
     from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel
 
@@ -963,19 +998,32 @@ def build_model(params, cfg, device, size="1b7"):
     tts_cfg = TTSModelConfig(talker_config=tc, tts_model_type="custom_voice",
                              tts_model_size=size)
     return Qwen3TTSModel(tts_cfg, params, None, smoke_vocoder(device), StandInTokenizer(), {},
-                         quantized="int8", device=device)
+                         quantized=quantized, device=device)
+
+
+def scaled_vocoder_params(dec_cfg, seed: int, device, scale: float = VOC_WEIGHT_SCALE):
+    """A 12 Hz vocoder's params drawn from `seed` on `device`, every weight
+    matrix times `scale` (the codebooks and every vector kept): the smoke's
+    vocoders, whose audio is not clamped (VOC_WEIGHT_SCALE)."""
+    from qwen3_tts_tpu_torch.utils.testing import random_vocoder_params
+    from qwen3_tts_tpu_torch.weights import map_tensors
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {k: v if k == "_codebooks" else map_tensors(
+        v, lambda t: t * scale if t.ndim >= 2 else t)
+        for k, v in random_vocoder_params(dec_cfg, gen).items()}
 
 
 def smoke_vocoder(device):
-    """The default-width 12 Hz vocoder, random from the seed, as a tokenizer."""
+    """The default-width 12 Hz vocoder, random from the seed and scaled
+    (`scaled_vocoder_params`), as a tokenizer."""
     from qwen3_tts_tpu_torch.config import CodecV2Config, CodecV2DecoderConfig
     from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer
-    from qwen3_tts_tpu_torch.utils.testing import random_vocoder_params
 
     dec_cfg = CodecV2DecoderConfig()
-    gen = torch.Generator(device=device).manual_seed(SEED + 3)
     tok = Qwen3TTSTokenizer.from_params(CodecV2Config(decoder_config=dec_cfg),
-                                        dec_params=random_vocoder_params(dec_cfg, gen))
+                                        dec_params=scaled_vocoder_params(dec_cfg, SEED + 3,
+                                                                         device))
     tok.chunk_size = 64
     return tok
 
@@ -984,15 +1032,15 @@ def build_clone_model(params, cfg, device):
     """The same int8 talker as a base (voice-clone) model: the speaker
     encoder at the released widths with enc_dim = the talker width (the
     x-vector rides the codec track), the default-width Mimi encoder and
-    vocoder, all random from the seed, fp32."""
+    vocoder (scaled: `scaled_vocoder_params`), all random from the seed,
+    fp32."""
     from qwen3_tts_tpu_torch.config import (CodecV2Config, CodecV2DecoderConfig,
                                             MimiEncoderConfig, SpeakerEncoderConfig,
                                             TTSModelConfig)
     from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel
     from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer
     from qwen3_tts_tpu_torch.models.codec12.encoder import prepare_encoder_params
-    from qwen3_tts_tpu_torch.utils.testing import (mimi_encoder_state, random_vocoder_params,
-                                                   speaker_encoder_state)
+    from qwen3_tts_tpu_torch.utils.testing import mimi_encoder_state, speaker_encoder_state
     from qwen3_tts_tpu_torch.weights import from_jax_tree
 
     tts_cfg = TTSModelConfig(
@@ -1006,10 +1054,9 @@ def build_clone_model(params, cfg, device):
     enc = prepare_encoder_params(
         from_jax_tree(mimi_encoder_state(codec_cfg.encoder_config, SEED + 5), device),
         codec_cfg.encoder_config)
-    gen = torch.Generator(device=device).manual_seed(SEED + 6)
     tok = Qwen3TTSTokenizer.from_params(
         codec_cfg, enc_params=enc,
-        dec_params=random_vocoder_params(codec_cfg.decoder_config, gen))
+        dec_params=scaled_vocoder_params(codec_cfg.decoder_config, SEED + 6, device))
     return Qwen3TTSModel(tts_cfg, params, spk, tok, StandInTokenizer(max_ids=None), {},
                          quantized="int8", device=device)
 
@@ -1298,10 +1345,12 @@ def phase_clone(model, front, kv_quant: bool = False, base=None) -> dict:
     extra = {} if base is None else dict(bf16_kv_rtf=f"{base['rtf']:.4f}",
                                          code_agreement_vs_bf16_kv=
                                          f"{code_agreement(codes, base['codes']):.4f}")
+    levels = audio_levels(*wavs)
     line(f"slice clone {mode}", texts=len(CLONE_TEXTS), prefill_T=front["T"],
          starts=list(front["starts"]), frames=frames, wall_s=f"{wall:.3f}",
          frames_per_s=f"{sum(frames) / wall:.2f}", rtf=f"{out['rtf']:.4f}", **extra,
-         **counts, launches=launches)
+         **counts, launches=launches, **levels)
+    unclamped(f"slice clone {mode}", levels)
     return out
 
 
@@ -1346,9 +1395,11 @@ def phase_slice(model, kv_quant: bool = False, base=None, label="") -> dict:
     extra = {} if base is None else dict(bf16_kv_rtf=f"{base['rtf']:.4f}",
                                          code_agreement_vs_bf16_kv=
                                          f"{code_agreement(codes, base['codes']):.4f}")
+    levels = audio_levels(*wavs)
     line(f"slice{label} {mode}", texts=len(TEXTS), frames=frames, wall_s=f"{wall:.3f}",
          frames_per_s=f"{sum(frames) / wall:.2f}", rtf=f"{out['rtf']:.4f}", **extra,
-         **counts, launches=launches)
+         **counts, launches=launches, **levels)
+    unclamped(f"slice{label} {mode}", levels)
     return out
 
 
@@ -1402,9 +1453,12 @@ def phase_stream(name: str, stream, active_frames, up: int, max_frames: int) -> 
         raise AssertionError(f"{name}: {samples} samples vs active frames {active.tolist()}")
     if min(launches["subtalker"], launches["talker_step_int8_kv"]) <= 0:
         raise AssertionError(f"{name}: launches {launches}")
+    levels = audio_levels(*chunks)
     line(f"stream {name}", first_packet_s=f"{first:.3f}", packets=len(chunks),
          frames=active.tolist(), wall_s=f"{wall:.3f}",
-         rtf=f"{wall / (active.sum() * up / 24000):.4f}", **counts, launches=launches)
+         rtf=f"{wall / (active.sum() * up / 24000):.4f}", **counts, launches=launches,
+         **levels)
+    unclamped(f"stream {name}", levels)
     return {"first_packet_s": first, "launches": launches}
 
 
@@ -1492,6 +1546,7 @@ def _serve_run_in(model, eager: bool, warm) -> dict:
     launches = read_launches()
     stats1 = graphs.stats(model.device)
     audio, done = 0, set()
+    levels = audio_levels(*(e.wav for e in events))
     for rid in ids:
         mine = [e for e in events if e.request_id == rid]
         if rid == cancel:
@@ -1523,6 +1578,7 @@ def _serve_run_in(model, eager: bool, warm) -> dict:
             "captures": stats1["captures"] - stats0["captures"],
             "first_packet_p50": float(np.percentile(fp, 50)),
             "first_packet_p95": float(np.percentile(fp, 95)),
+            "levels": levels,
             "warm_s": warm_s, "warm_captures": warm1["captures"] - warm0["captures"],
             "warm_codec_graphs": warm1["codec_graphs"] - warm0["codec_graphs"],
             "serve_graphs": 0 if eager else len(srv.engine._graphs.graphs),
@@ -1550,7 +1606,8 @@ def phase_serve(model) -> dict:
              first_packet_p50_s=f"{r['first_packet_p50']:.3f}",
              first_packet_p95_s=f"{r['first_packet_p95']:.3f}",
              graphs_captured=r["captures"], graphs_replayed=r["replays"],
-             launches=r["launches"])
+             launches=r["launches"], **r["levels"])
+        unclamped(f"serve custom voice {name}", r["levels"])
     line("serve graph vs eager", requests=len(g["codes"]), codes_equal=True,
          frames=sum(len(v) for v in g["codes"].values()))
     return g
@@ -1843,8 +1900,11 @@ def phase_codec_graphs(model) -> dict:
                     equal &= torch.equal(a, b)
                 else:
                     exact &= torch.equal(a, b)
+            levels = audio_levels(g[0])   # the samples (float32 or PCM16)
             line(f"codec_graphs {route}", case=name, replays=replays, max_abs=f"{err:.3g}",
-                 equal=equal and exact, graph_ms=f"{ms:.3f}", eager_ms=f"{eager_ms:.3f}")
+                 equal=equal and exact, graph_ms=f"{ms:.3f}", eager_ms=f"{eager_ms:.3f}",
+                 **levels)
+            unclamped(f"codec_graphs {route} {name}", levels)
             if replays <= 0:
                 raise AssertionError(f"codec_graphs {route} {name}: the graphed call replayed "
                                      "no graph")
@@ -1853,6 +1913,15 @@ def phase_codec_graphs(model) -> dict:
                                      f"(max abs {err}, integer outputs equal {exact})")
             out.setdefault(route, []).append({"case": name, "ms": ms, "eager_ms": eager_ms,
                                               "max_abs": err, "equal": equal})
+        # why the smoke's vocoders are scaled: the seed's draw itself, unscaled,
+        # on the whole-call case's codes
+        raw = scaled_vocoder_params(cfg, SEED + 3, dev, scale=1.0)
+        with graphs.eager():
+            levels = audio_levels(chunked_decode(raw, cfg, whole, chunk_size=tok.chunk_size,
+                                                 left_context_size=tok.left_context))
+        del raw
+        line("codec_graphs unscaled draw", case=cases[0][1], scale=1.0, **levels,
+             smoke_scale=VOC_WEIGHT_SCALE)
         for _ in _stream(model):   # every graph of the stream's shapes captured
             pass
         with owner_device_ms() as split:
@@ -1896,7 +1965,8 @@ def phase_server_warmup(model) -> dict:
              requests_per_s=f"{r['requests_per_s']:.3f}",
              first_packet_p50_s=f"{r['first_packet_p50']:.3f}",
              first_packet_p95_s=f"{r['first_packet_p95']:.3f}",
-             mix_graphs_captured=r["captures"])
+             mix_graphs_captured=r["captures"], **r["levels"])
+        unclamped(f"server_warmup {name}", r["levels"])
     line("server_warmup split", **split_fields(warm["wall"], warm["split"]))
     return {"warm": warm, "cold": cold}
 
@@ -1980,7 +2050,7 @@ def _voc_against(run: dict, ref: dict, tag: str) -> dict:
     """`run`'s codes equal `ref`'s, request by request, and its audio has
     their shapes. Returns, over every request's concatenated samples, the
     max abs difference, the PCM16 samples that differ, the samples, and
-    `ref`'s RMS and share of samples at full scale (clamped to +-1)."""
+    `ref`'s `audio_levels`."""
     if set(run["codes"]) != set(ref["codes"]):
         raise AssertionError(f"{tag}: requests {sorted(run['codes'])} vs {sorted(ref['codes'])}")
     diffs, pcm_off = [], 0
@@ -1993,16 +2063,15 @@ def _voc_against(run: dict, ref: dict, tag: str) -> dict:
         diffs.append(np.abs(a - b))
         pcm_off += int((_pcm16(a) != _pcm16(b)).sum())
     d = np.concatenate(diffs)
-    audio = np.concatenate([ref["audio"][rid] for rid in ref["codes"]])
     return {"max_abs": float(d.max()), "pcm16_off": pcm_off, "samples": d.size,
-            "rms": float(np.sqrt(np.mean(audio ** 2))),
-            "full_scale": float(np.mean(np.abs(audio) >= 1.0))}
+            "levels": audio_levels(*(ref["audio"][rid] for rid in ref["codes"]))}
 
 
 def _voc_same_card(run: dict, ref: dict, tag: str) -> dict:
     """`_voc_against`, held to a card's vocoder: float within CODEC_TOL and
     PCM16 equal."""
     r = _voc_against(run, ref, tag)
+    unclamped(tag, r["levels"])
     if r["max_abs"] > CODEC_TOL or r["pcm16_off"]:
         raise AssertionError(f"{tag}: audio max abs {r['max_abs']:.3g} (bar {CODEC_TOL}), "
                              f"{r['pcm16_off']} PCM16 samples differ")
@@ -2023,29 +2092,13 @@ def _voc_line(name: str, r: dict, **extra) -> None:
          **extra)
 
 
-def voc_model(model):
-    """`model` (a shallow copy) with a shallow copy of its tokenizer whose
-    decoder weight matrices are scaled by VOC_WEIGHT_SCALE (the codebooks
-    and every vector kept)."""
-    from qwen3_tts_tpu_torch.weights import map_tensors
-
-    tok = copy.copy(model.speech_tokenizer)
-    tok.dec_params = {k: v if k == "_codebooks" else map_tensors(
-        v, lambda t: t * VOC_WEIGHT_SCALE if t.ndim >= 2 else t)
-        for k, v in model.speech_tokenizer.dec_params.items()}
-    out = copy.copy(model)
-    out.speech_tokenizer = tok
-    return out
-
-
 def phase_vocoder_device(model, routes=("a", "b", "c"), mix=VOC_MIX) -> dict:
     """`TTSServer(vocoder_device=...)` (slice 14) on the int8 custom-voice
     model, kernels 1 and 2 on, every server warmed with `warmup()` and then
     serving `mix`: the reference, a one-card server built
     with fast_first_packet=False (which a vocoder device implies, so both
     schedule alike), and the default one-card server (its fast first packet
-    on: what losing it costs, printed), all over `voc_model(model)`, whose
-    audio is not clamped; then the `routes`: (a) the vocoder
+    on: what losing it costs, printed); then the `routes`: (a) the vocoder
     on the serving card named explicitly: codes equal the reference's, each
     request's audio PCM16-equal and within CODEC_TOL, no capture after the
     warm-up; (b) the vocoder on the host's CPU, the talker on the card:
@@ -2060,22 +2113,24 @@ def phase_vocoder_device(model, routes=("a", "b", "c"), mix=VOC_MIX) -> dict:
     graphs.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    model = voc_model(model)
     # the first profiler session starts CUPTI; not inside a measured mix
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
         torch.cuda.synchronize()
     ref = _voc_server(model, mix, fast_first_packet=False)
     default = _voc_server(model, mix)
-    _voc_line("one card", ref, fast_first_packet=False)
-    _voc_line("one card default", default, fast_first_packet=True)
+    levels = {name: audio_levels(*r["audio"].values()) for name, r in
+              (("ref", ref), ("default", default))}
+    _voc_line("one card", ref, fast_first_packet=False, **levels["ref"])
+    _voc_line("one card default", default, fast_first_packet=True, **levels["default"])
+    for name, lv in levels.items():
+        unclamped(f"vocoder_device one card {name}", lv)
     out = {"ref": ref, "default": default}
     if "a" in routes:
         named = out["a"] = _voc_server(
             model, mix, vocoder_device=torch.device("cuda", torch.cuda.current_device()))
         a = _voc_same_card(named, ref, "(a) the serving card named")
         _voc_line("(a) serving card named", named, codes_equal=True,
-                  audio_max_abs=f"{a['max_abs']:.3g}", pcm16_equal=True,
-                  audio_rms=f"{a['rms']:.4g}", full_scale_share=f"{a['full_scale']:.4f}")
+                  audio_max_abs=f"{a['max_abs']:.3g}", pcm16_equal=True, **a["levels"])
     if "b" in routes:
         cpu = out["b"] = _voc_server(model, mix, vocoder_device="cpu")
         srv = cpu["srv"]
@@ -2086,9 +2141,9 @@ def phase_vocoder_device(model, routes=("a", "b", "c"), mix=VOC_MIX) -> dict:
         b = _voc_against(cpu, ref, "(b) the vocoder on the CPU")
         _voc_line("(b) vocoder on the cpu", cpu, codes_equal=True,
                   audio_max_abs_vs_card=f"{b['max_abs']:.3g}", tolerance=VOC_CPU_TOL,
-                  pcm16_samples_off=b["pcm16_off"], samples=b["samples"],
-                  audio_rms=f"{b['rms']:.4g}", full_scale_share=f"{b['full_scale']:.4f}",
+                  pcm16_samples_off=b["pcm16_off"], samples=b["samples"], **b["levels"],
                   torch_threads=torch.get_num_threads())
+        unclamped("(b) the vocoder on the CPU", b["levels"])
         if b["max_abs"] > VOC_CPU_TOL:
             raise AssertionError(f"(b): audio max abs {b['max_abs']:.3g} off the card's "
                                  f"vocoder (bar {VOC_CPU_TOL})")
@@ -2103,8 +2158,7 @@ def phase_vocoder_device(model, routes=("a", "b", "c"), mix=VOC_MIX) -> dict:
             second = out["c"] = _voc_server(model, mix, vocoder_device=1)
             c = _voc_same_card(second, ref, "(c) the vocoder on a second card")
             _voc_line("(c) second card", second, codes_equal=True,
-                      audio_max_abs=f"{c['max_abs']:.3g}", pcm16_equal=True,
-                      audio_rms=f"{c['rms']:.4g}", full_scale_share=f"{c['full_scale']:.4f}",
+                      audio_max_abs=f"{c['max_abs']:.3g}", pcm16_equal=True, **c["levels"],
                       vocoder_card=torch.cuda.get_device_name(1))
     for r in out.values():
         del r["srv"]
@@ -2164,11 +2218,13 @@ def phase_serve_clone(model, front) -> None:
             errs[(rid, ctx_of)] = float(np.abs(w[0, 0, -k * up:].cpu().numpy() - pkt.wav).max())
     own = max(errs[("a", "a")], errs[("b", "b")])
     other = min(errs[("a", "b")], errs[("b", "a")])
+    levels = audio_levels(*(e.wav for e in events))
     line("serve clone", requests=2, prefill_bucket=512, wall_s=f"{wall:.3f}",
          first_packet_s={r: f"{t:.3f}" for r, t in first.items()},
          first_packet_vs_own_context_max_abs=f"{own:.3g}",
          first_packet_vs_other_context_min_abs=f"{other:.3g}", staging_graphs=staging,
-         codes_equal_eager=codes_equal, launches=launches)
+         codes_equal_eager=codes_equal, launches=launches, **levels)
+    unclamped("serve clone", levels)
     if not (own <= CLONE_CTX_TOL < other):
         raise AssertionError(f"clone serving context: {errs}")
     if launches["talker_step_int8_kv"] <= 0 or launches["flash_prefill"] <= 0 or not staging:
@@ -2399,9 +2455,11 @@ def prefill_ab(model, specs, tag: str, **kw) -> dict:
     and inside `graphs.eager()`, from generators of one seed: the KV cache
     (and its scales) at max abs 0, the first code0, the last hidden, the
     consts and the generators' states after equal; the replay captures
-    nothing and launches kernel 3 once a layer where T >= 256. Then the
-    whole frame result (`frame_result`) graphed against eager: equal."""
-    from qwen3_tts_tpu_torch.models.talker import FLASH_PREFILL_MIN_T
+    nothing and launches kernel 3 once a layer where the route takes it
+    (`talker.prefill_uses_flash`: T >= 256 and the kernel's shapes), else
+    never. Then the whole frame result (`frame_result`) graphed against
+    eager: equal."""
+    from qwen3_tts_tpu_torch.models.talker import StackDims, prefill_uses_flash
     from qwen3_tts_tpu_torch.runtime import generate, graphs
     from qwen3_tts_tpu_torch.runtime.prompts import assemble_prompt_specs
 
@@ -2437,7 +2495,8 @@ def prefill_ab(model, specs, tag: str, **kw) -> dict:
                     for f in ("valid_prefill", "seq_lens", "prefill_len", "samp_row",
                               "sub_row", "tts_pad_embed")))
     L = tc.num_hidden_layers
-    want_flash = L if T >= FLASH_PREFILL_MIN_T else 0
+    flash = prefill_uses_flash(StackDims.from_talker(tc), T, inputs[0].dtype)
+    want_flash = L if flash else 0
     del g_state, e_state
     g = frame_result(model, specs, **kw)
     with graphs.eager():
@@ -2452,7 +2511,7 @@ def prefill_ab(model, specs, tag: str, **kw) -> dict:
             launches["flash_prefill"] != want_flash):
         raise AssertionError(f"{tag}: the prefill replay: {counts}, flash launches "
                              f"{launches['flash_prefill']} (want {want_flash})")
-    return {"launches": launches, "T": T}
+    return {"launches": launches, "T": T, "dtype": inputs[0].dtype}
 
 
 def phase_prefill_graphs(model) -> None:
@@ -2467,12 +2526,66 @@ def phase_prefill_graphs(model) -> None:
                "stream int8_kv", max_new_tokens=MAX_NEW_TOKENS, kv_quant=True)
 
 
-MISFIT_TALKER = dict(   # 4 query heads per kv head: kernel 2 does not take it
+MISFIT_TALKER = dict(   # 4 query heads per kv head: kernels 2 and 3 do not take it
     vocab_size=6400, hidden_size=256, intermediate_size=1536, num_hidden_layers=2,
     num_attention_heads=8, num_key_value_heads=2, head_dim=64, text_hidden_size=256,
     text_vocab_size=151936, num_code_groups=16)
 MISFIT_CP = dict(vocab_size=2048, hidden_size=256, intermediate_size=768, num_hidden_layers=2,
                  num_attention_heads=4, num_key_value_heads=2, head_dim=64, num_code_groups=16)
+# kernel 3's groups and head_dim, loaded in fp32: its only misfit is the dtype
+MISFIT_FP32_TALKER = dict(MISFIT_TALKER, num_attention_heads=4, head_dim=128)
+# a non-streaming prompt past FLASH_PREFILL_MIN_T (one text id a character)
+MISFIT_LONG_TEXT = CLONE_TEXT * 5
+
+
+def misfit_model(cfg_kw: dict, device, int8: bool):
+    """A custom-voice model of a tiny talker (`cfg_kw`, MISFIT_CP's code
+    predictor), random from the seed: int8 weights with bf16 activations, or
+    an fp32 load; every text id kept (long prompts)."""
+    from qwen3_tts_tpu_torch.config import CodePredictorConfig, TalkerConfig
+    from qwen3_tts_tpu_torch.utils.testing import random_talker_params
+    from qwen3_tts_tpu_torch.weights import quantize_talker_params
+
+    cfg = TalkerConfig(**cfg_kw, code_predictor_config=CodePredictorConfig(**MISFIT_CP))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = random_talker_params(cfg, gen, dtype=torch.bfloat16 if int8 else torch.float32)
+    model = build_model(quantize_talker_params(params) if int8 else params, cfg, device,
+                        quantized="int8" if int8 else None)
+    model.processor = StandInTokenizer(max_ids=None)
+    return model
+
+
+def misfit_long_prompt(model, label: str) -> None:
+    """`model` answers MISFIT_LONG_TEXT in the non-streaming layout (a
+    prefill past FLASH_PREFILL_MIN_T) through generate_custom_voice without
+    launching kernel 3 (its shapes break `flash_misfit`, so the dense
+    attention runs); its prefill graph and frame loop against
+    `graphs.eager()` (`prefill_ab`: KV equal, 0 kernel-3 launches, the
+    frame result equal)."""
+    from qwen3_tts_tpu_torch.models.talker import FLASH_PREFILL_MIN_T
+    from qwen3_tts_tpu_torch.ops.cuda.prefill_attention import flash_misfit
+
+    tc = model.config.talker_config
+    up = model.speech_tokenizer.get_decode_upsample_rate()
+    kw = dict(seed=SEED, max_new_tokens=MAX_NEW_TOKENS)
+    reset_launches()
+    wavs, sr = model.generate_custom_voice([MISFIT_LONG_TEXT], speaker="vivian",
+                                           language="english", non_streaming_mode=True, **kw)
+    launches = read_launches()
+    specs = model._specs_custom_voice([MISFIT_LONG_TEXT], "vivian", "english", None, True)
+    ab = prefill_ab(model, specs, f"misfit {label}", max_new_tokens=MAX_NEW_TOKENS)
+    rule = flash_misfit(ab["dtype"], tc.num_attention_heads, tc.num_key_value_heads,
+                        tc.resolved_head_dim)
+    levels = audio_levels(*wavs)
+    line(f"misfit {label} long prompt", T=ab["T"], flash_misfit=repr(rule),
+         api_flash_launches=launches["flash_prefill"],
+         prefill_replay_flash_launches=ab["launches"]["flash_prefill"], codes_equal_eager=True,
+         frames=[w.shape[0] // up for w in wavs], **levels)
+    if ab["T"] < FLASH_PREFILL_MIN_T or rule is None or launches["flash_prefill"]:
+        raise AssertionError(f"misfit {label}: T {ab['T']}, rule {rule}, launches {launches}")
+    if sr != 24000 or not all(np.isfinite(w).all() and w.shape[0] % up == 0 for w in wavs):
+        raise AssertionError(f"misfit {label}: waveforms {[w.shape for w in wavs]} at {sr} Hz")
+    unclamped(f"misfit {label} long prompt", levels)
 
 
 def phase_misfit(device) -> None:
@@ -2481,17 +2594,14 @@ def phase_misfit(device) -> None:
     shapes it fits, and to the plain talker step, whose kernel it does not
     fit (`config_misfit`); generate_custom_voice then runs, kernel 2 never
     launched, finite whole-frame audio; a named fused_talker_step=True
-    still raises."""
-    from qwen3_tts_tpu_torch.config import CodePredictorConfig, TalkerConfig
+    still raises. Then kernel 3's route (slice 15): that talker, and an
+    fp32 load of a talker with kernel 3's groups and head_dim, each answer a
+    prompt past FLASH_PREFILL_MIN_T without launching kernel 3
+    (`misfit_long_prompt`)."""
     from qwen3_tts_tpu_torch.ops.cuda.talker_step import config_misfit
-    from qwen3_tts_tpu_torch.utils.testing import random_talker_params
-    from qwen3_tts_tpu_torch.weights import quantize_talker_params
 
-    cfg = TalkerConfig(**MISFIT_TALKER, code_predictor_config=CodePredictorConfig(**MISFIT_CP))
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    model = build_model(quantize_talker_params(random_talker_params(cfg, gen,
-                                                                    dtype=torch.bfloat16)),
-                        cfg, device)
+    model = misfit_model(MISFIT_TALKER, device, int8=True)
+    cfg = model.config.talker_config
     g = model._generation_config(model._merge_generate_kwargs())
     if not g.fused_subtalker or g.fused_talker_step:
         raise AssertionError(f"G=4 defaults: fused_subtalker={g.fused_subtalker}, "
@@ -2511,9 +2621,13 @@ def phase_misfit(device) -> None:
         raised = str(e)
     else:
         raise AssertionError("G=4 with fused_talker_step=True did not raise")
+    levels = audio_levels(*wavs)
     line("misfit G=4", misfit=config_misfit(cfg), fused_subtalker=True,
          fused_talker_step=False, frames=[w.shape[0] // up for w in wavs], launches=launches,
-         named_flag_raises=raised[:60])
+         named_flag_raises=raised[:60], **levels)
+    unclamped("misfit G=4", levels)
+    misfit_long_prompt(model, "G=4 int8")
+    misfit_long_prompt(misfit_model(MISFIT_FP32_TALKER, device, int8=False), "G=2 fp32")
 
 
 def frame_result(model, specs, **kw):
@@ -2655,9 +2769,11 @@ def phase_stream_ab(model) -> dict:
     if not (torch.equal(gc, ec) and len(gw) == len(ew)
             and all(np.array_equal(a, b) for a, b in zip(gw, ew))):
         raise AssertionError("graphed and eager streams differ")
+    levels = audio_levels(*gw)
     line("stream graph vs eager", packets=len(gw), frames=gc.shape[1], codes_equal=True,
          packets_equal=True, graph_wall_s=f"{gwall:.3f}", eager_wall_s=f"{ewall:.3f}",
-         graphs_replayed=grep)
+         graphs_replayed=grep, **levels)
+    unclamped("stream graph vs eager", levels)
     return {"codes": gc}
 
 
@@ -2775,7 +2891,7 @@ def phase_http(model) -> dict:
         srv.synthesize("custom_voice", text=TEXTS[0], speaker="vivian", language="english")
         frames.clear()
         up = model.speech_tokenizer.get_decode_upsample_rate()
-        got, errors = {}, []
+        got, pcm, errors = {}, {}, []
 
         def post(i, path):
             try:
@@ -2790,8 +2906,10 @@ def phase_http(model) -> dict:
                     with wave.open(io.BytesIO(base64.b64decode(
                             json.loads(data)["wavs_b64"][0]))) as w:
                         got[(path, i)] = (w.getnframes(), w.getframerate())
+                        pcm[(path, i)] = np.frombuffer(w.readframes(w.getnframes()), "<i2")
                 else:
                     got[(path, i)] = (len(data) // 2, int(r.headers["X-Sample-Rate"]))
+                    pcm[(path, i)] = np.frombuffer(data, "<i2")
             except Exception as e:
                 errors.append((path, i, repr(e)))
 
@@ -2829,9 +2947,11 @@ def phase_http(model) -> dict:
         srv.close()
     if demo.engine is not srv or submits < len(jobs) + 2:
         raise AssertionError(f"the engine route served {submits} requests")
+    levels = audio_levels(*pcm.values())
     line("http front door", port=port, tts=8, tts_stream=4, wall_s=f"{wall:.3f}",
          requests_per_s=f"{len(jobs) / wall:.3f}", audio_frames=engine_frames,
-         closed_stream_freed_slot=True, engine_submits=submits)
+         closed_stream_freed_slot=True, engine_submits=submits, **levels)
+    unclamped("http front door", levels)
     return {"wall": wall}
 
 
@@ -2984,6 +3104,13 @@ V1_DIT_REL_TOL = 1e-4         # one DiT velocity evaluation, relative L2
 V1_BIGVGAN_TOL = 1e-4         # BigVGAN on a short mel, max abs
 V1_DIT_CODES = 24             # the host-side DiT evaluation: 24 codes (48 frames)
 V1_BIGVGAN_FRAMES = 20
+# BigVGAN's last conv in the smoke's V1 draw, scaled: the draw's DiT mel
+# sits near the top of BigVGAN's dB range, and 85% of a 10 s clip's decoded
+# samples sat at full scale on the H100 (`codec25 unscaled draw`), so the
+# decode's checks would compare signs. The conv is linear with no bias: it
+# scales the output before the clamp by exactly this factor (RMS 0.292 and
+# no sample at full scale after it)
+V1_POST_SCALE = 1 / 8
 V1_ITERS = 3                   # timed calls per route of the 25 Hz programs
 V1_LENGTHS = (2, 5, 9, 14, 20) # seconds: the clip lengths sent once, again, a third time
 V1_GRAPH_MEL_REL = 1e-5        # the DiT mel after every step, graphed against eager (rel L2)
@@ -3036,6 +3163,7 @@ def phase_codec25(device, cfg=None) -> dict:
     cfg = cfg or CodecV1Config()
     t0 = time.time()
     flat = codec_v1_state(cfg, SEED + 8)
+    flat["decoder.bigvgan.conv_post.weight"] *= V1_POST_SCALE
     os.makedirs(V1_DIR, exist_ok=True)
     with open(os.path.join(V1_DIR, "config.json"), "w") as f:
         json.dump(v1_config_json(cfg), f)
@@ -3087,6 +3215,11 @@ def phase_codec25(device, cfg=None) -> dict:
         bigvgan.bigvgan_forward(card["decoder"]["bigvgan"], bcfg, mel)
         torch.cuda.synchronize()
         bigvgan_s = time.time() - t0 - dit_s
+        # why the draw is scaled: its own last conv on the same mel
+        big = card["decoder"]["bigvgan"]
+        unscaled = audio_levels(bigvgan.bigvgan_forward(
+            dict(big, conv_post={"weight": big["conv_post"]["weight"] / V1_POST_SCALE}), bcfg,
+            mel))
     up = dcfg.repeats * int(np.prod(bcfg.upsample_rates))
     wav = wavs[0]
     if sr != cfg.output_sample_rate or wav.shape != (n * up,) or not np.isfinite(wav).all():
@@ -3144,6 +3277,9 @@ def phase_codec25(device, cfg=None) -> dict:
                 bigvgan=(big_err, V1_BIGVGAN_TOL))
     out = dict(encode_s=encode_s, decode_s=decode_s, rtf=decode_s / audio_s, peak_gib=peak_gib,
                tokenizer=tok)
+    levels = {k: audio_levels(w) for k, w in (("decode", wav), ("bigvgan", w_card))}
+    line("codec25 unscaled draw", conv_post_scale=1.0, **unscaled,
+         smoke_scale=V1_POST_SCALE)
     line("codec25", widths="released" if cfg == CodecV1Config() else "cut", codes=n, audio_s=f"{audio_s:.2f}",
          write_s=f"{write_s:.1f}", load_s=f"{load_s:.1f}", weights_gib=f"{weights_gib:.2f}",
          encode_s=f"{encode_s:.4f}", encode_eager_s=f"{routes['eager'][0]:.4f}",
@@ -3153,7 +3289,10 @@ def phase_codec25(device, cfg=None) -> dict:
          code_match=f"{match:.4f}", mismatches=len(miss), worst_gap=f"{worst_gap:.2e}",
          mel_err=f"{mel_err:.2e}", xvector_rel=f"{xv_err:.2e}", ref_mel_err=f"{rm_err:.2e}",
          dit_rel=f"{dit_err:.2e}", dit_codes=V1_DIT_CODES, bigvgan_err=f"{big_err:.2e}",
-         bigvgan_frames=V1_BIGVGAN_FRAMES)
+         bigvgan_frames=V1_BIGVGAN_FRAMES,
+         **{f"{k}_{f}": v for k, lv in levels.items() for f, v in lv.items()})
+    for k, lv in levels.items():
+        unclamped(f"codec25 {k}", lv)
     bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
     if bad:
         raise AssertionError(f"25 Hz stages off the host run: {bad}")
@@ -3346,7 +3485,8 @@ def phase_v1_graphs(tok) -> dict:
             xvector_rel=rel_err(torch.from_numpy(ge.xvectors[0]),
                                 torch.from_numpy(ee.xvectors[0])),
             ref_mel_equal=np.array_equal(ge.ref_mels[0], ee.ref_mels[0]),
-            wav_max_abs=float(np.abs(gw - ew).max()), pcm16_equal=np.array_equal(gp, ep))
+            wav_max_abs=float(np.abs(gw - ew).max()), pcm16_equal=np.array_equal(gp, ep),
+            **audio_levels(gw))
     dit_share = res["dit"]["replay_ms"] / ends["seen"]["decode_ms"]
 
     # clip lengths sent once, again, a third time, then eagerly
@@ -3384,6 +3524,8 @@ def phase_v1_graphs(tok) -> dict:
         ("reference mel", e["ref_mel_equal"]), ("waveform", e["wav_max_abs"] <= V1_GRAPH_WAV_TOL),
         ("PCM16", e["pcm16_equal"])) if not ok]
     bad += [f"{name}: {e['captures']} captures" for name, e in ends.items() if e["captures"]]
+    bad += [f"{name}: {e['full_scale_share']} of the samples at full scale"
+            for name, e in ends.items() if e["full_scale_share"] > MAX_FULL_SCALE_SHARE]
     if not dit_rel <= V1_GRAPH_MEL_REL or not xv_rel <= V1_GRAPH_XVEC_REL:
         bad.append(f"programs: DiT mel {dit_rel}, x-vector {xv_rel}")
     n = len(V1_LENGTHS)   # the DiT's and CAM++'s keys

@@ -38,7 +38,7 @@ from ..runtime.generate import (GenerationConfig, generate_frames,
                                 generate_frames_chunked)
 from ..runtime.prompts import PromptSpec, assemble_prompt_specs
 from ..utils.audio import AudioLike, normalize_audio_inputs, resample
-from ..weights import load_safetensors_dir, quantize_talker_params
+from ..weights import load_safetensors_dir, quantize_talker_params, resolve_checkpoint_dir
 from .tokenizer import Qwen3TTSTokenizer, resolve_device
 
 MaybeList = Union[Any, List[Any]]
@@ -149,15 +149,16 @@ class Qwen3TTSModel:
                         quantize: Optional[str] = None,
                         device="cuda") -> "Qwen3TTSModel":
         """Load a reference-format checkpoint directory (config.json +
-        safetensors [+ speech_tokenizer/] [+ generation_config.json]).
+        safetensors [+ speech_tokenizer/] [+ generation_config.json]), or a
+        Hugging Face repo id through `huggingface_hub` where the path is not
+        a local directory (`weights.resolve_checkpoint_dir`).
 
         quantize="int8" applies weight-only per-channel int8 to the talker /
         code-predictor matmul weights and the codec head. device="cuda"
         raises when CUDA is absent. The speaker encoder (`speaker_encoder.*`,
         base checkpoints) loads at `dtype`, as the JAX package loads it."""
         device = resolve_device(device)
-        if not os.path.isdir(model_dir):
-            raise FileNotFoundError(f"{model_dir} is not a local directory")
+        model_dir = resolve_checkpoint_dir(model_dir)
         config = load_config(model_dir)
         if not isinstance(config, TTSModelConfig):
             raise ValueError(f"{model_dir} is not a qwen3_tts checkpoint")

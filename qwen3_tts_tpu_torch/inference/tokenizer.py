@@ -35,7 +35,7 @@ from ..models.codec12 import decoder as codec_decoder
 from ..models.codec12 import encoder as codec_encoder
 from ..runtime import graphs
 from ..utils.audio import load_audio, resample, to_mono
-from ..weights import load_safetensors_dir
+from ..weights import load_safetensors_dir, resolve_checkpoint_dir
 
 
 def resolve_device(device) -> torch.device:
@@ -76,11 +76,11 @@ class Qwen3TTSTokenizer:
                         device="cuda") -> "Qwen3TTSTokenizer":
         """Load a tokenizer checkpoint directory onto `device`: 12 Hz
         (encoder + decoder) or 25 Hz (encoder, DiT, BigVGAN, and CAM++ from
-        `campplus.onnx` when the directory has one). device="cuda" raises
-        when CUDA is absent."""
+        `campplus.onnx` when the directory has one), or a Hugging Face repo
+        id through `huggingface_hub` (`weights.resolve_checkpoint_dir`).
+        device="cuda" raises when CUDA is absent."""
         device = resolve_device(device)
-        if not os.path.isdir(model_dir):
-            raise FileNotFoundError(f"{model_dir} is not a local directory")
+        model_dir = resolve_checkpoint_dir(model_dir)
         cfg = load_config(model_dir)
         if not isinstance(cfg, (CodecV1Config, CodecV2Config)):
             raise ValueError(f"unsupported tokenizer config at {model_dir}")

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..config import CodePredictorConfig, TalkerConfig
 from ..ops.attention import attention, attention_kv_quant, mask_to_bias
+from ..ops.cuda.prefill_attention import flash_misfit, flash_prefill
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, default_inv_freq, rope_tables
 from ..ops.sampling import process_and_sample, process_and_sample_rows
@@ -35,7 +36,8 @@ from ..weights import matmul_t, numeric_children, stack_layers, weight_rows
 Params = Dict[str, Any]
 
 # Prefills of this many tokens or more attend through the flash prefill
-# kernel (ops/cuda/prefill_attention.py) instead of the dense masked path.
+# kernel (ops/cuda/prefill_attention.py) instead of the dense masked path,
+# where the kernel takes their shapes (`prefill_uses_flash`).
 # Set from the H100's A/B of whole 1.7B prefills at B=4 (chip_smoke.py
 # `phase_prefill_ab`): flash won at every measured T from 256 to 2048 (the
 # JAX package keeps 2048, a TPU measurement). Tests lower it to run the
@@ -243,6 +245,19 @@ def _write_kv(cache: KVCache, li: int, offset, k: torch.Tensor,
         cache.v_scale[li, :, :, offset:offset + T] = vs
 
 
+def prefill_uses_flash(dims: StackDims, T: int, dtype: torch.dtype) -> bool:
+    """Whether a left-padded prefill (one with its rows' starts) of T tokens
+    in `dtype` attends through `flash_prefill`: iff T >= FLASH_PREFILL_MIN_T
+    and the kernel was built for its shapes (`flash_misfit` is None). Every
+    other prefill attends densely, which computes what the JAX package
+    computes below its own threshold. The rule is the same on every device,
+    so the CPU takes the card's route; the prefill and staging graphs
+    (runtime/graphs.py) key their plan buffers by it, so a misfit never
+    builds a plan."""
+    return (T >= FLASH_PREFILL_MIN_T
+            and flash_misfit(dtype, dims.heads, dims.kv_heads, dims.head_dim) is None)
+
+
 def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
                   h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                   mask_bias: torch.Tensor, cache: Optional[KVCache], offset,
@@ -259,7 +274,7 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
     included. Returns the final-normed hidden (B, T, hidden).
 
     With `prefill_start` ((B,) first valid slot per row of a left-padded
-    prefill) and T >= FLASH_PREFILL_MIN_T, attention runs `flash_prefill`
+    prefill), where `prefill_uses_flash` says so, attention runs `flash_prefill`
     on this call's fresh, unquantized K/V instead (the cache's slots
     [0, T); later slots are masked on the dense path anyway; an int8 cache
     still receives the quantized values), and `mask_bias` is not read;
@@ -284,9 +299,7 @@ def decoder_stack(stacked: Params, norm: Params, dims: StackDims,
     else:
         n_layers = cache.k.shape[0]
         S_att = cache.k.shape[3] if attend_len is None else attend_len
-    use_flash = prefill_start is not None and T >= FLASH_PREFILL_MIN_T
-    if use_flash:
-        from ..ops.cuda.prefill_attention import flash_prefill
+    use_flash = prefill_start is not None and prefill_uses_flash(dims, T, h.dtype)
     layers = unbind_layers(stacked)
     for li in range(n_layers):
         lp = layers[li]
@@ -353,9 +366,10 @@ def talker_prefill(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tenso
     the last position (B, V) f32, last-layer normed hiddens (B, T, H),
     cache).
 
-    Prefills of T >= FLASH_PREFILL_MIN_T attend through `flash_prefill`,
-    which requires contiguous left padding (the prompt layout) and has no
-    backward; callers with other masks or gradients pass allow_flash=False.
+    Prefills that `prefill_uses_flash` admits (T >= FLASH_PREFILL_MIN_T and
+    shapes the kernel takes) attend through `flash_prefill`, which requires
+    contiguous left padding (the prompt layout) and has no backward;
+    callers with other masks or gradients pass allow_flash=False.
     `plan`: its work list for the mask's starts (`flash_prefill`; a
     captured prefill must pass it).
     `cache=None` is the training route (see `decoder_stack`). `mesh`: the

@@ -156,6 +156,24 @@ def plan_shapes(B: int, T: int, Hkv: int, ctas: int) -> tuple:
     return (n, len(ITEM_FIELDS)), (max(1, min(n, ctas)) + 1,)
 
 
+def flash_misfit(dtype: torch.dtype, heads: int, kv_heads: int, head_dim: int
+                 ) -> Optional[str]:
+    """The first rule of what the kernel was built for that these shapes
+    break, or None: bf16 q, k and v, head_dim 128 and two query heads per kv
+    head (the released configurations' shape, which chip_smoke.py holds
+    against the twin; another width needs its own instantiation). The
+    wrapper's launch check raises with it; `models/talker.py`
+    `prefill_uses_flash` routes a misfit to the dense attention."""
+    if dtype != torch.bfloat16:
+        return f"the kernel takes bf16 q, k and v; got {dtype}"
+    if head_dim != 128:
+        return f"the kernel is built for head_dim 128; got {head_dim}"
+    if heads != 2 * kv_heads:
+        return (f"{heads} query heads over {kv_heads} kv heads: the kernel is built for "
+                "two query heads per kv head")
+    return None
+
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   start: torch.Tensor, scale: Optional[float] = None,
                   sliding_window: Optional[int] = None,
@@ -165,9 +183,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, T, Hq, D) in q.dtype.
 
     CPU tensors run `flash_prefill_ref`; CUDA tensors launch the kernel, each
-    launch adding one to `flash_prefill.launches`. The kernel is built for
-    the released configurations' shape only (bf16, D = 128, Hq = 2 * Hkv,
-    the shape chip_smoke.py holds against the twin); any other raises.
+    launch adding one to `flash_prefill.launches`. Shapes the kernel was
+    not built for (`flash_misfit`) raise.
     `plan`: `flash_plan` of these starts as (items, offsets) int32 tensors
     on q's device (`plan_shapes`, the device's SM count as CTAs). Without
     it, the first call with a given `start` tensor reads it to the host for
@@ -183,11 +200,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   and tuple(v.shape) == (B, T, Hkv, D),
                   f"flash_prefill: want q (B, T, Hq, D), k/v (B, T, Hkv, D); got "
                   f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v)),
-                  "flash_prefill: the kernel takes bf16 q, k and v")
-    build.require(D == 128 and Hq == 2 * Hkv,
-                  f"flash_prefill: the kernel is built for head_dim 128 and two "
-                  f"query heads per kv head; got head_dim {D}, {Hq} over {Hkv}")
+    dtype = next((t.dtype for t in (q, k, v) if t.dtype != torch.bfloat16), torch.bfloat16)
+    misfit = flash_misfit(dtype, Hq, Hkv, D)
+    build.require(misfit is None, f"flash_prefill: {misfit}")
     build.require(tuple(start.shape) == (B,), "flash_prefill: start must be (B,)")
     build.same_device(q.device, k=k, v=v, start=start)
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)

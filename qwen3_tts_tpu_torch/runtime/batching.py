@@ -198,7 +198,8 @@ def stage_rows(params: Params, cfg: TalkerConfig, state: SlotState,
     package does, by an order-safe gather over the pool's K rows: pool row
     k takes the valid entry naming it, if any. A padding row (valid 0)
     leaves nothing, and no host value is read, so a graph captures it
-    (`plan`: the flash prefill's work list at Lp >= FLASH_PREFILL_MIN_T).
+    (`plan`: the flash prefill's work list, where `talker.prefill_uses_flash`
+    sends the prefill through kernel 3).
     The pad embedding is taken only when some row is valid (the JAX
     engine's warm-up pins the zero pad it stages with; this one does not)."""
     N, Lp, _ = embeds.shape
@@ -449,7 +450,8 @@ def _pad_request(embeds, mask, trailing, Lp: int, Tt: int, dtype):
     (Lp, H) and right-padded (Tt, H) staging rows on the embeds' device, one
     pad each (the JAX package's `_pad_request_fn`), and the left-padded
     (Lp,) int32 mask on the host, where the staging prefill's flash plan is
-    built (a mask on the device is read once)."""
+    built when kernel 3 takes it (`talker.prefill_uses_flash`; a mask on the
+    device is read once)."""
     T = embeds.shape[1]
     tl = min(trailing.shape[1], Tt)
     e = F.pad(embeds[0].to(dtype), (0, 0, Lp - T, 0))

@@ -221,8 +221,9 @@ def prefill_state(params: Params, cfg: TalkerConfig, gen_cfg: GenerationConfig,
     """The prefill into `cache` (zeroed) and the first code0 from the
     device inputs: (DecodeState, DecodeConst) of new tensors, which hold the
     const inputs themselves. No host value is read and no host copy made:
-    the body of a prefill graph (`plan`: the flash prefill's work list, for
-    T >= FLASH_PREFILL_MIN_T), and the eager route."""
+    the body of a prefill graph (`plan`: the flash prefill's work list,
+    where `talker.prefill_uses_flash` admits the prefill), and the eager
+    route."""
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     S = cache.k.shape[3]

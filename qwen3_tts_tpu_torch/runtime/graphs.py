@@ -22,8 +22,9 @@ Six owners of graphs:
   config, gen_cfg.canonical() with its fused flags and KV mode, the batch B,
   the KV buffer S, the dtypes, the device), the KV cache among them, one
   prefill graph per prompt length T (`prefill`: the prefill and the first
-  code0 into those buffers, from static input buffers and, at T >=
-  FLASH_PREFILL_MIN_T, kernel 3's plan built on the host), and one graph
+  code0 into those buffers, from static input buffers and, where kernel 3
+  takes the prefill (`talker.prefill_uses_flash`), its plan built on the
+  host), and one graph
   per (K frames, attend_len) over them; at most MAX_GRAPHS_PER_CONTEXT of
   both kinds (least recently used go first). Contexts live in a per-device
   LRU of at most MAX_CONTEXTS entries and MAX_CONTEXT_BYTES of static
@@ -375,7 +376,8 @@ class DecodeGraphs:
         """`generate.prefill_state` into this context: one replay of the
         prefill graph of the prompt length T (captured at first use). The
         inputs are copied into static buffers first: the embeds, the mask
-        and, at T >= FLASH_PREFILL_MIN_T, the flash prefill's plan, built
+        and, where the prefill attends through kernel 3
+        (`talker.prefill_uses_flash`), the flash prefill's plan, built
         on the host from the mask (one device read where the mask lies on
         the device); the trailing text, padded with the tts_pad embedding up
         to the frame count (every frame reads the buffer; the loop never
@@ -385,7 +387,8 @@ class DecodeGraphs:
         from ..models import talker
 
         B, T = inputs_embeds.shape[:2]
-        flash = T >= talker.FLASH_PREFILL_MIN_T
+        flash = talker.prefill_uses_flash(talker.StackDims.from_talker(self.cfg), T,
+                                          inputs_embeds.dtype)
         key = ("prefill", T, flash)
         with _LOCK:
             g = self.graphs.get(key)
@@ -605,8 +608,9 @@ class ServeGraphs:
         into static buffers first: the rows ((Lp, H) embeds and (Tt, H)
         trailing on the device, (Lp,) int32 masks on the host), `meta`
         ((N, 5) int32) and the sampling rows (host numpy), the pad
-        embedding and, at Lp >= FLASH_PREFILL_MIN_T, the flash prefill's
-        plan, built from the masks on the host."""
+        embedding and, where the staging prefill attends through kernel 3
+        (`talker.prefill_uses_flash`), the flash prefill's plan, built from
+        the masks on the host."""
         from ..models import talker
 
         N = len(meta)
@@ -614,8 +618,9 @@ class ServeGraphs:
             g = self.staging.get(N)
             if g is None:
                 dev, H = self.dev.device, self.cfg.hidden_size
-                bufs = _prefill_buffers(self.cfg, N, self.Lp, self.dtype,
-                                        self.Lp >= talker.FLASH_PREFILL_MIN_T, dev)
+                flash = talker.prefill_uses_flash(talker.StackDims.from_talker(self.cfg),
+                                                  self.Lp, self.dtype)
+                bufs = _prefill_buffers(self.cfg, N, self.Lp, self.dtype, flash, dev)
                 bufs = bufs[:2] + (
                     torch.zeros((N, self.Tt, H), dtype=self.dtype, device=dev),
                     torch.zeros((N, 5), dtype=torch.int32, device=dev),

@@ -98,6 +98,22 @@ def map_tensors(tree, fn):
     return fn(tree)
 
 
+def resolve_checkpoint_dir(name_or_path: str, allow_patterns=None) -> str:
+    """A local checkpoint directory as given; otherwise a Hugging Face repo
+    id, fetched by `huggingface_hub.snapshot_download` (its local snapshot
+    directory) where that package imports, else FileNotFoundError, as in
+    the JAX package."""
+    if os.path.isdir(name_or_path):
+        return name_or_path
+    try:
+        from huggingface_hub import snapshot_download
+    except ImportError as e:
+        raise FileNotFoundError(
+            f"{name_or_path} is not a local directory and huggingface_hub "
+            "is unavailable to download it") from e
+    return snapshot_download(name_or_path, allow_patterns=allow_patterns)
+
+
 def load_safetensors_dir(model_dir: str, dtype: Optional[torch.dtype] = None,
                          key_filter: Optional[str] = None,
                          device="cpu") -> Dict[str, Any]:

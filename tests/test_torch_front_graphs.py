@@ -248,7 +248,12 @@ def test_mel_spectrogram_matches_jax_and_builds_constants_once(monkeypatch, win_
               win_size=win_size, fmin=0, fmax=12000)
     want = np.asarray(j_mel(jnp.asarray(y), **kw))
     first = stft.mel_spectrogram(torch.from_numpy(y), **kw)
-    second = stft.mel_spectrogram(torch.from_numpy(y[:1]), **kw)
+    second = stft.mel_spectrogram(torch.from_numpy(y), **kw)
+    single = stft.mel_spectrogram(torch.from_numpy(y[:1]), **kw)
     assert calls == {"window": 1, "filterbank": 1}
     np.testing.assert_allclose(first.numpy(), want, rtol=1e-5, atol=1e-5)
-    assert torch.equal(second[0], first[0])
+    # a row of a batch is not bit-equal to the same row alone on every
+    # host: the filterbank einsum's BLAS splits the batch by thread count
+    # (2.4e-7 apart at 4 threads and more); a second call on the same batch is
+    assert torch.equal(second, first)
+    np.testing.assert_allclose(single.numpy(), want[:1], rtol=1e-5, atol=1e-5)

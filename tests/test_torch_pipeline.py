@@ -230,16 +230,10 @@ def test_vocoder_matches_jax():
                                   np.asarray(jdec.to_pcm16(jnp.asarray(got.numpy()))))
 
 
-def test_speech_tokenizer_from_pretrained_matches_jax(checkpoint, tmp_path):
-    """A 12 Hz tokenizer checkpoint with the raw split-RVQ quantizer: the
-    port's loader folds the codebooks as the JAX `prepare_decoder_params`
-    does (fp32: 1e-5), decodes like the JAX tokenizer (1e-4, conv sums), and
-    `Qwen3TTSModel.from_pretrained` picks it up from `speech_tokenizer/`."""
-    import shutil
-
+def _tokenizer_dir(tmp_path, rng):
+    """A 12 Hz tokenizer checkpoint directory (decoder only, the raw
+    split-RVQ quantizer, drawn from `rng`): (its path, the raw tree)."""
     from qwen3_tts_tpu.weights import flatten_state_dict
-
-    rng = np.random.default_rng(4)
 
     def codebook():
         return {"_codebook": {
@@ -262,7 +256,18 @@ def test_speech_tokenizer_from_pretrained_matches_jax(checkpoint, tmp_path):
         json.dump({"model_type": "qwen3_tts_tokenizer_12hz", "decoder_config": DEC_TINY,
                    "output_sample_rate": 1000,
                    "decode_upsample_rate": DEC_CFG.total_upsample}, f)
+    return tok_dir, raw
 
+
+def test_speech_tokenizer_from_pretrained_matches_jax(checkpoint, tmp_path):
+    """A 12 Hz tokenizer checkpoint with the raw split-RVQ quantizer: the
+    port's loader folds the codebooks as the JAX `prepare_decoder_params`
+    does (fp32: 1e-5), decodes like the JAX tokenizer (1e-4, conv sums), and
+    `Qwen3TTSModel.from_pretrained` picks it up from `speech_tokenizer/`."""
+    import shutil
+
+    rng = np.random.default_rng(4)
+    tok_dir, raw = _tokenizer_dir(tmp_path, rng)
     want = jdec.prepare_decoder_params(jax.tree_util.tree_map(jnp.asarray, raw), DEC_CFG)
     tok = TTok.from_pretrained(str(tok_dir), device="cpu")
     np.testing.assert_allclose(tok.dec_params["_codebooks"].numpy(),
@@ -286,11 +291,50 @@ def test_speech_tokenizer_from_pretrained_matches_jax(checkpoint, tmp_path):
                                   tok.dec_params["_codebooks"].numpy())
 
 
+def test_from_pretrained_takes_hub_ids(checkpoint, tmp_path, monkeypatch):
+    """A name that is not a local directory is a Hugging Face repo id: both
+    loaders fetch it through `huggingface_hub.snapshot_download` (a stand-in
+    module here, returning directories the test wrote: no network) and load
+    what it returns; without the package they raise FileNotFoundError, as
+    the JAX package does."""
+    import shutil
+    import sys
+    import types
+
+    tok_dir, _ = _tokenizer_dir(tmp_path, np.random.default_rng(4))
+    model_dir = tmp_path / "model"
+    shutil.copytree(checkpoint[0], model_dir)
+    shutil.copytree(tok_dir, model_dir / "speech_tokenizer")
+    snapshots = {"org/tiny-tts": str(model_dir), "org/tiny-tokenizer": str(tok_dir)}
+    asked = []
+
+    def snapshot_download(repo_id, allow_patterns=None):
+        asked.append(repo_id)
+        return snapshots[repo_id]
+
+    hub = types.ModuleType("huggingface_hub")
+    hub.snapshot_download = snapshot_download
+    monkeypatch.setitem(sys.modules, "huggingface_hub", hub)
+    tm = TModel.from_pretrained("org/tiny-tts", dtype=torch.float32, device="cpu")
+    tok = TTok.from_pretrained("org/tiny-tokenizer", device="cpu")
+    local = TModel.from_pretrained(str(model_dir), dtype=torch.float32, device="cpu")
+    assert asked == ["org/tiny-tts", "org/tiny-tokenizer"]
+    for a, b in ((tm.talker_params["codec_head"], local.talker_params["codec_head"]),
+                 (tok.dec_params["_codebooks"], local.speech_tokenizer.dec_params["_codebooks"])):
+        assert torch.equal(a, b)
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)   # the import fails
+    for load in (TModel.from_pretrained, TTok.from_pretrained):
+        with pytest.raises(FileNotFoundError, match="huggingface_hub is unavailable"):
+            load("org/tiny-tts", device="cpu")
+
+
 def test_long_prefill_raises_and_cuda_request_checked(checkpoint, monkeypatch):
-    """A prefill of FLASH_PREFILL_MIN_T tokens on CPU tensors attends
-    through the flash prefill's twin (no kernel launch: the counter stays
-    put) and matches the dense path (allow_flash=False) within 1e-4 on the
-    valid rows; asking for CUDA where there is none raises."""
+    """A prefill of FLASH_PREFILL_MIN_T tokens of the fp32 load is not
+    kernel 3's shape (`flash_misfit`): it attends densely, bit-equal to
+    allow_flash=False. With the fit rule opened to it, it attends through
+    the flash prefill's twin (no kernel launch: the counter stays put) and
+    matches the dense path within 1e-4 on the valid rows; asking for CUDA
+    where there is none raises."""
     from qwen3_tts_tpu_torch.ops.cuda import prefill_attention as tpa
 
     tm = TModel.from_pretrained(checkpoint[0], dtype=torch.float32, device="cpu")
@@ -311,10 +355,12 @@ def test_long_prefill_raises_and_cuda_request_checked(checkpoint, monkeypatch):
         return ttalker.talker_prefill(tm.talker_params, tc, embeds, mask, cache,
                                       allow_flash=allow_flash)
 
+    lm, hm, _ = run(True)
+    ld, hd, cd = run(False)
+    assert not calls and torch.equal(lm, ld) and torch.equal(hm, hd)
+    monkeypatch.setattr(ttalker, "flash_misfit", lambda *a: None)
     lf, hf, cf = run(True)
     assert len(calls) == tc.num_hidden_layers and tpa.flash_prefill.launches == launches
-    ld, hd, cd = run(False)
-    assert len(calls) == tc.num_hidden_layers   # the dense path took no flash call
     torch.testing.assert_close(lf, ld, rtol=1e-4, atol=1e-4)
     for b, s in enumerate(starts):
         torch.testing.assert_close(hf[b, s:], hd[b, s:], rtol=1e-4, atol=1e-4)

@@ -13,7 +13,8 @@
 - `flash_tile_products`' plain version (the kernel's two products on one
   tile) against numpy, rows and keys past T read as zeros;
 - `talker_prefill` with the flash route forced on at small shapes (both
-  packages' FLASH_PREFILL_MIN_T lowered to 8) against the JAX package's,
+  packages' FLASH_PREFILL_MIN_T lowered to 8, the port's fit rule opened to
+  the tiny fp32 shapes: `open_flash_route`) against the JAX package's,
   on one fp32 parameter tree: logits, valid hiddens and valid cache slots
   within 1e-4 (28-op layer chains in another sum order).
 """
@@ -33,6 +34,7 @@ from qwen3_tts_tpu.utils.testing import random_talker_params
 from qwen3_tts_tpu_torch.models import talker as ttalker
 from qwen3_tts_tpu_torch.ops.cuda import prefill_attention as tpa
 from qwen3_tts_tpu_torch.weights import from_jax_tree
+from tests.test_torch_prefill_route import open_flash_route
 from tests.test_torch_weights import TINY
 
 CASES = {
@@ -172,7 +174,7 @@ def test_talker_prefill_flash_route_matches_jax(monkeypatch, window):
     embeds = (0.3 * rng.normal(size=(B, T, cfg.hidden_size))).astype(np.float32)
     mask = (np.arange(T)[None, :] >= np.array([[0], [7]])).astype(np.int32)
     monkeypatch.setattr(jtalker, "FLASH_PREFILL_MIN_T", 8)
-    monkeypatch.setattr(ttalker, "FLASH_PREFILL_MIN_T", 8)
+    open_flash_route(monkeypatch)
     dims = jtalker.StackDims.from_talker(cfg)
 
     jcache = jtalker.KVCache.zeros(cfg.num_hidden_layers, B, S, dims.kv_heads,

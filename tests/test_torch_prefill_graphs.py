@@ -57,6 +57,7 @@ from qwen3_tts_tpu_torch.runtime.prompts import assemble_prompt_specs as t_assem
 from qwen3_tts_tpu_torch.utils.testing import TALKER_0B6, TALKER_1B7
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_torch_pipeline import TEXTS, _models, checkpoint  # noqa: F401
+from tests.test_torch_prefill_route import open_flash_route
 from tests.test_torch_serving import _greedy, _prompts, _requests
 
 STATE_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -258,15 +259,22 @@ def fake_graphs(monkeypatch):
     return dev
 
 
-@pytest.mark.parametrize("route", ["dense", "flash"])
+@pytest.mark.parametrize("route", ["dense", "flash", "misfit"])
 def test_prefill_graph_route_matches_eager(checkpoint, monkeypatch, fake_graphs,  # noqa: F811
                                            route):
     """`init_decode_state` through a graph context (stand-in capture)
     equals the eager route's state and consts exactly, sampled; one graph
     per prompt length T, at most MAX_GRAPHS_PER_CONTEXT of a context; the
-    flash route's plan buffers hold `flash_plan` of the host mask."""
+    flash route's plan buffers hold `flash_plan` of the host mask. "misfit":
+    T past the threshold, but the fp32 tiny talker is not kernel 3's shape
+    (`flash_misfit`): the key, the buffers and the prefill are the dense
+    route's, and no plan is built."""
     if route == "flash":
+        open_flash_route(monkeypatch)
+    elif route == "misfit":
         monkeypatch.setattr(ttalker, "FLASH_PREFILL_MIN_T", 8)
+        monkeypatch.setattr(tpa, "flash_plan", None)   # building a plan would raise
+        monkeypatch.setattr(tpa, "flash_prefill_ref", None)
     monkeypatch.setattr(graphs, "MAX_GRAPHS_PER_CONTEXT", 2)
     _, tm, _, tcfg, _, t_in = _prefill_inputs(checkpoint, kv_quant=True, sampled=True)
     cfg, params = tm.config.talker_config, tm.talker_params
@@ -365,15 +373,21 @@ def test_stage_rows_matches_jax_with_padding_rows(checkpoint):  # noqa: F811
                                    **STATE_TOL)
 
 
-@pytest.mark.parametrize("route", ["dense", "flash"])
+@pytest.mark.parametrize("route", ["dense", "flash", "misfit"])
 def test_staging_graphs_match_eager_engine(checkpoint, monkeypatch, fake_graphs,  # noqa: F811
                                            route):
     """An engine with its staging (and tick) graphs on the stand-in
     capture: `warmup_staging` captures one staging graph per request count
     up to staging_rows; five sampled requests then capture no staging graph
-    and get the eager engine's codes."""
+    and get the eager engine's codes. "misfit": the prefill bucket past the
+    threshold, the fp32 tiny talker not kernel 3's shape: no plan buffers,
+    no plan built, no flash call."""
     if route == "flash":
+        open_flash_route(monkeypatch)
+    elif route == "misfit":
         monkeypatch.setattr(ttalker, "FLASH_PREFILL_MIN_T", 8)
+        monkeypatch.setattr(tpa, "flash_plan", None)   # building a plan would raise
+        monkeypatch.setattr(tpa, "flash_prefill_ref", None)
     jm, tm = _models(checkpoint, jnp.float32, torch.float32)
     reqs = _requests(tbatch, _prompts(jm, 5), from_jax_tree)
     gen_cfg = tgen.GenerationConfig(max_new_tokens=M, sampling=TS(top_k=8),

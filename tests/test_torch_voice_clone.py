@@ -10,7 +10,8 @@ stand-in text tokenizer. Tolerances:
 - ICL prompt embeddings 1e-5 (fp32, the same gathers and projections);
 - fp32 greedy generation: codes equal, waveforms atol 1e-4 (the vocoder's
   convolutions sum in another order), on the dense prefill route and on
-  the flash route (both packages' FLASH_PREFILL_MIN_T lowered to 8; the
+  the flash route (both packages' FLASH_PREFILL_MIN_T lowered to 8 and the
+  port's fit rule opened to the tiny fp32 shapes, `open_flash_route`; the
   port runs the flash twin, the JAX package its kernel in interpret mode).
 """
 
@@ -36,7 +37,6 @@ from qwen3_tts_tpu.weights import (flatten_state_dict, save_safetensors,
 from qwen3_tts_tpu_torch.config import CodecV2Config, MimiEncoderConfig, TTSModelConfig
 from qwen3_tts_tpu_torch.inference import model as tmodel
 from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer as TTok
-from qwen3_tts_tpu_torch.models import talker as ttalker
 from qwen3_tts_tpu_torch.models.codec12 import encoder as tenc
 from qwen3_tts_tpu_torch.ops.cuda import prefill_attention as tpa
 from qwen3_tts_tpu_torch.utils.testing import mimi_encoder_state, speaker_encoder_state
@@ -44,6 +44,7 @@ from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_codec12_encoder import TINY as ENC_TINY
 from tests.test_pipeline_parity import MODEL_TINY
 from tests.test_torch_pipeline import DEC_CFG, FakeTokenizer
+from tests.test_torch_prefill_route import open_flash_route
 
 GREEDY = dict(do_sample=False, subtalker_dosample=False, max_new_tokens=10)
 CODEC_KW = dict(encoder_valid_num_quantizers=4, input_sample_rate=1000,
@@ -156,7 +157,7 @@ def test_fp32_greedy_voice_clone_matches_jax(ckpt, monkeypatch, route):
     calls = []
     if route == "flash":
         monkeypatch.setattr(jtalker, "FLASH_PREFILL_MIN_T", 8)
-        monkeypatch.setattr(ttalker, "FLASH_PREFILL_MIN_T", 8)
+        open_flash_route(monkeypatch)
         jax.clear_caches()   # the threshold is read when JAX traces
         real = tpa.flash_prefill_ref
         monkeypatch.setattr(tpa, "flash_prefill_ref",
