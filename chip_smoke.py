@@ -181,7 +181,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    into build/native/; a 10 s FLAC written by utils/flac.py decodes to the
    same samples through the C loops and the pure-Python path (both walls);
 15. the DP / TP plans (parallel/mesh.py): two ranks sharing the
-   card through gloo at TALKER_1B7's widths (fp32 params drawn on the host
+   card through gloo at TALKER_1B7's widths and 2 layers (PAR_LAYERS: the
+   depth is cut for the smoke's time; fp32 params drawn on the host
    from the seed, each rank moving only its shard): tp=2 greedy fp32
    generation against the unsharded run (a differing code passes only as a
    near-tie: the top-2 gap is printed); a tp=2 bf16 prefill of an
@@ -191,10 +192,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
    dp=2 (2 layers, fp32) against the unsharded card run; a one-rank NCCL
    mesh; walls of ranks sharing one card, no throughput claim;
 16. evaluation.py: `run_suite` over a base checkpoint (a clone
-   row) and a custom-voice one (the tokenizer round trip over 4 synthetic
-   24 kHz wavs, a custom-voice row), each against the same run on the host;
-   the unavailable columns exactly the expected ones; `evaluate_tts_wer`
-   with an injected ASR, card against host;
+   row) and a custom-voice one (the tokenizer round trip over 2 synthetic
+   24 kHz wavs, a custom-voice row), each against the same run on the host,
+   the tokenizer's decoder scaled as the smoke's vocoders are; the audio
+   levels of every wav read, round trip and synthesis row; the unavailable
+   columns exactly the expected ones; `evaluate_tts_wer` with an injected
+   ASR, card against host;
 then the roofline of the custom-voice call (`utils/roofline.py`
 `decode_roofline` with the rate `shaped_bw` measured above) and each decode
 kernel's achievable floor beside its data-sheet bound; one JSON line with
@@ -1005,13 +1008,11 @@ def scaled_vocoder_params(dec_cfg, seed: int, device, scale: float = VOC_WEIGHT_
     """A 12 Hz vocoder's params drawn from `seed` on `device`, every weight
     matrix times `scale` (the codebooks and every vector kept): the smoke's
     vocoders, whose audio is not clamped (VOC_WEIGHT_SCALE)."""
-    from qwen3_tts_tpu_torch.utils.testing import random_vocoder_params
-    from qwen3_tts_tpu_torch.weights import map_tensors
+    from qwen3_tts_tpu_torch.utils.testing import random_vocoder_params, scale_weight_matrices
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    return {k: v if k == "_codebooks" else map_tensors(
-        v, lambda t: t * scale if t.ndim >= 2 else t)
-        for k, v in random_vocoder_params(dec_cfg, gen).items()}
+    return {k: v if k == "_codebooks" else scale_weight_matrices(v, scale)
+            for k, v in random_vocoder_params(dec_cfg, gen).items()}
 
 
 def smoke_vocoder(device):
@@ -3875,11 +3876,15 @@ def phase_sft_graphs(device, cfg=None) -> dict:
 # ---------------------------------------------------------------------------
 
 PAR_DIR = "build/parallel"
-PAR_FRAMES = 16               # (a): frames of the fp32 greedy generation
+# the phase runs TALKER_1B7's widths (the head counts tp=2 splits) at
+# PAR_LAYERS talker and code-predictor layers (28 and 5 took 155 s of the
+# smoke's 1200): every check below is per layer or per frame
+PAR_LAYERS = 2
+PAR_FRAMES = 8                # (a): frames of the fp32 greedy generation
 PAR_NEAR_TIE = 1e-3           # (a): a differing code passes only over a top-2 gap below this
 PAR_ICL_T, PAR_ICL_STARTS = 2304, (0, 211)   # (b): the bf16 ICL-length prefill
 PAR_HIDDEN_REL_TOL = 5e-2     # (b): its last hidden, tp=2 against unsharded (relative L2)
-PAR_SLOTS, PAR_REQUESTS, PAR_REQ_FRAMES = 8, 12, 10     # (c): the mesh engines
+PAR_SLOTS, PAR_REQUESTS, PAR_REQ_FRAMES = 4, 6, 6     # (c): the mesh engines (queued)
 PAR_SFT_LAYERS, PAR_SFT_REL_TOL = 2, 1e-4   # (d): full widths, 2 layers, fp32
 EVAL_DIR = "build/eval"
 # evaluation numbers, card against the host copy (fp32, TF32 off on both):
@@ -3889,7 +3894,13 @@ EVAL_DIR = "build/eval"
 # rho) dB, which is large where rho is small (a random tokenizer's output:
 # rho ~ 3e-3, -50 dB)
 EVAL_REL_TOL = 1e-3
-EVAL_WAVS, EVAL_WAV_S, EVAL_NEW_TOKENS = 4, 1.0, 16
+EVAL_WAVS, EVAL_WAV_S, EVAL_NEW_TOKENS = 2, 1.0, 8
+EVAL_LAYERS = 1               # the evaluation talker's layers, at TALKER_0B6's widths
+# the tokenizers the phase loads decode in chunks of this many frames: a
+# decode pads its codes to a whole chunk, and at the tokenizer's default 300
+# the phase's host half (inputs of <= 13 frames) took 61.1 s on an H100's
+# host, 8.6 s at 32
+EVAL_CHUNK_FRAMES = 32
 
 
 def _par_cfg(cfg, layers=None):
@@ -4096,8 +4107,9 @@ def _par_rank(rank, world, dp, tp, job):
         out["prefill"] = _par_prefill(params, cfg, device, mesh)
     out["engine"] = _par_engine(params, cfg, job["prompts"], device, mesh)
     del params
+    t0 = time.time()
     loss, grads = _par_sft(cfg, job["sft_batch"], job["sft_spk"], device, mesh)
-    out["sft_loss"] = loss
+    out["sft_loss"], out["sft_s"] = loss, time.time() - t0
     if rank == 0:
         path = os.path.join(PAR_DIR, f"grads_{dp}x{tp}.pt")
         torch.save({k: v.cpu() for k, v in grads.items()}, path)
@@ -4146,16 +4158,17 @@ def _first_difference(got, glen, want, wlen):
 
 def phase_parallel(device, cfg=None) -> dict:
     """The DP / TP plans on the one card: ranks that share it through
-    gloo (spawned processes, one FileStore), at TALKER_1B7's widths, fp32
-    params drawn on the host from the seed (a rank moves only its shard):
+    gloo (spawned processes, one FileStore), at TALKER_1B7's widths and
+    PAR_LAYERS layers, fp32 params drawn on the host from the seed (a rank
+    moves only its shard):
     (a) tp=2 greedy generation of the smoke's texts in fp32 against the
         unsharded eager run (a differing code passes only as a near-tie: the
         unsharded top-2 logit gap there is printed);
     (b) tp=2 bf16 prefill of an ICL-length batch: kernel 3 on each rank's
         8 query / 4 KV heads, held to its twin on layer 0's local heads; the
         last hidden against the unsharded bf16 prefill;
-    (c) a (1, 2) and a (2, 1) engine: 8 slots, 12 greedy requests, each
-        request's codes equal the unsharded engine's;
+    (c) a (1, 2) and a (2, 1) engine: PAR_SLOTS slots, PAR_REQUESTS greedy
+        requests, each request's codes equal the unsharded engine's;
     (d) one SFT step at tp=2 and at dp=2, full widths at 2 layers in fp32:
         the loss and every leaf's gradient against the unsharded card run;
     (e) a one-rank NCCL mesh runs (a) at dp = tp = 1.
@@ -4177,8 +4190,9 @@ def phase_parallel(device, cfg=None) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_t0 = time.time()
     os.makedirs(PAR_DIR, exist_ok=True)
-    cfg = cfg or TALKER_1B7
+    cfg = cfg or _par_cfg(TALKER_1B7, PAR_LAYERS)
     t0 = time.time()
     params = map_tensors(_par_host_params(cfg, SEED + 21), lambda t: t.to(device))
     load_s = time.time() - t0
@@ -4276,7 +4290,8 @@ def phase_parallel(device, cfg=None) -> dict:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     line("parallel", ranks="(1,2) and (2,1) at once, 4 processes sharing one card through gloo",
-         model="1.7B" if cfg == TALKER_1B7 else "cut",
+         model=(f"1.7B widths, {cfg.num_hidden_layers} layers"
+                if cfg == _par_cfg(TALKER_1B7, PAR_LAYERS) else "cut"),
          cut=f"sft {PAR_SFT_LAYERS} layers", fp32_tp2_frames=int(want_lens.max()),
          codes_equal=not gaps, near_tie_gaps=[f"{g:.2e}" for g in gaps],
          bf16_icl_T=PAR_ICL_T, last_hidden_rel=f"{hidden_rel:.3g}",
@@ -4291,21 +4306,34 @@ def phase_parallel(device, cfg=None) -> dict:
          nccl_gen_s=f"{nccl_wall:.2f}", rank_prefill_s_sharing=f"{tp_run[0]['prefill']['wall']:.2f}",
          unsharded_prefill_s=f"{pre['wall']:.2f}", rank_engine_s_sharing=
          f"{tp_run[0]['engine'][1]:.2f}", unsharded_engine_s=f"{engine_wall:.2f}",
-         rank_peak_gib=f"{max(r['gib'] for r in tp_run + dp_run):.2f}", host_load_s=f"{load_s:.1f}")
+         rank_sft_s_sharing=f"{tp_run[0]['sft_s']:.2f}",
+         rank_peak_gib=f"{max(r['gib'] for r in tp_run + dp_run):.2f}", host_load_s=f"{load_s:.1f}",
+         phase_s=f"{time.time() - phase_t0:.1f}")
     return dict(flash_launches=launches, hidden_rel=hidden_rel, flash_err=flash_err)
+
+
+def eval_tokenizer_checkpoint(codec):
+    """The evaluation checkpoints' 12 Hz tokenizer: (config.json dict, flat
+    numpy state dict) from SEED + 31, its decoder's weight matrices times
+    VOC_WEIGHT_SCALE as `scaled_vocoder_params` scales them, its vectors,
+    raw split-RVQ quantizer and encoder as drawn."""
+    from qwen3_tts_tpu_torch.utils.testing import codec12_tokenizer_checkpoint
+
+    return codec12_tokenizer_checkpoint(codec, SEED + 31, scale=VOC_WEIGHT_SCALE)
 
 
 def _eval_checkpoints(talker, codec):
     """A base and a custom-voice checkpoint sharing one talker (TALKER_0B6's
-    widths, 2 layers), a speaker encoder, a 12 Hz tokenizer at the default
-    widths and a greedy generation_config.json; 24 kHz wavs; a manifest for
-    each (a clone row for the base model, a custom-voice row for the other)."""
+    widths, EVAL_LAYERS layers), a speaker encoder, a 12 Hz tokenizer at the
+    default widths (its decoder's weight matrices times VOC_WEIGHT_SCALE, as
+    every smoke vocoder: the draw itself clamps its audio) and a greedy
+    generation_config.json; 24 kHz wavs; a manifest for each (a clone row
+    for the base model, a custom-voice row for the other)."""
     import os
 
     from qwen3_tts_tpu_torch.config import SpeakerEncoderConfig, TTSModelConfig
     from qwen3_tts_tpu_torch.utils.audio import write_wav
-    from qwen3_tts_tpu_torch.utils.testing import (codec12_tokenizer_checkpoint,
-                                                   random_talker_params, speaker_encoder_state)
+    from qwen3_tts_tpu_torch.utils.testing import random_talker_params, speaker_encoder_state
     from qwen3_tts_tpu_torch.weights import (flatten_state_dict, save_safetensors,
                                              talker_params_to_state_dict)
 
@@ -4314,7 +4342,7 @@ def _eval_checkpoints(talker, codec):
     spk_cfg = SpeakerEncoderConfig(enc_dim=tc.hidden_size)
     tok = os.path.abspath(os.path.join(EVAL_DIR, "speech_tokenizer"))
     os.makedirs(tok, exist_ok=True)
-    tok_json, tok_state = codec12_tokenizer_checkpoint(codec, SEED + 31)
+    tok_json, tok_state = eval_tokenizer_checkpoint(codec)
     save_safetensors(os.path.join(tok, "model.safetensors"), tok_state)
     with open(os.path.join(tok, "config.json"), "w") as f:
         json.dump(tok_json, f)
@@ -4355,6 +4383,63 @@ def _eval_checkpoints(talker, codec):
     return dirs, wav_dir
 
 
+@contextlib.contextmanager
+def _recorded_eval_audio(log: dict):
+    """Record into `log` (kind -> list of waveforms) every wav that
+    evaluation.py reads ("read"), each tokenizer round trip's output
+    ("round_trip") and each row a model synthesises ("synthesis")."""
+    from qwen3_tts_tpu_torch import evaluation
+    from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel
+
+    saved = [(evaluation, "_read_wav"), (evaluation, "reconstruction_report"),
+             (Qwen3TTSModel, "generate_custom_voice"), (Qwen3TTSModel, "generate_voice_clone")]
+    orig = [getattr(owner, name) for owner, name in saved]
+
+    def read_wav(path):
+        wav, sr = orig[0](path)
+        log.setdefault("read", []).append(wav)
+        return wav, sr
+
+    def report(ref, deg, *a, **kw):
+        log.setdefault("round_trip", []).append(np.asarray(deg))
+        return orig[1](ref, deg, *a, **kw)
+
+    def synthesis(fn):
+        def inner(self, *a, **kw):
+            wavs, sr = fn(self, *a, **kw)
+            log.setdefault("synthesis", []).extend(np.asarray(w) for w in wavs)
+            return wavs, sr
+        return inner
+
+    for (owner, name), fn in zip(saved, (read_wav, report, synthesis(orig[2]),
+                                         synthesis(orig[3]))):
+        setattr(owner, name, fn)
+    try:
+        yield
+    finally:
+        for (owner, name), fn in zip(saved, orig):
+            setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def _eval_chunk_frames(frames: int):
+    """Every 12 Hz tokenizer loaded inside decodes in chunks of `frames`."""
+    from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer
+
+    load = Qwen3TTSTokenizer.__dict__["from_pretrained"]
+
+    def chunked(cls, *a, **kw):
+        tok = load.__func__(cls, *a, **kw)
+        tok.chunk_size = frames
+        return tok
+
+    Qwen3TTSTokenizer.from_pretrained = classmethod(chunked)
+    try:
+        yield
+    finally:
+        Qwen3TTSTokenizer.from_pretrained = load
+
+
 def _eval_numbers(report) -> dict:
     return {(s, k): v for s, m in report["suites"].items() for k, v in m.items()}
 
@@ -4380,8 +4465,9 @@ def phase_evaluation(device, talker=None, codec=None) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.time()
-    dirs, wav_dir = _eval_checkpoints(talker or _par_cfg(TALKER_0B6, 2), codec or CodecV2Config())
+    t0 = phase_t0 = time.time()
+    dirs, wav_dir = _eval_checkpoints(talker or _par_cfg(TALKER_0B6, EVAL_LAYERS),
+                                      codec or CodecV2Config())
     write_s = time.time() - t0
 
     def args(kind, dev):
@@ -4392,11 +4478,13 @@ def phase_evaluation(device, talker=None, codec=None) -> dict:
             speaker=None, max_items=10, max_new_tokens=EVAL_NEW_TOKENS, out=None, device=dev)
 
     reports, walls = {}, {}
-    for dev in (str(device), "cpu"):
+    audio = {dev: {} for dev in (str(device), "cpu")}
+    for dev in audio:
         for kind in dirs:
             t0 = time.time()
-            reports[(kind, dev)] = evaluation.run_suite(args(kind, dev),
-                                                        processor=StandInTokenizer())
+            with _eval_chunk_frames(EVAL_CHUNK_FRAMES), _recorded_eval_audio(audio[dev]):
+                reports[(kind, dev)] = evaluation.run_suite(args(kind, dev),
+                                                            processor=StandInTokenizer())
             walls[(kind, dev)] = time.time() - t0
     errs = {}
     for kind in dirs:
@@ -4437,25 +4525,40 @@ def phase_evaluation(device, talker=None, codec=None) -> dict:
         return " ".join(words[:np.asarray(wav).shape[-1] // 1920 % (len(words) + 1)])
 
     wers = {}
-    for dev in (str(device), "cpu"):
-        m = Qwen3TTSModel.from_pretrained(dirs["custom_voice"], dtype=torch.float32, device=dev)
+    for dev in audio:
+        with _eval_chunk_frames(EVAL_CHUNK_FRAMES):
+            m = Qwen3TTSModel.from_pretrained(dirs["custom_voice"], dtype=torch.float32,
+                                              device=dev)
         m.processor = StandInTokenizer()
-        wers[dev] = evaluation.evaluate_tts_wer(m, [TEXTS[3], TEXTS[2]], asr, lang="en",
-                                                max_new_tokens=EVAL_NEW_TOKENS)
+        with _recorded_eval_audio(audio[dev]):
+            wers[dev] = evaluation.evaluate_tts_wer(m, [TEXTS[3], TEXTS[2]], asr, lang="en",
+                                                    max_new_tokens=EVAL_NEW_TOKENS)
         del m
     if wers[str(device)].per_utterance != wers["cpu"].per_utterance:
         raise AssertionError(f"evaluate_tts_wer: card {wers[str(device)]} host {wers['cpu']}")
+    # every wav read, round trip and synthesis row, one by one, on both
+    levels = {}
+    for dev, kinds in audio.items():
+        side = "host" if dev == "cpu" else "card"
+        for kind in ("read", "round_trip", "synthesis"):
+            if not kinds.get(kind):
+                raise AssertionError(f"evaluation: no {kind} audio recorded on {dev}")
+            rows = [unclamped(f"evaluation {kind} {i} on the {side}", audio_levels(w))
+                    for i, w in enumerate(kinds[kind])]
+            levels[f"{kind}_{side}_rms"] = [f"{r['audio_rms']:.4g}" for r in rows]
+            levels[f"{kind}_{side}_full_scale_share"] = [r["full_scale_share"] for r in rows]
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    line("evaluation", talker="0.6B widths, 2 layers" if talker is None else "cut",
+    line("evaluation", talker=f"0.6B widths, {EVAL_LAYERS} layers" if talker is None else "cut",
          codec="default widths" if codec is None else "cut",
          wavs=EVAL_WAVS, tokenizer_snr_db=nums[("tokenizer_roundtrip", "snr_db")],
          tokenizer_mcd_db=nums[("tokenizer_roundtrip", "mcd_db")],
          clone_speaker_sim=nums[("seed_tts", "speaker_sim")],
          worst_card_vs_host_of_bar=f"{'/'.join(map(str, worst))}:{errs[worst]:.3f}",
-         unavailable=unavailable, fake_asr_wer=f"{wers[str(device)].wer:.4f}",
+         unavailable=unavailable, fake_asr_wer=f"{wers[str(device)].wer:.4f}", **levels,
          write_s=f"{write_s:.1f}", card_s=f"{walls[('custom_voice', str(device))] + walls[('base', str(device))]:.1f}",
-         host_s=f"{walls[('custom_voice', 'cpu')] + walls[('base', 'cpu')]:.1f}")
+         host_s=f"{walls[('custom_voice', 'cpu')] + walls[('base', 'cpu')]:.1f}",
+         phase_s=f"{time.time() - phase_t0:.1f}")
     return {"errs": errs}
 
 

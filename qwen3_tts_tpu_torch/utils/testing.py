@@ -526,13 +526,25 @@ TALKER_1B7 = TalkerConfig(
 )
 
 
-def codec12_tokenizer_checkpoint(cfg: CodecV2Config, seed: int):
+def scale_weight_matrices(tree, scale: float):
+    """`tree` with every tensor of two or more dimensions times `scale` and
+    every vector as it was: the rule by which the smoke's random 12 Hz
+    vocoders are kept from clamping their audio."""
+    from ..weights import map_tensors
+
+    return map_tensors(tree, lambda t: t * scale if t.ndim >= 2 else t)
+
+
+def codec12_tokenizer_checkpoint(cfg: CodecV2Config, seed: int, scale: float = 1.0):
     """A 12 Hz tokenizer checkpoint directory's contents, random from a
     seed: (config.json dict, flat numpy state dict) with `encoder.*`
     (`mimi_encoder_state`) and `decoder.*` (`random_vocoder_params` drawn
-    on the CPU, its folded codebook table replaced by the raw split-RVQ
-    quantizer: cluster usage, embedding sums of codebook_dim / 2 and the
-    output projections, which both packages fold on load)."""
+    on the CPU, every weight matrix times `scale` and every vector as drawn,
+    its folded codebook table replaced by the raw split-RVQ quantizer:
+    cluster usage, embedding sums of codebook_dim / 2 and the output
+    projections, which both packages fold on load, unscaled). At the
+    default widths the unscaled draw clamps its audio to +-1; chip_smoke's
+    evaluation checkpoints pass its VOC_WEIGHT_SCALE."""
     import dataclasses
 
     from ..weights import flatten_state_dict
@@ -549,13 +561,33 @@ def codec12_tokenizer_checkpoint(cfg: CodecV2Config, seed: int):
                     "embedding_sum": _np_normal(rng, (dec.codebook_size, vq_dim), 1.0)}}
                     for i in range(n)}}}
 
-    raw = {k: v for k, v in random_vocoder_params(
+    raw = {k: scale_weight_matrices(v, scale) for k, v in random_vocoder_params(
         dec, torch.Generator().manual_seed(seed)).items() if k != "_codebooks"}
     raw["quantizer"] = {"rvq_first": rvq(1), "rvq_rest": rvq(dec.num_quantizers - 1)}
     state = {k: np.asarray(v) for k, v in flatten_state_dict(raw, "decoder").items()}
     state.update({k: np.asarray(v) for k, v in flatten_state_dict(
         mimi_encoder_state(cfg.encoder_config, seed + 1), "encoder").items()})
     return dataclasses.asdict(cfg), state
+
+
+# torch's intra-op threads in a CPU test module. The suite runs six pytest
+# workers on one host; at torch's default of one thread a core each, their
+# pools spun against each other and every file ran many times slower than
+# alone, while one thread or eight made no difference to a file run alone.
+TEST_TORCH_THREADS = 1
+
+
+def bounded_torch_threads():
+    """The body of each port test module's autouse, module-scoped fixture
+    (`pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)`):
+    torch runs TEST_TORCH_THREADS intra-op threads for the module, and the
+    count it found is restored after."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(TEST_TORCH_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 def _rank_main(fn, rank: int, world: int, tmp: str, threads: int, args: tuple) -> None:

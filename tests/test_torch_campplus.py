@@ -23,9 +23,11 @@ from qwen3_tts_tpu_torch.models.codec25.model import XVectorExtractor as TXVec
 from qwen3_tts_tpu_torch.utils import kaldi as tkaldi
 from qwen3_tts_tpu_torch.utils.onnx_weights import read_onnx_initializers as t_read_onnx
 from qwen3_tts_tpu_torch.utils.onnx_weights import write_onnx_initializers
-from qwen3_tts_tpu_torch.utils.testing import campplus_state
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads, campplus_state
 from qwen3_tts_tpu_torch.weights import save_safetensors
 from tests.test_campplus import TINY, _encode_model
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 TINY_KW = dict(feat_dim=TINY["feat_dim"], embedding_size=TINY["embedding_size"],
                growth_rate=TINY["growth_rate"], bn_size=TINY["bn_size"],

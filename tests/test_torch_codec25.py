@@ -41,10 +41,12 @@ from qwen3_tts_tpu_torch.models.codec25 import dit as tdit
 from qwen3_tts_tpu_torch.models.codec25 import encoder as tenc
 from qwen3_tts_tpu_torch.models.codec25 import mel as tmel
 from qwen3_tts_tpu_torch.models.codec25.campplus import CAMPPlusConfig
-from qwen3_tts_tpu_torch.utils.testing import campplus_state, codec_v1_state
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads, campplus_state, codec_v1_state
 from qwen3_tts_tpu_torch.weights import from_jax_tree, save_safetensors, unflatten_state_dict
 from tests.test_campplus import _encode_model
 from tests.test_codec25 import BIGVGAN_TINY, DIT_TINY, ENC_TINY
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 # the JAX tests' tiny widths with 80 mel bins and 192-d x-vectors: what an
 # encode returns (the reference mel, CAM++ at its released widths) is what

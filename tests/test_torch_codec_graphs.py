@@ -41,9 +41,12 @@ from qwen3_tts_tpu_torch.runtime import graphs
 from qwen3_tts_tpu_torch.runtime import server as tserver
 from qwen3_tts_tpu_torch.runtime import streaming as tstream
 from qwen3_tts_tpu_torch.runtime.server import AudioPacket, AudioResult, TTSServer
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_torch_pipeline import DEC_CFG, _models, checkpoint  # noqa: F401
 from tests.test_torch_serving import REQ_TEXTS, _prompts, _requests
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 FLOAT_TOL = dict(atol=1e-5, rtol=0)
 Q = DEC_CFG.num_quantizers

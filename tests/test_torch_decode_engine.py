@@ -43,8 +43,11 @@ from qwen3_tts_tpu_torch.ops.cuda import build
 from qwen3_tts_tpu_torch.ops.cuda import subtalker as tsub
 from qwen3_tts_tpu_torch.ops.cuda import talker_step as tstep
 from qwen3_tts_tpu_torch.ops.sampling import SamplingParams
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_torch_talker_step import CFG, TOL, _slot, _state
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 SLIDING = dataclasses.replace(CFG, sliding_window=300)
 S_BUF = 1024            # eight 128-slot chunks: up to eight runs

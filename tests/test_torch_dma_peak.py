@@ -24,6 +24,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from qwen3_tts_tpu_torch.ops.cuda import dma_peak as tdp
 from qwen3_tts_tpu_torch.utils import dma_peak as udp
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(L=2, B=2, Hkv=2, Sc=8, S_buf=16, D=128, Wr=16, H=256)

@@ -33,10 +33,13 @@ from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer as TTok
 from qwen3_tts_tpu_torch.models.codec12 import encoder as tenc
 from qwen3_tts_tpu_torch.models import speaker_encoder as tspk
 from qwen3_tts_tpu_torch.ops.stft import mel_spectrogram as t_mel
-from qwen3_tts_tpu_torch.utils.testing import mimi_encoder_state, speaker_encoder_state
+from qwen3_tts_tpu_torch.utils.testing import (bounded_torch_threads, mimi_encoder_state,
+                                               speaker_encoder_state)
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_codec12_decoder import TINY as DEC_TINY
 from tests.test_codec12_encoder import TINY as ENC_TINY
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 SPK_TINY = dict(mel_dim=128, enc_dim=32, enc_channels=[16, 16, 16, 16, 48],
                 enc_kernel_sizes=[5, 3, 3, 3, 1], enc_dilations=[1, 2, 3, 4, 1],

@@ -31,7 +31,10 @@ import jax.numpy as jnp
 
 from qwen3_tts_tpu import evaluation as jev
 from qwen3_tts_tpu_torch import evaluation as tev
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from tests.test_torch_pipeline import FakeTokenizer, _models, checkpoint  # noqa: F401
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 
 def _signals(n_ref=24000, n_deg=23500, seed=0):

@@ -50,12 +50,14 @@ from qwen3_tts_tpu_torch.finetune import sft as tsft
 from qwen3_tts_tpu_torch.finetune import train as ttrain
 from qwen3_tts_tpu_torch.inference import model as tmodel
 from qwen3_tts_tpu_torch.utils.audio import write_wav
-from qwen3_tts_tpu_torch.utils.testing import speaker_encoder_state
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads, speaker_encoder_state
 from qwen3_tts_tpu_torch.weights import (flatten_state_dict, from_jax_tree,
                                          read_safetensors, save_safetensors,
                                          talker_params_to_state_dict)
 from tests.test_pipeline_parity import MODEL_TINY
 from tests.test_torch_pipeline import FakeTokenizer
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 Q = MODEL_TINY["talker_config"]["num_code_groups"]
 # the talker's cache-free training route against a prefill into a zero cache

@@ -11,6 +11,9 @@ import pytest
 from qwen3_tts_tpu.utils import flac as jflac
 from qwen3_tts_tpu_torch.utils import flac as tflac
 from qwen3_tts_tpu_torch.utils import native
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 
 def _audio(channels, n=5000, seed=0):

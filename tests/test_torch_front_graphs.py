@@ -38,9 +38,11 @@ from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer as TTok
 from qwen3_tts_tpu_torch.models import speaker_encoder as tspk
 from qwen3_tts_tpu_torch.ops import stft
 from qwen3_tts_tpu_torch.runtime import graphs
-from qwen3_tts_tpu_torch.utils.testing import speaker_encoder_state
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads, speaker_encoder_state
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_torch_encoders import SPK_TINY, _encoders
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 
 class _FakeGraph:

@@ -34,8 +34,11 @@ from qwen3_tts_tpu_torch.cli import demo
 from qwen3_tts_tpu_torch.inference.processor import Qwen3TTSProcessor
 from qwen3_tts_tpu_torch.runtime import graphs
 from qwen3_tts_tpu_torch.runtime.server import ThreadedTTSServer, TTSServer
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from tests.test_gradio_ui import _Blocks, gradio_stub  # noqa: F401
 from tests.test_torch_pipeline import _models, checkpoint  # noqa: F401
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 GREEDY = dict(do_sample=False, subtalker_dosample=False)
 M = 8   # max_new_tokens

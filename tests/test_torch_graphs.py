@@ -31,9 +31,12 @@ from qwen3_tts_tpu_torch.ops.cuda import build
 from qwen3_tts_tpu_torch.ops.sampling import SamplingParams as TS
 from qwen3_tts_tpu_torch.runtime import generate as tgen
 from qwen3_tts_tpu_torch.runtime import graphs
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_pipeline_parity import MODEL_TINY
 from tests.test_torch_pipeline import TEXTS, _models, checkpoint  # noqa: F401
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 HIDDEN_TOL = dict(rtol=1e-4, atol=1e-4)
 M = 12   # max_new_tokens

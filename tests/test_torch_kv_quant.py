@@ -33,10 +33,13 @@ from qwen3_tts_tpu.weights import quantize_talker_params
 from qwen3_tts_tpu_torch.models import talker as ttalker
 from qwen3_tts_tpu_torch.ops import attention as tattn
 from qwen3_tts_tpu_torch.ops.cuda import talker_step as tstep
-from qwen3_tts_tpu_torch.utils.testing import kv_quantizer_probe, kv_quantizer_traps
+from qwen3_tts_tpu_torch.utils.testing import (bounded_torch_threads, kv_quantizer_probe,
+                                               kv_quantizer_traps)
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_torch_pipeline import GREEDY, TEXTS, _models, checkpoint  # noqa: F401
 from tests.test_torch_talker_step import CFG, TOL, _slot
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 SLIDING = dataclasses.replace(CFG, sliding_window=40)
 

@@ -23,6 +23,9 @@ from qwen3_tts_tpu_torch.ops import conv as tconv
 from qwen3_tts_tpu_torch.ops import norms as tnorms
 from qwen3_tts_tpu_torch.ops import rope as trope
 from qwen3_tts_tpu_torch.ops import sampling as tsamp
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

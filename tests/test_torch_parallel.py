@@ -42,7 +42,9 @@ import pytest
 import torch
 
 from qwen3_tts_tpu_torch.parallel import mesh as tmesh
-from qwen3_tts_tpu_torch.utils.testing import spawn_ranks
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads, spawn_ranks
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 M = 12   # max_new_tokens of the generation checks
 

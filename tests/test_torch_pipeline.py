@@ -34,9 +34,12 @@ from qwen3_tts_tpu_torch.inference.model import Qwen3TTSModel as TModel
 from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer as TTok
 from qwen3_tts_tpu_torch.models import talker as ttalker
 from qwen3_tts_tpu_torch.models.codec12 import decoder as tdec
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_codec12_decoder import TINY as DEC_TINY
 from tests.test_pipeline_parity import MODEL_TINY
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 TEXTS = ["hello world", "a second, longer sample"]
 DEC_CFG = CodecV2DecoderConfig(**DEC_TINY)

@@ -33,9 +33,12 @@ from qwen3_tts_tpu.ops.pallas.prefill_attention import flash_prefill as j_flash
 from qwen3_tts_tpu.utils.testing import random_talker_params
 from qwen3_tts_tpu_torch.models import talker as ttalker
 from qwen3_tts_tpu_torch.ops.cuda import prefill_attention as tpa
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_torch_prefill_route import open_flash_route
 from tests.test_torch_weights import TINY
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 CASES = {
     # B, T, Hq, Hkv, D, starts, window, dtype, (block_q, block_k), tol

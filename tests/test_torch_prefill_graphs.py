@@ -54,11 +54,13 @@ from qwen3_tts_tpu_torch.runtime import batching as tbatch
 from qwen3_tts_tpu_torch.runtime import generate as tgen
 from qwen3_tts_tpu_torch.runtime import graphs
 from qwen3_tts_tpu_torch.runtime.prompts import assemble_prompt_specs as t_assemble
-from qwen3_tts_tpu_torch.utils.testing import TALKER_0B6, TALKER_1B7
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads, TALKER_0B6, TALKER_1B7
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_torch_pipeline import TEXTS, _models, checkpoint  # noqa: F401
 from tests.test_torch_prefill_route import open_flash_route
 from tests.test_torch_serving import _greedy, _prompts, _requests
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 STATE_TOL = dict(rtol=1e-4, atol=1e-4)
 PROMPT_TOL = dict(rtol=1e-6, atol=1e-6)   # fp32 rows of a projection

@@ -38,8 +38,11 @@ from qwen3_tts_tpu.models import talker as jtalker
 from qwen3_tts_tpu.utils.testing import random_talker_params
 from qwen3_tts_tpu_torch.models import talker as ttalker
 from qwen3_tts_tpu_torch.ops.cuda import prefill_attention as tpa
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_torch_weights import TINY
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 FP32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_FLASH_REL_L2 = 5e-2

@@ -6,10 +6,14 @@ Chrome trace on the CPU in which `annotate` regions nest."""
 import json
 
 import numpy as np
+import pytest
 import torch
 
 from qwen3_tts_tpu.utils import profiling as jprof
 from qwen3_tts_tpu_torch.utils import profiling as tprof
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 
 def test_stage_timers_match_jax():

@@ -12,8 +12,11 @@ from qwen3_tts_tpu.utils import roofline as jroof
 from qwen3_tts_tpu.utils.testing import TALKER_1B7 as J1B7
 from qwen3_tts_tpu_torch import config as tconfig
 from qwen3_tts_tpu_torch.utils import roofline as troof
-from qwen3_tts_tpu_torch.utils.testing import TALKER_1B7 as T1B7, random_talker_params
+from qwen3_tts_tpu_torch.utils.testing import (bounded_torch_threads, random_talker_params,
+                                               TALKER_1B7 as T1B7)
 from qwen3_tts_tpu_torch.weights import quantize_talker_params
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 ENV = ("BENCH_PEAK_BF16_TFLOPS", "BENCH_PEAK_INT8_TOPS", "BENCH_HBM_GBPS",
        "BENCH_ACHIEVABLE_GBPS")

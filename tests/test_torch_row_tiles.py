@@ -36,8 +36,11 @@ from qwen3_tts_tpu_torch.ops.cuda import subtalker as tsub
 from qwen3_tts_tpu_torch.ops.cuda import talker_step as tstep
 from qwen3_tts_tpu_torch.ops.sampling import SamplingParams
 from qwen3_tts_tpu_torch.utils import testing as ttesting
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_torch_talker_step import CFG, _state
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 B, MAX_ROWS = 10, 4
 

@@ -31,10 +31,13 @@ from qwen3_tts_tpu_torch.ops.sampling import SamplingParams as TS
 from qwen3_tts_tpu_torch.runtime import batching as tbatch
 from qwen3_tts_tpu_torch.runtime import generate as tgen
 from qwen3_tts_tpu_torch.runtime.server import AudioPacket, AudioResult, TTSServer
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests import test_torch_voice_clone as clone
 from tests.test_torch_pipeline import _models, checkpoint  # noqa: F401
 from tests.test_torch_voice_clone import ckpt  # noqa: F401
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 REQ_TEXTS = ["first sample text", "the second one", "and request three",
              "a fourth, longer request", "five"]

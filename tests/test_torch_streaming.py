@@ -25,10 +25,13 @@ from qwen3_tts_tpu.runtime.prompts import assemble_prompt_specs
 from qwen3_tts_tpu_torch.ops.sampling import SamplingParams as TS
 from qwen3_tts_tpu_torch.runtime import generate as tgen
 from qwen3_tts_tpu_torch.runtime import streaming as tstream
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests import test_torch_voice_clone as clone
 from tests.test_torch_voice_clone import ckpt  # noqa: F401
 from tests.test_torch_pipeline import TEXTS, _models, checkpoint  # noqa: F401
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 SMALL = dict(warmup_schedule=(2, 3), steady_chunk=4, vocoder_left_context=3)
 WAV_TOL = dict(atol=1e-4, rtol=0)

@@ -20,7 +20,10 @@ from qwen3_tts_tpu.ops.pallas import talker_step as jstep
 from qwen3_tts_tpu.utils.testing import random_talker_params
 from qwen3_tts_tpu.weights import quantize_talker_params
 from qwen3_tts_tpu_torch.ops.cuda import talker_step as tstep
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
 from qwen3_tts_tpu_torch.weights import from_jax_tree
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 CFG = TalkerConfig(
     vocab_size=256, hidden_size=96, intermediate_size=128,

@@ -38,9 +38,11 @@ from qwen3_tts_tpu_torch.config import TTSModelConfig
 from qwen3_tts_tpu_torch.finetune import data as tdata
 from qwen3_tts_tpu_torch.finetune import train as ttrain
 from qwen3_tts_tpu_torch.runtime import graphs
-from qwen3_tts_tpu_torch.utils.testing import random_talker_params
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads, random_talker_params
 from qwen3_tts_tpu_torch.weights import flatten_state_dict
 from tests.test_pipeline_parity import MODEL_TINY
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 CFG = TTSModelConfig.from_dict(MODEL_TINY)
 TC = CFG.talker_config

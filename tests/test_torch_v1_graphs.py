@@ -50,12 +50,14 @@ from qwen3_tts_tpu_torch.models.codec25 import encoder as tenc
 from qwen3_tts_tpu_torch.models.codec25 import mel as tmel
 from qwen3_tts_tpu_torch.ops import stft
 from qwen3_tts_tpu_torch.runtime import graphs
-from qwen3_tts_tpu_torch.utils.testing import campplus_state
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads, campplus_state
 from qwen3_tts_tpu_torch.weights import save_safetensors
 from tests.test_torch_campplus import TINY_KW
 from tests.test_torch_codec25 import (BIGVGAN_CFG, DIT_CFG, ENC_TINY, TOK_JSON,  # noqa: F401
                                       _dit_inputs, rel_l2, state)
 from tests.test_torch_front_graphs import fake_front  # noqa: F401
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 DIT = DiTConfig.from_dict(DIT_CFG)
 V1_OWNERS = ("dit_step", "campplus")

@@ -39,12 +39,15 @@ from qwen3_tts_tpu_torch.inference import model as tmodel
 from qwen3_tts_tpu_torch.inference.tokenizer import Qwen3TTSTokenizer as TTok
 from qwen3_tts_tpu_torch.models.codec12 import encoder as tenc
 from qwen3_tts_tpu_torch.ops.cuda import prefill_attention as tpa
-from qwen3_tts_tpu_torch.utils.testing import mimi_encoder_state, speaker_encoder_state
+from qwen3_tts_tpu_torch.utils.testing import (bounded_torch_threads, mimi_encoder_state,
+                                               speaker_encoder_state)
 from qwen3_tts_tpu_torch.weights import from_jax_tree
 from tests.test_codec12_encoder import TINY as ENC_TINY
 from tests.test_pipeline_parity import MODEL_TINY
 from tests.test_torch_pipeline import DEC_CFG, FakeTokenizer
 from tests.test_torch_prefill_route import open_flash_route
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 GREEDY = dict(do_sample=False, subtalker_dosample=False, max_new_tokens=10)
 CODEC_KW = dict(encoder_valid_num_quantizers=4, input_sample_rate=1000,

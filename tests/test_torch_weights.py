@@ -17,6 +17,9 @@ from qwen3_tts_tpu import weights as jw
 from qwen3_tts_tpu.config import CodePredictorConfig, TalkerConfig
 from qwen3_tts_tpu.utils.testing import random_talker_params
 from qwen3_tts_tpu_torch import weights as tw
+from qwen3_tts_tpu_torch.utils.testing import bounded_torch_threads
+
+_threads = pytest.fixture(autouse=True, scope="module")(bounded_torch_threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
