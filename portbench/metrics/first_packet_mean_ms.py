@@ -1,0 +1,11 @@
+"""The mean over every request submitted inside the window of the time from
+its submit call to its first audio packet (host clock). A request with no
+first packet counts with the time until the harness stopped waiting for
+it."""
+
+from portbench.harness import first_packet_ms
+
+
+def read(run):
+    lat = first_packet_ms(run)
+    return sum(lat) / len(lat) if lat else None
