@@ -109,6 +109,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
    equal, no capture on either card), else a line saying it did not run;
    requests/s, audio s per wall s, first packet p50 / p95 and the serving
    card's busy share (torch.profiler) of each;
+   `serve_trace`: the serving path's tracing (`utils/profiling.py`) on a
+   warmed server of 8 slots serving 16 streams with `trace_enabled` under
+   torch.profiler: each device span's milliseconds positive and together
+   no more than the wall, a `server.step` span within 1 ms of the
+   `record_function` range around it in the profiler's trace (one clock),
+   no span's name among the trace's device operations; the spans' share
+   of the card's busy time and the benchmark's per-layer figures;
 8. the clone model (the same talker as a base model, the speaker encoder at
    the released widths, the default-width Mimi encoder): a 10 s reference
    clip's codes and speaker embedding on the card against the host twins;
@@ -1970,6 +1977,96 @@ def phase_server_warmup(model) -> dict:
         unclamped(f"server_warmup {name}", r["levels"])
     line("server_warmup split", **split_fields(warm["wall"], warm["split"]))
     return {"warm": warm, "cold": cold}
+
+
+# the serving path's device spans (`utils/profiling.py`), and the tracing
+# phase's mix: streamed requests, twice the smoke server's slots
+DEVICE_SPANS = ("engine.stage", "engine.chunk", "server.vocode", "server.fast_first")
+TRACE_REQUESTS = 16
+TRACE_CLOCK_TOL_S = 1e-3
+
+
+def phase_serve_trace(model) -> dict:
+    """The serving path's tracing on the card: a warmed TTSServer at the
+    smoke's serving configuration, `engine.trace_enabled` on, serves
+    TRACE_REQUESTS streamed requests under torch.profiler. Every device
+    span's counter (`DEVICE_SPANS`) must be positive and their sum no
+    larger than the mix's wall; the `server.step` span of the mix's first
+    step, run inside a `record_function` range, must start and end within
+    TRACE_CLOCK_TOL_S of that range's event in the profiler's trace (the
+    spans' clock is the profiler's); no device operation of the trace may
+    carry a span's name (the serving path adds no profiler ranges). Printed:
+    the spans' device ms against the card's busy time in the trace, and
+    the benchmark's per-layer figures read from the phase's counters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from qwen3_tts_tpu_torch.runtime.server import AudioPacket, TTSServer
+    from qwen3_tts_tpu_torch.utils.metrics import MetricsRegistry
+
+    srv = TTSServer(model, num_slots=SERVE_SLOTS, overrides=SERVE_OVERRIDES,
+                    max_new_tokens=MAX_NEW_TOKENS, seed=SEED, metrics=MetricsRegistry())
+    srv.warmup()
+    srv.engine.trace_enabled = True
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):      # CUPTI's start-up, outside the mix
+        pass
+    torch.cuda.synchronize()
+    probe = "smoke.trace_probe"
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        for i in range(TRACE_REQUESTS):
+            srv.submit_custom_voice(f"t{i}", text=f"{TEXTS[i % len(TEXTS)]} Request {i}.",
+                                    speaker="vivian", language="english", stream=True)
+        with record_function(probe):
+            events = srv.step()
+        while srv.busy:
+            events += srv.step()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    srv.tracer.resolve()
+    counters = srv.metrics.snapshot()["counters"]
+    spans = srv.trace_spans()
+    device_ms = {n: counters.get(f"{n}.device_ms", 0.0) for n in DEVICE_SPANS}
+    if min(device_ms.values()) <= 0 or sum(device_ms.values()) > wall * 1e3:
+        raise AssertionError(f"serve_trace: device spans {device_ms} ms, wall {wall:.3f} s")
+    kineto = prof.profiler.kineto_results.events()
+    (ev,) = [e for e in kineto if e.name() == probe and e.device_type() == DeviceType.CPU]
+    step = min((s for s in spans if s.name == "server.step"), key=lambda s: s.start)
+    a = ev.start_ns() * 1e-9
+    off = (step.start - a, step.end - (a + ev.duration_ns() * 1e-9))
+    if max(abs(o) for o in off) > TRACE_CLOCK_TOL_S:
+        raise AssertionError(f"serve_trace: server.step span {step} against the profiler's "
+                             f"range [{a}, +{ev.duration_ns()} ns]: offsets {off} s")
+    names = {s.name for s in spans}
+    dev = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in kineto
+           if e.device_type() == DeviceType.CUDA and e.name() != probe]
+    if any(e.name() in names for e in kineto if e.device_type() == DeviceType.CUDA):
+        raise AssertionError(f"serve_trace: a span's name on the device timeline: {names}")
+    busy, end = 0, None
+    for x, y in sorted(dev):
+        if end is None or y > end:
+            busy += y - (x if end is None else max(x, end))
+            end = y
+    c = counters
+    audio_s = sum(e.frame_count for e in events if isinstance(e, AudioPacket)) * srv.up \
+        / srv.sample_rate
+    host_ms = c["server.step.host_ms"] + c["server.submit.host_ms"] - sum(
+        c.get(f"{w}.host_ms", 0.0)
+        for w in ("server.fast_first_wait", "engine.aux_wait", "server.egress_wait"))
+    vocoder_ms = device_ms["server.vocode"] + device_ms["server.fast_first"]
+    frames_ratio = c["server.vocode_frames_computed"] / c["server.vocode_frames_delivered"]
+    line("serve_trace", requests=TRACE_REQUESTS, wall_s=f"{wall:.3f}",
+         **{f"{n}_device_ms": f"{v:.3f}" for n, v in device_ms.items()},
+         busy_s=f"{busy * 1e-9:.3f}",
+         spans_over_busy=f"{sum(device_ms.values()) / (busy * 1e-6):.4f}",
+         clock_offsets_ms=f"{off[0] * 1e3:.3f},{off[1] * 1e3:.3f}", host_spans=len(spans),
+         tick_device_ms=f"{device_ms['engine.chunk'] / c['engine.ticks']:.3f}",
+         stage_device_ms=f"{device_ms['engine.stage'] / c['engine.staged_rows']:.3f}",
+         vocoder_ms_per_audio_s=f"{vocoder_ms / audio_s:.3f}",
+         vocoder_frames_per_frame=f"{frames_ratio:.3f}",
+         host_step_busy_pct=f"{100 * host_ms / (wall * 1e3):.2f}", card=card())
+    return {"device_ms": device_ms, "wall": wall, "offsets": off}
 
 
 def busy_share(prof, index: int, wall_s: float) -> float:
@@ -4631,6 +4728,7 @@ def run(cfg, device) -> list:
     phase_serve_routes(model)
     phase_serve_wide(model)
     phase_server_warmup(model)
+    phase_serve_trace(model)
     phase_graph_memory(model, stream_ab["codes"])
     phase_warmup(model)
     phase_http(model)

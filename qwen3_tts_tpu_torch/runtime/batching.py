@@ -23,6 +23,17 @@
 - The host scheduler (`ContinuousBatchingEngine`) batches requests into
   staging calls, sizes chunks, syncs each chunk's aux one chunk behind and
   attributes frames to request ids.
+- Tracing (`trace_enabled`, off by default: the one switch): per-request
+  stamps on `utils/profiling.py::clock` (`trace`: submit, staged,
+  first_frame; the server adds first_packet) and the engine's spans in its
+  `tracer`: host spans `engine.stage` (a staging batch's host work and its
+  replay's dispatch), `engine.launch` (a chunk's replays and its aux
+  copy's enqueue), `engine.aux_wait` (the aux copy's event sync) and
+  `engine.attribute` (the rest of an aux sync), and device spans
+  `engine.stage` (a staging replay) and `engine.chunk` (a chunk's tick
+  replays). Work counters, always on: `engine.ticks`, `engine.frames`,
+  `engine.staged_rows` and `engine.staged_rows_padded` (the rows of each
+  staging call before and after its power-of-two padding), among others.
 
 - `mesh=` (`parallel/mesh.py`): one engine spanning the ranks of a
   ("dp", "tp") mesh, in SPMD: every rank runs the same host scheduler over
@@ -70,6 +81,8 @@ from ..ops.cuda.talker_step import KV_CHUNK
 from ..ops.rope import default_inv_freq, rope_tables
 from ..ops.sampling import SamplingParams, process_and_sample_rows
 from ..parallel.mesh import Mesh, all_reduce
+from ..utils import profiling
+from ..utils.metrics import global_metrics
 from ..weights import is_int8
 from . import graphs
 from .generate import (ATTEND_BUCKET, GenerationConfig, attend_bucket_for, check_mesh_route,
@@ -567,14 +580,31 @@ class ContinuousBatchingEngine:
         # streaming egress hook: frame_sink(request_id, frames (k, Q)) with
         # newly attributed frames, in order, at each aux sync
         self.frame_sink = None
-        # per-request host timestamps (submit, staged, first_frame, ...)
-        self.trace_enabled = False
-        self.trace: Dict[int, Dict[str, float]] = {}
-        from ..utils.metrics import global_metrics
         self.metrics = metrics if metrics is not None else global_metrics()
+        # the serving path's spans (`trace_enabled` switches them) and the
+        # per-request stamps (submit, staged, first_frame, ...) of requests
+        # submitted while it is on
+        self.tracer = profiling.Tracer(self.metrics)
+        self.trace: Dict[int, Dict[str, float]] = {}
         # the one-tick serve graphs over self.state (a CUDA device)
         self._graphs = (graphs.ServeGraphs(self)
                         if graphs.enabled(self.device) and mesh is None else None)
+
+    @property
+    def trace_enabled(self) -> bool:
+        """The switch of the per-request stamps and of `tracer`'s spans."""
+        return self.tracer.enabled
+
+    @trace_enabled.setter
+    def trace_enabled(self, on: bool) -> None:
+        self.tracer.enabled = bool(on)
+
+    def stamp(self, rid: int, key: str, now: float) -> None:
+        """Stamp `key` of a request stamped at its submit, once; a request
+        submitted while the switch was off gets no stamps."""
+        entry = self.trace.get(rid)
+        if entry is not None:
+            entry.setdefault(key, now)
 
     def submit(self, req: Request) -> None:
         self.metrics.count("engine.submits")
@@ -621,7 +651,7 @@ class ContinuousBatchingEngine:
                 raise ValueError(f"request sub-talker top_k={ssp.top_k} exceeds the "
                                  f"engine's candidate width top_k={Ks}")
         if self.trace_enabled:
-            self.trace[req.request_id] = {"submit": _time.time()}
+            self.trace[req.request_id] = {"submit": profiling.clock()}
         self.pending.append((req.request_id, e, m, tr,
                              min(req.trailing_len, self.max_trailing), mf,
                              sp.as_row(), ssp.as_row()))
@@ -634,15 +664,18 @@ class ContinuousBatchingEngine:
         n = len(self.pending)
         self.pending = deque(p for p in self.pending if p[0] != request_id)
         if len(self.pending) < n:
+            self.trace.pop(request_id, None)
             self.metrics.count("engine.cancels")
             return True
         if request_id in self._instant_ids:
             self._instant = [c for c in self._instant if c.request_id != request_id]
             self._instant_ids.discard(request_id)
+            self.trace.pop(request_id, None)
             self.metrics.count("engine.cancels")
             return True
         if request_id not in self.frames_acc:
             return False
+        self.trace.pop(request_id, None)
         self.frames_acc.pop(request_id, None)
         self.req_max_frames.pop(request_id, None)
         self._staged_stamp.pop(request_id, None)
@@ -672,36 +705,39 @@ class ContinuousBatchingEngine:
         n = min(len(self.pending), len(free_rows), 16)
         if n == 0:
             return 0
-        Nb = 1 << (n - 1).bit_length()
-        if self._zero_rows is None:
-            Lp, H, Tt = self.prefill_bucket, self.cfg.hidden_size, self.max_trailing
-            self._zero_rows = (torch.zeros((Lp, H), dtype=self.dtype, device=self.device),
-                               torch.zeros((Lp,), dtype=torch.int32),
-                               torch.zeros((Tt, H), dtype=self.dtype, device=self.device))
-        embeds_rows, mask_rows, trailing_rows = [], [], []
-        meta = np.zeros((Nb, 5), np.int32)
-        srows = np.zeros((Nb, 5), np.float32)
-        ssrows = np.zeros((Nb, 5), np.float32)
-        now = _time.time() if self.trace_enabled else 0.0
-        for i in range(Nb):
-            if i < n:
-                rid, e, m, tr, tlen, mf, srow, ssrow = self.pending.popleft()
-                meta[i] = (rid, mf, tlen, free_rows[i], 1)
-                srows[i], ssrows[i] = srow, ssrow
-                self.frames_acc[rid] = []
-                self.req_max_frames[rid] = mf
-                self.staged_rows_busy[free_rows[i]] = rid
-                self._staged_stamp[rid] = self._chunks_launched
-                if self.trace_enabled:
-                    self.trace.setdefault(rid, {})["staged"] = now
-            else:
-                e, m, tr = self._zero_rows
-                meta[i] = (-1, 0, 0, 0, 0)
-            embeds_rows.append(e)
-            mask_rows.append(m)
-            trailing_rows.append(tr)
-        self._stage(embeds_rows, mask_rows, trailing_rows, meta, self._tts_pad_dev, srows,
-                    ssrows)
+        with self.tracer.span("engine.stage"):
+            Nb = 1 << (n - 1).bit_length()
+            self.metrics.count("engine.staged_rows", n)
+            self.metrics.count("engine.staged_rows_padded", Nb)
+            if self._zero_rows is None:
+                Lp, H, Tt = self.prefill_bucket, self.cfg.hidden_size, self.max_trailing
+                self._zero_rows = (torch.zeros((Lp, H), dtype=self.dtype, device=self.device),
+                                   torch.zeros((Lp,), dtype=torch.int32),
+                                   torch.zeros((Tt, H), dtype=self.dtype, device=self.device))
+            embeds_rows, mask_rows, trailing_rows = [], [], []
+            meta = np.zeros((Nb, 5), np.int32)
+            srows = np.zeros((Nb, 5), np.float32)
+            ssrows = np.zeros((Nb, 5), np.float32)
+            now = profiling.clock() if self.trace_enabled else 0.0
+            for i in range(Nb):
+                if i < n:
+                    rid, e, m, tr, tlen, mf, srow, ssrow = self.pending.popleft()
+                    meta[i] = (rid, mf, tlen, free_rows[i], 1)
+                    srows[i], ssrows[i] = srow, ssrow
+                    self.frames_acc[rid] = []
+                    self.req_max_frames[rid] = mf
+                    self.staged_rows_busy[free_rows[i]] = rid
+                    self._staged_stamp[rid] = self._chunks_launched
+                    if self.trace_enabled:
+                        self.stamp(rid, "staged", now)
+                else:
+                    e, m, tr = self._zero_rows
+                    meta[i] = (-1, 0, 0, 0, 0)
+                embeds_rows.append(e)
+                mask_rows.append(m)
+                trailing_rows.append(tr)
+            self._stage(embeds_rows, mask_rows, trailing_rows, meta, self._tts_pad_dev, srows,
+                        ssrows)
         return n
 
     def _stage(self, embeds_rows, mask_rows, trailing_rows, meta: np.ndarray, tts_pad,
@@ -711,8 +747,9 @@ class ContinuousBatchingEngine:
         `stage_requests` eagerly."""
         with torch.no_grad():
             if self._graphs is not None:
-                self._graphs.stage(embeds_rows, mask_rows, trailing_rows, meta, tts_pad,
-                                   srows, ssrows, self.generator)
+                with self.tracer.device_span("engine.stage", self.device):
+                    self._graphs.stage(embeds_rows, mask_rows, trailing_rows, meta, tts_pad,
+                                       srows, ssrows, self.generator)
                 return
             stage_requests(self.params, self.cfg, self.state, self.gen_cfg,
                            torch.stack(embeds_rows), torch.stack(mask_rows),
@@ -785,35 +822,35 @@ class ContinuousBatchingEngine:
         """Run one serve chunk and queue its aux; the host copy is
         enqueued behind the chunk (pinned, non-blocking) so it overlaps the
         next chunk's launches."""
-        ticks = self._next_ticks()
-        # the attend bucket must cover the furthest live slot by chunk end;
-        # liveness is stale by the ticks in flight, so over-cover
-        max_idx = self.prefill_bucket + self.max_live_t + self._ticks_in_flight
-        attend = attend_bucket_for(max_idx + ticks + 1, self.max_len)
-        install = self.installs_per_tick != 0 and bool(self.staged_rows_busy)
-        with torch.no_grad():
-            if self._graphs is not None:
-                aux = self._graphs.chunk(ticks, attend, install, self.generator)
+        with self.tracer.span("engine.launch"):
+            ticks = self._next_ticks()
+            # the attend bucket must cover the furthest live slot by chunk end;
+            # liveness is stale by the ticks in flight, so over-cover
+            max_idx = self.prefill_bucket + self.max_live_t + self._ticks_in_flight
+            attend = attend_bucket_for(max_idx + ticks + 1, self.max_len)
+            install = self.installs_per_tick != 0 and bool(self.staged_rows_busy)
+            with torch.no_grad():
+                if self._graphs is not None:
+                    with self.tracer.device_span("engine.chunk", self.device):
+                        aux = self._graphs.chunk(ticks, attend, install, self.generator)
+                else:
+                    aux = serve_chunk(self.params, self.cfg, self.state, self.gen_cfg,
+                                      self.generator, ticks, self.ticks_per_sync,
+                                      attend_len=attend, install=install, mesh=self.mesh)
+            event = None
+            if aux.is_cuda:
+                host = torch.empty(aux.shape, dtype=aux.dtype, pin_memory=True)
+                host.copy_(aux, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
             else:
-                aux = serve_chunk(self.params, self.cfg, self.state, self.gen_cfg,
-                                  self.generator, ticks, self.ticks_per_sync,
-                                  attend_len=attend, install=install, mesh=self.mesh)
-        event = None
-        if aux.is_cuda:
-            host = torch.empty(aux.shape, dtype=aux.dtype, pin_memory=True)
-            host.copy_(aux, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host = aux
-        self._ramp_i = min(self._ramp_i + 1, len(self.chunk_ramp))
-        self._chunks_launched += 1
-        self._unprocessed.append((aux, host, event, ticks))
-        self._ticks_in_flight += ticks
-        self.metrics.count("engine.chunks")
-        self.metrics.count("engine.ticks", ticks)
-        self.metrics.gauge("engine.queue_depth", len(self.pending))
-        self.metrics.gauge("engine.attend_len", attend)
+                host = aux
+            self._ramp_i = min(self._ramp_i + 1, len(self.chunk_ramp))
+            self._chunks_launched += 1
+            self._unprocessed.append((aux, host, event, ticks))
+            self._ticks_in_flight += ticks
+            self.metrics.count("engine.chunks")
+            self.metrics.count("engine.ticks", ticks)
 
     def _process_oldest(self) -> List[Completion]:
         """Sync the oldest in-flight chunk's aux and attribute its frames."""
@@ -821,51 +858,51 @@ class ContinuousBatchingEngine:
             return []
         _, host, event, ticks = self._unprocessed.popleft()
         self._ticks_in_flight -= ticks
-        with self.metrics.time("engine.aux_sync_s"):
+        with self.tracer.span("engine.aux_wait"):
             if event is not None:
                 event.synchronize()
             aux_np = host.numpy()
-        (frames, emit, req_id, finished, staged_valid, staged_rid,
-         t_dev) = unpack_chunk_aux(aux_np, self.num_slots, self.ticks_per_sync,
-                                   self.cfg.num_code_groups, self.staging_rows)
-        completions: List[Completion] = []
-        sink_frames: Dict[int, List[np.ndarray]] = {}
-        now = _time.time() if self.trace_enabled else 0.0
-        # attribute in tick order so slot reuse within a chunk stays coherent
-        order = np.argwhere(emit | finished)
-        for slot, t in sorted(order.tolist(), key=lambda st: (st[1], st[0])):
-            rid = int(req_id[slot, t])
-            if rid in self._cancelled:   # late aux of a pre-cancel chunk
-                continue
-            if emit[slot, t]:
-                if self.trace_enabled and not self.frames_acc.get(rid):
-                    self.trace.setdefault(rid, {}).setdefault("first_frame", now)
-                self.frames_acc[rid].append(frames[slot, t])
-                if self.frame_sink is not None:
-                    sink_frames.setdefault(rid, []).append(frames[slot, t])
-            if finished[slot, t]:
-                acc = self.frames_acc.pop(rid, [])
-                self.req_max_frames.pop(rid, None)
-                self._staged_stamp.pop(rid, None)
-                codes = (np.stack(acc) if acc
-                         else np.zeros((0, self.cfg.num_code_groups), np.int64))
-                completions.append(Completion(rid, codes))
-        if self.frame_sink is not None:
-            for rid, fl in sink_frames.items():
-                self.frame_sink(rid, np.stack(fl))
-        # free staging rows the chunk installed: only when it names OUR
-        # occupant (an older chunk reports a previous one, or -1)
-        for r in [r for r, rid in self.staged_rows_busy.items()
-                  if not staged_valid[r] and staged_rid[r] == rid]:
-            del self.staged_rows_busy[r]
-        self.max_live_t = int(t_dev.max()) if self.frames_acc else 0
-        self._chunks_synced += 1
-        self._cancelled = {r: s for r, s in self._cancelled.items()
-                           if s > self._chunks_synced}
-        self.metrics.count("engine.frames", float(emit.sum()))
-        self.metrics.count("engine.completions", len(completions))
-        self.metrics.gauge("engine.slot_utilization", float(emit.mean()) if emit.size else 0.0)
-        return completions
+        with self.tracer.span("engine.attribute"):
+            (frames, emit, req_id, finished, staged_valid, staged_rid,
+             t_dev) = unpack_chunk_aux(aux_np, self.num_slots, self.ticks_per_sync,
+                                       self.cfg.num_code_groups, self.staging_rows)
+            completions: List[Completion] = []
+            sink_frames: Dict[int, List[np.ndarray]] = {}
+            now = profiling.clock() if self.trace_enabled else 0.0
+            # attribute in tick order so slot reuse within a chunk stays coherent
+            order = np.argwhere(emit | finished)
+            for slot, t in sorted(order.tolist(), key=lambda st: (st[1], st[0])):
+                rid = int(req_id[slot, t])
+                if rid in self._cancelled:   # late aux of a pre-cancel chunk
+                    continue
+                if emit[slot, t]:
+                    if self.trace_enabled and not self.frames_acc.get(rid):
+                        self.stamp(rid, "first_frame", now)
+                    self.frames_acc[rid].append(frames[slot, t])
+                    if self.frame_sink is not None:
+                        sink_frames.setdefault(rid, []).append(frames[slot, t])
+                if finished[slot, t]:
+                    acc = self.frames_acc.pop(rid, [])
+                    self.req_max_frames.pop(rid, None)
+                    self._staged_stamp.pop(rid, None)
+                    codes = (np.stack(acc) if acc
+                             else np.zeros((0, self.cfg.num_code_groups), np.int64))
+                    completions.append(Completion(rid, codes))
+            if self.frame_sink is not None:
+                for rid, fl in sink_frames.items():
+                    self.frame_sink(rid, np.stack(fl))
+            # free staging rows the chunk installed: only when it names OUR
+            # occupant (an older chunk reports a previous one, or -1)
+            for r in [r for r, rid in self.staged_rows_busy.items()
+                      if not staged_valid[r] and staged_rid[r] == rid]:
+                del self.staged_rows_busy[r]
+            self.max_live_t = int(t_dev.max()) if self.frames_acc else 0
+            self._chunks_synced += 1
+            self._cancelled = {r: s for r, s in self._cancelled.items()
+                               if s > self._chunks_synced}
+            self.metrics.count("engine.frames", float(emit.sum()))
+            self.metrics.count("engine.completions", len(completions))
+            return completions
 
     def oldest_chunk_may_contain(self, request_id) -> bool:
         """True if the oldest in-flight chunk launched after the request's
@@ -883,7 +920,9 @@ class ContinuousBatchingEngine:
     def step(self) -> List[Completion]:
         """Stage pending requests, launch one chunk, and collect finished
         requests. Under load one chunk's aux stays in flight, so its copy
-        overlaps the next chunk; at the tail every aux syncs at once."""
+        overlaps the next chunk; at the tail every aux syncs at once. Device
+        spans whose events have completed are resolved first."""
+        self.tracer.resolve()
         completions: List[Completion] = list(self._instant)
         self._instant.clear()
         self._instant_ids.clear()

@@ -159,6 +159,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..ops.cuda import build
+from ..utils import profiling
 
 MAX_CONTEXTS = 8               # decode graph contexts per device
 MAX_CONTEXT_BYTES = 8 << 30    # their static buffers, KV caches included
@@ -310,10 +311,18 @@ class _Graph:
         weakref.finalize(self, build.pin(states))
 
     def replay(self, dev: _Device, generator: Optional[torch.Generator]) -> None:
+        """One replay on the device's current stream; a device span armed
+        on this thread (`utils/profiling.py`) records its events right
+        around it."""
+        span = profiling.armed()
         with _LOCK, torch.cuda.device(dev.device):
             if generator is not None:
                 dev.gen.set_state(generator.get_state())
+            if span is not None:
+                span.before()
             self.graph.replay()
+            if span is not None:
+                span.after()
             if generator is not None:
                 generator.set_state(dev.gen.get_state())
             _add_counts(self.launches)

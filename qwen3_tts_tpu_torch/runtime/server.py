@@ -27,6 +27,19 @@
   a second card, whose queue vocodes while the serving card's runs talker
   ticks, or the CPU. First packets then vocode from the host's frames like
   any packet (the chunk aux lies on the serving card).
+- Tracing (the engine's `trace_enabled`, the one switch): host spans
+  `server.step`, inside it `server.fast_first` (its dispatch, then its
+  packets' emission, with its child `server.fast_first_wait`, the blocking
+  copies of its counts and samples) and `server.egress` (with its child
+  `server.egress_wait`, the wav's copy to the host), and `server.submit`
+  a request, carrying its id; device spans `server.vocode` (each egress
+  replay, on the vocoder device's stream where there is one) and
+  `server.fast_first` (each first-packet replay); the per-request stamp
+  `first_packet`. `trace_spans()` pops the recorded host spans and
+  `first_packet_trace()` a request's stamps. Work counters, always on:
+  `server.vocode_frames_delivered` (the frames of every packet) and
+  `server.vocode_frames_computed` (rows x frames of every vocoder call,
+  padding rows and left context included).
 
 `ThreadedTTSServer` is the thread-safe wrapper for HTTP handlers: producer
 threads submit and wait on per-request queues, one loop thread owns the
@@ -38,6 +51,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Union
 
@@ -47,6 +61,7 @@ import torch.nn.functional as F
 
 from ..inference.tokenizer import resolve_device
 from ..models.codec12.decoder import cut_rows, vocode_rows
+from ..utils import profiling
 from ..weights import map_tensors
 from . import graphs
 from .batching import ContinuousBatchingEngine, Request
@@ -58,6 +73,9 @@ from .generate import GenerationConfig
 # takes ~0.24 GB a row, so larger batches, met only when more than 16
 # non-streamed requests finish in one step, are captured at first use
 WARM_DECODE_ROWS = 16
+# stamps of finished requests that `first_packet_trace` has not popped yet
+# (a stream whose first packet was also its last), oldest dropped first
+MAX_FINISHED_TRACES = 4096
 
 
 @dataclass
@@ -231,8 +249,11 @@ class TTSServer:
         # generated codec frames, in order, as they reach the host
         self.code_sink = code_sink
         self.metrics = self.engine.metrics
+        self.tracer = self.engine.tracer
         self._states: Dict[int, _ReqState] = {}
         self._by_user_id: Dict[Any, int] = {}
+        # user request id -> stamps, of finished streams (first_packet_trace)
+        self._finished_traces: "OrderedDict[Any, Dict[str, float]]" = OrderedDict()
         self._next_rid = 0
         self._Q = model.config.talker_config.num_code_groups
 
@@ -358,71 +379,72 @@ class TTSServer:
                       sampling=None, sub_sampling=None) -> None:
         from .prompts import build_prompt
 
-        with self.metrics.time("server.submit_s"):
-            if request_id in self._by_user_id:
-                raise ValueError(f"request id {request_id!r} already in flight")
-            (spec,) = specs
-            with torch.no_grad():
-                prompt, trailing, pad = build_prompt(
-                    self.model.talker_params, self.model.config.talker_config,
-                    self.model.config, spec)
-            trailing_len = trailing.shape[1]
-            if trailing_len > self.engine.max_trailing:
-                # the engine would switch to tts_pad early and drop the tail
-                raise ValueError(
-                    f"text trailing length {trailing_len} exceeds the server's "
-                    f"max_trailing {self.engine.max_trailing}; raise max_trailing or "
-                    "split the text")
-            prompt, attn_mask, trailing = _bucket_request(prompt, trailing, bucket=16)
-            rid = self._next_rid
-            self._next_rid += 1
-            st = _ReqState(request_id=request_id, stream=stream, ref_code=ref_code)
-            if stream and ref_code is not None and len(ref_code):
-                st.history = list(np.asarray(ref_code[-self.left_context:], np.int32))
-                st.ctx0 = len(st.history)
-            mf = self.gen_cfg.max_new_tokens - 1
-            if max_frames is not None:
-                mf = min(mf, int(max_frames))
-            # the engine may reject the request: record server state after
-            self.engine.submit(Request(
-                request_id=rid, inputs_embeds=prompt, attn_mask=attn_mask,
-                trailing=trailing, trailing_len=trailing_len, tts_pad=pad,
-                max_frames=mf, sampling=sampling, sub_sampling=sub_sampling))
-            self._states[rid] = st
-            self._by_user_id[request_id] = rid
-            self.metrics.count("server.submits")
+        if request_id in self._by_user_id:
+            raise ValueError(f"request id {request_id!r} already in flight")
+        (spec,) = specs
+        with torch.no_grad():
+            prompt, trailing, pad = build_prompt(
+                self.model.talker_params, self.model.config.talker_config,
+                self.model.config, spec)
+        trailing_len = trailing.shape[1]
+        if trailing_len > self.engine.max_trailing:
+            # the engine would switch to tts_pad early and drop the tail
+            raise ValueError(
+                f"text trailing length {trailing_len} exceeds the server's "
+                f"max_trailing {self.engine.max_trailing}; raise max_trailing or "
+                "split the text")
+        prompt, attn_mask, trailing = _bucket_request(prompt, trailing, bucket=16)
+        rid = self._next_rid
+        self._next_rid += 1
+        st = _ReqState(request_id=request_id, stream=stream, ref_code=ref_code)
+        if stream and ref_code is not None and len(ref_code):
+            st.history = list(np.asarray(ref_code[-self.left_context:], np.int32))
+            st.ctx0 = len(st.history)
+        mf = self.gen_cfg.max_new_tokens - 1
+        if max_frames is not None:
+            mf = min(mf, int(max_frames))
+        # the engine may reject the request: record server state after
+        self.engine.submit(Request(
+            request_id=rid, inputs_embeds=prompt, attn_mask=attn_mask,
+            trailing=trailing, trailing_len=trailing_len, tts_pad=pad,
+            max_frames=mf, sampling=sampling, sub_sampling=sub_sampling))
+        self._states[rid] = st
+        self._by_user_id[request_id] = rid
+        self.metrics.count("server.submits")
 
     def submit_custom_voice(self, request_id, text: str, speaker: str,
                             language: Optional[str] = None,
                             instruct: Optional[str] = None, stream: bool = False,
                             max_frames: Optional[int] = None, **sampling_kw) -> None:
-        with self.metrics.time("server.specs_s"):
+        with self.tracer.span("server.submit", request_id):
             specs = self.model._specs_custom_voice(text, speaker, language, instruct,
                                                    non_streaming=False)
-        self._submit_specs(request_id, specs, stream, None, max_frames,
-                           *self._sampling_overrides(**sampling_kw))
+            self._submit_specs(request_id, specs, stream, None, max_frames,
+                               *self._sampling_overrides(**sampling_kw))
 
     def submit_voice_design(self, request_id, text: str, instruct: str,
                             language: Optional[str] = None, stream: bool = False,
                             max_frames: Optional[int] = None, **sampling_kw) -> None:
-        specs = self.model._specs_voice_design(text, instruct, language,
-                                               non_streaming=False)
-        self._submit_specs(request_id, specs, stream, None, max_frames,
-                           *self._sampling_overrides(**sampling_kw))
+        with self.tracer.span("server.submit", request_id):
+            specs = self.model._specs_voice_design(text, instruct, language,
+                                                   non_streaming=False)
+            self._submit_specs(request_id, specs, stream, None, max_frames,
+                               *self._sampling_overrides(**sampling_kw))
 
     def submit_voice_clone(self, request_id, text: str, language: Optional[str] = None,
                            ref_audio=None, ref_text: Optional[str] = None,
                            x_vector_only_mode: bool = False, voice_clone_prompt=None,
                            stream: bool = False, max_frames: Optional[int] = None,
                            **sampling_kw) -> None:
-        with graphs.replay_only():   # no capture at a live tick
-            specs, items = self.model._specs_voice_clone(
-                text, language, ref_audio, ref_text, x_vector_only_mode,
-                voice_clone_prompt, non_streaming=False)
-        ref_code = items[0].ref_code
-        self._submit_specs(request_id, specs, stream,
-                           None if ref_code is None else np.asarray(ref_code), max_frames,
-                           *self._sampling_overrides(**sampling_kw))
+        with self.tracer.span("server.submit", request_id):
+            with graphs.replay_only():   # no capture at a live tick
+                specs, items = self.model._specs_voice_clone(
+                    text, language, ref_audio, ref_text, x_vector_only_mode,
+                    voice_clone_prompt, non_streaming=False)
+            ref_code = items[0].ref_code
+            self._submit_specs(request_id, specs, stream,
+                               None if ref_code is None else np.asarray(ref_code),
+                               max_frames, *self._sampling_overrides(**sampling_kw))
 
     def abort_all(self) -> None:
         """Drop every in-flight request, engine and server bookkeeping both
@@ -445,6 +467,19 @@ class TTSServer:
         self._states.pop(rid, None)
         self.metrics.count("server.cancels")
         return True
+
+    def _forget(self, request_id) -> None:
+        """Drop a finished request's state. Its stamps move to
+        `_finished_traces` where it has a first packet, for
+        `first_packet_trace` (a stream whose first packet is its last), and
+        go otherwise."""
+        rid = self._by_user_id.pop(request_id)
+        del self._states[rid]
+        entry = self.engine.trace.pop(rid, None)
+        if entry is not None and "first_packet" in entry:
+            self._finished_traces[request_id] = entry
+            while len(self._finished_traces) > MAX_FINISHED_TRACES:
+                self._finished_traces.popitem(last=False)
 
     # -- egress ----------------------------------------------------------
 
@@ -486,52 +521,56 @@ class TTSServer:
 
     def _emit_packets(self) -> List[AudioPacket]:
         """Vocode every due stream in one call per wave of rows."""
-        out: List[AudioPacket] = []
-        while True:
-            due = [st for st in self._states.values() if self._due(st)]
-            if not due:
-                return out
-            due = due[:self._row_bucket(min(len(due), self.num_slots))]
-            N = self._row_bucket(len(due))
-            meta = []
-            for st in due:
-                c = min(self.left_context, st.ctx0 + st.emitted)
-                meta.append((st, c, min(self._pending(st), self.packet_frames)))
-            F_ = self._frame_bucket(max([1] + [k for _, _, k in meta]))
-            batch = np.zeros((N, self._Q, self.left_context + F_), np.int32)
-            ctx = np.zeros((N,), np.int32)
-            for i, (st, c, k) in enumerate(meta):
-                lo = st.ctx0 + st.emitted - c
-                if c + k > 0:
-                    batch[i, :, :c + k] = np.stack(st.history[lo:lo + c + k]).T
-                ctx[i] = c
-            # on a CUDA vocoder device the codes and contexts go from pinned
-            # memory into the egress graph's static buffers, the replay and
-            # the copy of its output follow them, all on that device's
-            # current stream; the wav's copy to the host is the one sync, and
-            # it waits for that stream alone: on a card of its own, no tick
-            # the serving card has queued waits for the vocoder
-            with self.metrics.time("server.vocode_s"), torch.no_grad():
-                wav = self._to_host(_vocode_rows_compact(
-                    self.dec_params, self.dec_cfg, torch.from_numpy(batch),
-                    torch.from_numpy(ctx), F_, pcm16=self.output_dtype == "int16"))
-            now = None
-            for i, (st, c, k) in enumerate(meta):
-                final = st.done and self._pending(st) == k
-                out.append(AudioPacket(request_id=st.request_id, wav=wav[i, :k * self.up],
-                                       sample_rate=self.sample_rate,
-                                       frame_start=st.emitted, frame_count=k, final=final))
-                st.emitted += k
-                if not st.first_sent and self.engine.trace_enabled:
-                    now = now or time.time()
-                    rid = self._by_user_id.get(st.request_id)
-                    if rid is not None:
-                        self.engine.trace.setdefault(rid, {}).setdefault("first_packet", now)
-                st.first_sent = True
-                self.metrics.count("server.packets")
-            for st, _, _ in meta:
-                if st.done and self._pending(st) == 0:
-                    del self._states[self._by_user_id.pop(st.request_id)]
+        with self.tracer.span("server.egress"):
+            out: List[AudioPacket] = []
+            while True:
+                due = [st for st in self._states.values() if self._due(st)]
+                if not due:
+                    return out
+                due = due[:self._row_bucket(min(len(due), self.num_slots))]
+                N = self._row_bucket(len(due))
+                meta = []
+                for st in due:
+                    c = min(self.left_context, st.ctx0 + st.emitted)
+                    meta.append((st, c, min(self._pending(st), self.packet_frames)))
+                F_ = self._frame_bucket(max([1] + [k for _, _, k in meta]))
+                batch = np.zeros((N, self._Q, self.left_context + F_), np.int32)
+                ctx = np.zeros((N,), np.int32)
+                for i, (st, c, k) in enumerate(meta):
+                    lo = st.ctx0 + st.emitted - c
+                    if c + k > 0:
+                        batch[i, :, :c + k] = np.stack(st.history[lo:lo + c + k]).T
+                    ctx[i] = c
+                # on a CUDA vocoder device the codes and contexts go from pinned
+                # memory into the egress graph's static buffers, the replay and
+                # the copy of its output follow them, all on that device's
+                # current stream; the wav's copy to the host is the one sync, and
+                # it waits for that stream alone: on a card of its own, no tick
+                # the serving card has queued waits for the vocoder
+                with torch.no_grad(), self.tracer.device_span(
+                        "server.vocode", self.vocoder_device or self.engine.device):
+                    wav = _vocode_rows_compact(
+                        self.dec_params, self.dec_cfg, torch.from_numpy(batch),
+                        torch.from_numpy(ctx), F_, pcm16=self.output_dtype == "int16")
+                with self.tracer.span("server.egress_wait"):
+                    wav = self._to_host(wav)
+                self.metrics.count("server.vocode_frames_computed", N * (self.left_context + F_))
+                now = None
+                for i, (st, c, k) in enumerate(meta):
+                    final = st.done and self._pending(st) == k
+                    out.append(AudioPacket(request_id=st.request_id, wav=wav[i, :k * self.up],
+                                           sample_rate=self.sample_rate,
+                                           frame_start=st.emitted, frame_count=k, final=final))
+                    st.emitted += k
+                    if not st.first_sent and self.engine.trace_enabled:
+                        now = now or profiling.clock()
+                        self.engine.stamp(self._by_user_id[st.request_id], "first_packet", now)
+                    st.first_sent = True
+                    self.metrics.count("server.packets")
+                    self.metrics.count("server.vocode_frames_delivered", k)
+                for st, _, _ in meta:
+                    if st.done and self._pending(st) == 0:
+                        self._forget(st.request_id)
 
     def _dispatch_fast_first(self, waiting_rids):
         """Extract first frames from the oldest in-flight chunk's aux and
@@ -542,18 +581,22 @@ class TTSServer:
         arr = np.full((N,), -1, np.int32)
         arr[:len(rids)] = rids
         F_ = self._frame_bucket(1)
-        with torch.no_grad():
+        T = self.left_context + F_
+        with torch.no_grad(), self.tracer.device_span("server.fast_first", self.engine.device):
             wav, counts = _first_packet_vocode(
                 self.dec_params, self.dec_cfg, aux, torch.from_numpy(arr),
-                self.engine.num_slots, self.engine.ticks_per_sync, self._Q, F_,
-                self.left_context + F_, pcm16=self.output_dtype == "int16")
+                self.engine.num_slots, self.engine.ticks_per_sync, self._Q, F_, T,
+                pcm16=self.output_dtype == "int16")
+        # its graph vocodes (N, Q, T) codes, every row T frames
+        self.metrics.count("server.vocode_frames_computed", N * T)
         return rids, wav, counts
 
     def _emit_fast_first(self, rids, wav_dev, counts_dev) -> List[AudioPacket]:
         """Emit the fast-path first packets, after the aux sync (so done
         flags and histories are current)."""
         out: List[AudioPacket] = []
-        counts = counts_dev.cpu().numpy()
+        with self.tracer.span("server.fast_first_wait"):
+            counts = counts_dev.cpu().numpy()
         wav = None
         for j, rid in enumerate(rids):
             st = self._states.get(rid)
@@ -561,7 +604,8 @@ class TTSServer:
             if st is None or st.first_sent or k <= 0:
                 continue
             if wav is None:
-                wav = self._to_host(wav_dev)
+                with self.tracer.span("server.fast_first_wait"):
+                    wav = self._to_host(wav_dev)
             final = st.done and self._pending(st) == k
             out.append(AudioPacket(request_id=st.request_id, wav=wav[j, :k * self.up],
                                    sample_rate=self.sample_rate, frame_start=st.emitted,
@@ -569,12 +613,12 @@ class TTSServer:
             st.emitted += k
             st.first_sent = True
             if self.engine.trace_enabled:
-                self.engine.trace.setdefault(rid, {}).setdefault("first_packet", time.time())
+                self.engine.stamp(rid, "first_packet", profiling.clock())
             self.metrics.count("server.packets")
             self.metrics.count("server.fast_first_packets")
+            self.metrics.count("server.vocode_frames_delivered", k)
             if st.done and self._pending(st) == 0:
-                del self._by_user_id[st.request_id]
-                del self._states[rid]
+                self._forget(st.request_id)
         return out
 
     def _finish_results(self, completions) -> List[AudioResult]:
@@ -602,29 +646,33 @@ class TTSServer:
             codes_in = [c for _, c, _ in decode_batch]
             codes_in += [np.zeros((1, self._Q), np.int64)] * (nb - len(codes_in))
             # on the vocoder device, its stream ordered as the egress's
-            with self.metrics.time("server.decode_s"):
-                wavs, sr = self._decode_tok.decode(
-                    [{"audio_codes": c} for c in codes_in], output_dtype=self.output_dtype)
+            wavs, sr = self._decode_tok.decode(
+                [{"audio_codes": c} for c in codes_in], output_dtype=self.output_dtype)
             for (st, codes, ref_len), wav in zip(decode_batch, wavs):
                 if ref_len:
                     wav = wav[int(ref_len / max(len(codes), 1) * wav.shape[0]):]
                 results.append(AudioResult(st.request_id, wav, sr))
-                del self._states[self._by_user_id.pop(st.request_id)]
+                self._forget(st.request_id)
                 self.metrics.count("server.results")
         return results
 
     def first_packet_trace(self, request_id) -> Optional[Dict[str, float]]:
-        """Host timestamps (submit, staged, first_frame, first_packet) of a
-        request submitted while `engine.trace_enabled`; pops the entry. A
-        finished request's id mapping is gone, so then the newest entry with
-        a first packet is returned."""
+        """The stamps (submit, staged, first_frame, first_packet: seconds on
+        `utils/profiling.py::clock`) of request `request_id`, submitted while
+        `engine.trace_enabled`, or None; pops them. A stream whose first
+        packet was also its last keeps them, after it finished, until popped
+        (at most MAX_FINISHED_TRACES such requests)."""
         rid = self._by_user_id.get(request_id)
         if rid is not None:
             return self.engine.trace.pop(rid, None)
-        for rid in sorted(self.engine.trace, reverse=True):
-            if "first_packet" in self.engine.trace[rid]:
-                return self.engine.trace.pop(rid)
-        return None
+        return self._finished_traces.pop(request_id, None)
+
+    def trace_spans(self) -> List[profiling.Span]:
+        """The host spans recorded since the last call, oldest first: at most
+        `profiling.SPAN_RING` of them (the engine's and the server's; see
+        the module docstring), on the profiler's clock. Call it on the
+        thread that drives the server (a `ThreadedTTSServer`'s loop)."""
+        return self.tracer.spans()
 
     # -- driving ---------------------------------------------------------
 
@@ -633,38 +681,37 @@ class TTSServer:
         While a stream awaits its first packet the step runs in latency
         order: first packets from the in-flight chunk, staging dispatched,
         the aux synced and due packets vocoded before the next chunk."""
-        waiting_rids = []
-        if self.first_packet_ticks:
-            waiting_rids = [rid for rid, st in self._states.items()
-                            if st.stream and not st.first_sent]
-            self.engine.tick_cap = self.first_packet_ticks if waiting_rids else None
-        waiting = bool(waiting_rids)
-        self._defer_now = waiting and self.defer_bulk_egress
-        events: List[Union[AudioPacket, AudioResult]] = []
-        if waiting and self.engine._unprocessed:
-            # the fast path serves streams with no reference context (a clone
-            # stream's first packet must be vocoded with it) whose frames can
-            # be in the oldest in-flight chunk
-            fast = None
-            if self.fast_first_packet:
-                fast_rids = [rid for rid in waiting_rids if self._states[rid].ctx0 == 0
-                             and self.engine.oldest_chunk_may_contain(rid)]
-                if fast_rids:
-                    with self.metrics.time("server.fast_dispatch_s"):
-                        fast = self._dispatch_fast_first(fast_rids)
-            self.engine.stage_now()
-            with self.metrics.time("server.latency_sync_s"):
+        with self.tracer.span("server.step"):
+            waiting_rids = []
+            if self.first_packet_ticks:
+                waiting_rids = [rid for rid, st in self._states.items()
+                                if st.stream and not st.first_sent]
+                self.engine.tick_cap = self.first_packet_ticks if waiting_rids else None
+            waiting = bool(waiting_rids)
+            self._defer_now = waiting and self.defer_bulk_egress
+            events: List[Union[AudioPacket, AudioResult]] = []
+            if waiting and self.engine._unprocessed:
+                # the fast path serves streams with no reference context (a clone
+                # stream's first packet must be vocoded with it) whose frames can
+                # be in the oldest in-flight chunk
+                fast = None
+                if self.fast_first_packet:
+                    fast_rids = [rid for rid in waiting_rids if self._states[rid].ctx0 == 0
+                                 and self.engine.oldest_chunk_may_contain(rid)]
+                    if fast_rids:
+                        with self.tracer.span("server.fast_first"):
+                            fast = self._dispatch_fast_first(fast_rids)
+                self.engine.stage_now()
                 completions = self.engine.sync_in_flight()
-            events.extend(self._finish_results(completions))
-            if fast is not None:
-                with self.metrics.time("server.emit_fast_s"):
-                    events.extend(self._emit_fast_first(*fast))
-            events.extend(self._emit_packets())
-        with self.metrics.time("server.engine_step_s"):
+                events.extend(self._finish_results(completions))
+                if fast is not None:
+                    with self.tracer.span("server.fast_first"):
+                        events.extend(self._emit_fast_first(*fast))
+                events.extend(self._emit_packets())
             completions = self.engine.step()
-        events.extend(self._finish_results(completions))
-        events.extend(self._emit_packets())
-        return events
+            events.extend(self._finish_results(completions))
+            events.extend(self._emit_packets())
+            return events
 
     @property
     def busy(self) -> bool:

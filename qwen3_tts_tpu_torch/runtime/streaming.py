@@ -31,7 +31,6 @@ import torch
 
 from ..config import CodecV2DecoderConfig, TalkerConfig
 from ..models.codec12.decoder import vocode_rows
-from ..utils.metrics import global_metrics
 from .generate import (GenerationConfig, attend_bucket_for, decode_chunk,
                        init_decode_state, kv_capacity)
 
@@ -148,8 +147,6 @@ class StreamingSession:
             wav = wav.float().cpu().numpy()        # one device-to-host copy per packet
             active_np = active.cpu().numpy()
             latency = time.time() - t_start
-            if emitted == 0:
-                global_metrics().observe("stream.first_packet_s", latency)
             yield StreamPacket(wav=wav, frame_start=emitted, frame_count=k,
                                active_frames=active_np.sum(axis=1), latency_s=latency)
             emitted += k

@@ -176,6 +176,8 @@ def test_server_submit_is_replay_only_and_warms_every_reference_bucket():
     from types import SimpleNamespace
 
     from qwen3_tts_tpu_torch.runtime.server import TTSServer
+    from qwen3_tts_tpu_torch.utils.metrics import MetricsRegistry
+    from qwen3_tts_tpu_torch.utils.profiling import Tracer
 
     seen = []
 
@@ -185,7 +187,8 @@ def test_server_submit_is_replay_only_and_warms_every_reference_bucket():
 
     srv = SimpleNamespace(model=SimpleNamespace(_specs_voice_clone=specs),
                           _submit_specs=lambda *a: seen.append("submitted"),
-                          _sampling_overrides=lambda **k: (None, None))
+                          _sampling_overrides=lambda **k: (None, None),
+                          tracer=Tracer(MetricsRegistry()))
     TTSServer.submit_voice_clone(srv, "r", text="hi", voice_clone_prompt=[None])
     assert seen == [True, "submitted"] and not getattr(graphs._LOCAL, "replay_only", False)
     tok = SimpleNamespace(get_encode_downsample_rate=lambda: 1920)
