@@ -1842,8 +1842,9 @@ def phase_codec_graphs(model) -> dict:
     the same codes, on each route: whole-call decode (B=4, a first and a
     steady chunk, float32 and int16), a stream's packet shapes (B=4, the
     schedule 1, 2, 4, 8, 16, 25 with per-row contexts), server egress at N
-    in {1, 8} x F in {4, 25} (float32 and int16) and the first-packet
-    extract + vocoder (8 slots x 8 ticks, 8 rows). Float samples within
+    in {1, 8} x F in {4, 25} x T in {F (no context), 25 + F} (float32 and
+    int16) and the first-packet extract + vocoder (8 slots x 8 ticks, 8
+    rows, T = F = 4, as the server calls it). Float samples within
     CODEC_TOL max abs, PCM16 samples and counts equal; every graphed call
     must replay a graph. Each call's device ms graphed and eager (CUDA
     events, CODEC_ITERS calls after one). Then the int8 stream's wall split
@@ -1879,17 +1880,20 @@ def phase_codec_graphs(model) -> dict:
         emitted += k
     for N in (1, 8):
         for F_ in (4, 25):
-            c, x = codes(N, Qn, 25 + F_), torch.from_numpy(rng.integers(0, 26, N).astype(np.int32))
-            for pcm16 in (False, True):
-                cases.append(("egress", f"N={N},F={F_},{'int16' if pcm16 else 'float32'}",
-                              lambda c=c, x=x, F_=F_, pcm16=pcm16: (_vocode_rows_compact(
-                                  p, cfg, c, x, F_, pcm16=pcm16),)))
+            for C in (0, 25):
+                c = codes(N, Qn, C + F_)
+                x = torch.from_numpy(rng.integers(0, C + 1, N).astype(np.int32))
+                for pcm16 in (False, True):
+                    cases.append(("egress",
+                                  f"N={N},T={C + F_},F={F_},{'int16' if pcm16 else 'float32'}",
+                                  lambda c=c, x=x, F_=F_, pcm16=pcm16: (_vocode_rows_compact(
+                                      p, cfg, c, x, F_, pcm16=pcm16),)))
     B, ticks = SERVE_SLOTS, 8
     aux, rids = _aux_case(B, ticks, 2 * B, Qn, V, rng)
     aux_dev = torch.from_numpy(aux).to(dev)
-    cases.append(("first_packet", f"B={B},ticks={ticks},N={len(rids)},F=4",
+    cases.append(("first_packet", f"B={B},ticks={ticks},N={len(rids)},T=4,F=4",
                   lambda: _first_packet_vocode(p, cfg, aux_dev, torch.from_numpy(rids), B, ticks,
-                                               Qn, 4, 29)))
+                                               Qn, 4, 4)))
     out = {}
     with torch.no_grad():
         for route, name, fn in cases:

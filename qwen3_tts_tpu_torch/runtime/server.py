@@ -5,11 +5,14 @@
        -> frame_sink -> per-request code history -> batched chunk vocoder
        -> AudioPacket stream / AudioResult
 
-- Packet egress: every due streaming request becomes a row of one vocoder
-  call, (rows, Q, left_context + frames); a row's context c = min(25,
-  frames already decoded) leads, its new frames follow, the tail is zero
-  (the vocoder is causal). Rows bucket to a power of two (<= num_slots) and
-  new frames to {4, packet_frames}.
+- Packet egress: every due streaming request becomes a row of a wave of
+  vocoder calls, (rows, Q, T); a row's context c = min(25, frames already
+  decoded) leads, its new frames follow, the tail is zero. New frames
+  bucket to F in {4, packet_frames}. The vocoder is causal, so a call
+  computes only what its rows deliver: T = F where none of its rows has
+  context (first packets), else left_context + F; and a wave of n rows is
+  cut into row-bucket pieces (13 rows: 8 + 4 + 1) unless one call padded
+  to the next bucket costs less card time (`_row_pieces`).
 - Packets are cut every `packet_frames` frames, with an early first packet
   per request; completions flush the rest. While a stream awaits its first
   packet, engine chunks are capped at `first_packet_ticks` ticks, the step
@@ -37,9 +40,10 @@
   `server.fast_first` (each first-packet replay); the per-request stamp
   `first_packet`. `trace_spans()` pops the recorded host spans and
   `first_packet_trace()` a request's stamps. Work counters, always on:
-  `server.vocode_frames_delivered` (the frames of every packet) and
+  `server.vocode_frames_delivered` (the frames of every packet),
   `server.vocode_frames_computed` (rows x frames of every vocoder call,
-  padding rows and left context included).
+  padding rows and left context included) and `server.vocode_calls` (the
+  egress and first-packet vocoder calls).
 
 `ThreadedTTSServer` is the thread-safe wrapper for HTTP handlers: producer
 threads submit and wait on per-request queues, one loop thread owns the
@@ -76,6 +80,14 @@ WARM_DECODE_ROWS = 16
 # stamps of finished requests that `first_packet_trace` has not popped yet
 # (a stream whose first packet was also its last), oldest dropped first
 MAX_FINISHED_TRACES = 4096
+# the card time of one egress or first-packet vocoder replay of N rows of T
+# frames, as REPLAY_FLOOR_MS + FRAME_ROW_MS * N * T: what `_row_pieces`
+# weighs a padding row against one more replay with (a fit to replays of
+# N in 1-32 and T in {4, 25, 29, 50} on an H100 80GB HBM3 at 700 W, fp32
+# vocoder at the published widths: 5.26 ms at N=1, T=4, 15.69 at N=1,
+# T=50, 335.69 at N=32, T=50)
+REPLAY_FLOOR_MS = 4.4
+FRAME_ROW_MS = 0.21
 
 
 @dataclass
@@ -260,12 +272,19 @@ class TTSServer:
     # -- warm-up ---------------------------------------------------------
 
     def egress_shapes(self) -> List[tuple]:
-        """(rows, frames) of every packet-egress vocoder call: the row
-        buckets (powers of two below num_slots, then num_slots) times the
-        frame buckets {_frame_bucket(1), _frame_bucket(packet_frames)}."""
-        rows = sorted({self._row_bucket(n) for n in range(1, self.num_slots + 1)})
+        """(rows, frames vocoded, frames cut) = (N, T, F) of every
+        packet-egress vocoder call: the row buckets (`_row_buckets`) times
+        the frame buckets F in {_frame_bucket(1), _frame_bucket(packet_frames)},
+        each at T = F (no row has context) and T = left_context + F."""
         frames = sorted({self._frame_bucket(1), self._frame_bucket(self.packet_frames)})
-        return [(n, f) for n in rows for f in frames]
+        return [(n, t, f) for n in self._row_buckets() for f in frames
+                for t in sorted({f, self.left_context + f})]
+
+    def first_packet_shapes(self) -> List[tuple]:
+        """(N, T, F) of every fast-first-packet vocoder call: the row
+        buckets at T = F = _frame_bucket(1) (its rows have no context)."""
+        f = self._frame_bucket(1)
+        return [(n, f, f) for n in self._row_buckets()]
 
     def warmup(self, verbose: bool = False) -> float:
         """Pay the serving path's first-use costs before live traffic does
@@ -273,10 +292,10 @@ class TTSServer:
         tick graph (`engine.warmup_serve`), the staging prefill of each
         request-count bucket (`engine.warmup_staging`), the egress vocoder
         of every `egress_shapes()` entry and, with `fast_first_packet`, the
-        first-packet extract of every row bucket; then, where the JAX server
-        leaves it to the first completion, the completion decode of every
-        power-of-two batch up to num_slots (at most WARM_DECODE_ROWS) at both
-        chunk shapes; for a clone (base) model on a CUDA device, the clone
+        first-packet extract of every `first_packet_shapes()` entry; then,
+        where the JAX server leaves it to the first completion, the
+        completion decode of every power-of-two batch up to num_slots (at
+        most WARM_DECODE_ROWS) at both chunk shapes; for a clone (base) model on a CUDA device, the clone
         front end's encode of one reference at each of `reference_lengths()`
         (the JAX server leaves it to the first request). On a CUDA device
         each of these is captured as a graph, so that traffic captures none
@@ -293,14 +312,14 @@ class TTSServer:
         self.engine.warmup_serve(verbose=verbose)
         self.engine.warmup_staging()
         pcm16 = self.output_dtype == "int16"
-        Q, lc = self._Q, self.left_context
+        Q = self._Q
         with torch.no_grad():
-            for N, F_ in self.egress_shapes():
+            for N, T, F_ in self.egress_shapes():
                 _vocode_rows_compact(self.dec_params, self.dec_cfg,
-                                     torch.zeros((N, Q, lc + F_), dtype=torch.int32),
+                                     torch.zeros((N, Q, T), dtype=torch.int32),
                                      torch.zeros((N,), dtype=torch.int32), F_, pcm16=pcm16)
                 if verbose:
-                    print(f"[server.warmup] vocode N={N} F={F_} done at "
+                    print(f"[server.warmup] vocode N={N} T={T} F={F_} done at "
                           f"{time.time() - t0:.1f}s", flush=True)
             if self.fast_first_packet:
                 eng = self.engine
@@ -308,11 +327,10 @@ class TTSServer:
                 n_bt = B * ticks
                 aux = torch.zeros((n_bt * Q + 3 * n_bt + 2 * K + B,), dtype=torch.int32,
                                   device=eng.device)
-                F_ = self._frame_bucket(1)
-                for N in sorted({n for n, _ in self.egress_shapes()}):
+                for N, T, F_ in self.first_packet_shapes():
                     _first_packet_vocode(self.dec_params, self.dec_cfg, aux,
                                          torch.full((N,), -1, dtype=torch.int32), B, ticks,
-                                         Q, F_, lc + F_, pcm16=pcm16)
+                                         Q, F_, T, pcm16=pcm16)
         tok = self.model.speech_tokenizer
         frames = np.zeros((tok.chunk_size + 1, Q), np.int64)   # the first and a steady chunk
         nb = 1
@@ -511,6 +529,27 @@ class TTSServer:
     def _row_bucket(self, n: int) -> int:
         return min(1 << max(0, n - 1).bit_length(), self.num_slots)
 
+    def _row_buckets(self) -> List[int]:
+        """The row counts a vocoder call may have: the powers of two below
+        num_slots, then num_slots."""
+        return sorted({self._row_bucket(n) for n in range(1, self.num_slots + 1)})
+
+    def _row_pieces(self, n: int, T: int) -> List[int]:
+        """The row counts of the vocoder calls of a wave of n <= num_slots
+        rows of T frames: the greatest row bucket at or below the rows left,
+        repeated, so that no row is padding (13: 8 + 4 + 1); or one call of
+        `_row_bucket(n)` rows where its padding rows cost less card time
+        than the split's further replays (REPLAY_FLOOR_MS, FRAME_ROW_MS)."""
+        split, left = [], n
+        while left:
+            b = self.num_slots if left >= self.num_slots else 1 << (left.bit_length() - 1)
+            split.append(b)
+            left -= b
+        pad = self._row_bucket(n) - n
+        if pad * FRAME_ROW_MS * T < (len(split) - 1) * REPLAY_FLOOR_MS:
+            return [self._row_bucket(n)]
+        return split
+
     def _frame_bucket(self, kmax: int) -> int:
         small = min(4, self.packet_frames)
         return small if kmax <= small else self.packet_frames
@@ -519,42 +558,60 @@ class TTSServer:
         wav = wav.cpu().numpy()
         return wav.astype(np.float32) if self.output_dtype == "float32" else wav
 
+    def _vocode_wave(self, batch: np.ndarray, ctx: np.ndarray, F_: int) -> torch.Tensor:
+        """A wave's rows, codes (n, Q, left_context + F_) with a zero tail and
+        contexts (n,), vocoded in `_row_pieces` calls, each of T = F_ frames
+        where none of its rows has context, else left_context + F_; returns
+        (n, F_ * up) samples on the vocoder's device. On a CUDA vocoder
+        device each piece's codes and contexts go from pinned memory into
+        its graph's static buffers, the replay and the copy of its output
+        follow them, all on that device's current stream, and nothing here
+        waits: the caller's copy to the host is the wave's one sync, and it
+        waits for that stream alone (on a card of its own, no tick the
+        serving card has queued waits for the vocoder)."""
+        n, lc = len(batch), self.left_context
+        pieces = self._row_pieces(n, F_ + (lc if ctx.any() else 0))
+        out, lo = [], 0
+        for N in pieces:
+            T = F_ + (lc if ctx[lo:lo + N].any() else 0)
+            codes = np.zeros((N, self._Q, T), np.int32)
+            c = np.zeros((N,), np.int32)
+            rows = batch[lo:lo + N, :, :T]
+            codes[:len(rows)], c[:len(rows)] = rows, ctx[lo:lo + N]
+            with torch.no_grad(), self.tracer.device_span(
+                    "server.vocode", self.vocoder_device or self.engine.device):
+                out.append(_vocode_rows_compact(
+                    self.dec_params, self.dec_cfg, torch.from_numpy(codes), torch.from_numpy(c),
+                    F_, pcm16=self.output_dtype == "int16"))
+            self.metrics.count("server.vocode_frames_computed", N * T)
+            self.metrics.count("server.vocode_calls")
+            lo += N
+        return torch.cat(out)[:n]
+
     def _emit_packets(self) -> List[AudioPacket]:
-        """Vocode every due stream in one call per wave of rows."""
+        """Vocode every due stream, a wave of at most num_slots rows at a
+        time (`_vocode_wave`), one host wait a wave."""
         with self.tracer.span("server.egress"):
             out: List[AudioPacket] = []
             while True:
-                due = [st for st in self._states.values() if self._due(st)]
+                due = [st for st in self._states.values() if self._due(st)][:self.num_slots]
                 if not due:
                     return out
-                due = due[:self._row_bucket(min(len(due), self.num_slots))]
-                N = self._row_bucket(len(due))
                 meta = []
                 for st in due:
                     c = min(self.left_context, st.ctx0 + st.emitted)
                     meta.append((st, c, min(self._pending(st), self.packet_frames)))
                 F_ = self._frame_bucket(max([1] + [k for _, _, k in meta]))
-                batch = np.zeros((N, self._Q, self.left_context + F_), np.int32)
-                ctx = np.zeros((N,), np.int32)
+                batch = np.zeros((len(due), self._Q, self.left_context + F_), np.int32)
+                ctx = np.zeros((len(due),), np.int32)
                 for i, (st, c, k) in enumerate(meta):
                     lo = st.ctx0 + st.emitted - c
                     if c + k > 0:
                         batch[i, :, :c + k] = np.stack(st.history[lo:lo + c + k]).T
                     ctx[i] = c
-                # on a CUDA vocoder device the codes and contexts go from pinned
-                # memory into the egress graph's static buffers, the replay and
-                # the copy of its output follow them, all on that device's
-                # current stream; the wav's copy to the host is the one sync, and
-                # it waits for that stream alone: on a card of its own, no tick
-                # the serving card has queued waits for the vocoder
-                with torch.no_grad(), self.tracer.device_span(
-                        "server.vocode", self.vocoder_device or self.engine.device):
-                    wav = _vocode_rows_compact(
-                        self.dec_params, self.dec_cfg, torch.from_numpy(batch),
-                        torch.from_numpy(ctx), F_, pcm16=self.output_dtype == "int16")
+                wav = self._vocode_wave(batch, ctx, F_)
                 with self.tracer.span("server.egress_wait"):
                     wav = self._to_host(wav)
-                self.metrics.count("server.vocode_frames_computed", N * (self.left_context + F_))
                 now = None
                 for i, (st, c, k) in enumerate(meta):
                     final = st.done and self._pending(st) == k
@@ -574,22 +631,29 @@ class TTSServer:
 
     def _dispatch_fast_first(self, waiting_rids):
         """Extract first frames from the oldest in-flight chunk's aux and
-        vocode them, all on the device; returns (rids, wav, counts)."""
+        vocode them, all on the device, in `_row_pieces` calls of F_ frames
+        (the rows have no context; a padding row's rid is -1, which finds
+        nothing); returns (rids, wav, counts), nothing waited for."""
         aux = self.engine._unprocessed[0][0]
-        N = self._row_bucket(len(waiting_rids))
-        rids = waiting_rids[:N]
-        arr = np.full((N,), -1, np.int32)
-        arr[:len(rids)] = rids
+        rids = waiting_rids[:self.num_slots]
         F_ = self._frame_bucket(1)
-        T = self.left_context + F_
-        with torch.no_grad(), self.tracer.device_span("server.fast_first", self.engine.device):
-            wav, counts = _first_packet_vocode(
-                self.dec_params, self.dec_cfg, aux, torch.from_numpy(arr),
-                self.engine.num_slots, self.engine.ticks_per_sync, self._Q, F_, T,
-                pcm16=self.output_dtype == "int16")
-        # its graph vocodes (N, Q, T) codes, every row T frames
-        self.metrics.count("server.vocode_frames_computed", N * T)
-        return rids, wav, counts
+        wavs, counts, lo = [], [], 0
+        for N in self._row_pieces(len(rids), F_):
+            arr = np.full((N,), -1, np.int32)
+            part = rids[lo:lo + N]
+            arr[:len(part)] = part
+            with torch.no_grad(), self.tracer.device_span("server.fast_first",
+                                                          self.engine.device):
+                wav, count = _first_packet_vocode(
+                    self.dec_params, self.dec_cfg, aux, torch.from_numpy(arr),
+                    self.engine.num_slots, self.engine.ticks_per_sync, self._Q, F_, F_,
+                    pcm16=self.output_dtype == "int16")
+            wavs.append(wav)
+            counts.append(count)
+            self.metrics.count("server.vocode_frames_computed", N * F_)
+            self.metrics.count("server.vocode_calls")
+            lo += N
+        return rids, torch.cat(wavs), torch.cat(counts)
 
     def _emit_fast_first(self, rids, wav_dev, counts_dev) -> List[AudioPacket]:
         """Emit the fast-path first packets, after the aux sync (so done

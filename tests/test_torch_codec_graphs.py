@@ -248,10 +248,14 @@ def test_codes_unchanged_by_warmup_staging(checkpoint):  # noqa: F811
 @pytest.mark.parametrize("num_slots,packet_frames", [(1, 25), (6, 25), (8, 3)])
 def test_server_egress_shapes_follow_the_jax_rule(checkpoint, num_slots,  # noqa: F811
                                                   packet_frames):
-    """(N, F) of the warm-up's egress vocoder calls: N over 1, 2, 4, ...
-    below num_slots, then num_slots; F over {_frame_bucket(1),
-    _frame_bucket(packet_frames)} (qwen3_tts_tpu/runtime/server.py:297-306);
-    and every call `_emit_packets` can make is among them."""
+    """(N, T, F) of the warm-up's egress vocoder calls. The (N, F) pairs
+    are the JAX rule's: N over 1, 2, 4, ... below num_slots, then
+    num_slots; F over {_frame_bucket(1), _frame_bucket(packet_frames)}
+    (qwen3_tts_tpu/runtime/server.py:297-306). The port's rule adds the
+    frames vocoded: T = F (no row has context) and T = left_context + F.
+    Every piece `_vocode_wave` can cut from a wave is among them, and the
+    fast first packet's shapes are the row buckets at T = F =
+    _frame_bucket(1)."""
     _, tm = _models(checkpoint, jnp.float32, torch.float32)
     srv = TTSServer(tm, num_slots=num_slots, packet_frames=packet_frames, prefill_bucket=48,
                     max_trailing=32, max_new_tokens=8)
@@ -261,10 +265,15 @@ def test_server_egress_shapes_follow_the_jax_rule(checkpoint, num_slots,  # noqa
         n <<= 1
     combos.append(num_slots)
     fset = sorted({srv._frame_bucket(1), srv._frame_bucket(packet_frames)})
-    assert srv.egress_shapes() == [(N, F_) for N in sorted(set(combos)) for F_ in fset]
-    live = {(srv._row_bucket(min(d, num_slots)), srv._frame_bucket(k))
-            for d in range(1, 2 * num_slots) for k in range(1, packet_frames + 1)}
+    lc = srv.left_context
+    assert srv.egress_shapes() == [(N, T, F_) for N in sorted(set(combos)) for F_ in fset
+                                   for T in (F_, lc + F_)]
+    live = {(N, F_ + c, F_) for d in range(1, num_slots + 1)
+            for F_ in {srv._frame_bucket(k) for k in range(1, packet_frames + 1)}
+            for c in (0, lc) for N in srv._row_pieces(d, F_ + c)}
     assert live <= set(srv.egress_shapes())
+    f = srv._frame_bucket(1)
+    assert srv.first_packet_shapes() == [(N, f, f) for N in sorted(set(combos))]
 
 
 def test_server_warmup_runs_eagerly_and_keeps_results(checkpoint):  # noqa: F811
@@ -292,7 +301,7 @@ def test_server_warmup_runs_eagerly_and_keeps_results(checkpoint):  # noqa: F811
                 assert srv.warmup() > 0
             finally:
                 tserver._vocode_rows_compact = real
-            assert calls == [(n, f, True) for n, f in srv.egress_shapes()]
+            assert calls == [(n, f, True) for n, _, f in srv.egress_shapes()]
         srv.submit_custom_voice("r", text=REQ_TEXTS[0], speaker="vivian")
         srv.submit_custom_voice("s", text=REQ_TEXTS[1], speaker="vivian", stream=True)
         out[warm] = srv.run_until_drained()

@@ -166,14 +166,16 @@ def test_spans_nest_under_step_with_self_time(traced):
 def test_work_counters_equal_hand_counts(traced):
     """`server.vocode_frames_delivered` is the frames of every packet,
     `server.vocode_frames_computed` rows x frames of every vocoder call
-    (the fast first packet's and the egress's), and the staging counters
-    the requests staged and their padded rows."""
+    (the fast first packet's and the egress's), `server.vocode_calls` those
+    calls, and the staging counters the requests staged and their padded
+    rows."""
     pkts = [e for e in traced.events if isinstance(e, AudioPacket)]
     assert {p.request_id for p in pkts} == {"a", "c"}
     c = traced.counters
     assert c["server.vocode_frames_delivered"] == sum(p.frame_count for p in pkts)
     assert traced.calls and c["server.vocode_frames_computed"] == sum(
         n * t for n, _, t in traced.calls)
+    assert c["server.vocode_calls"] == len(traced.calls)
     assert c["engine.staged_rows"] == 3
     assert 3 <= c["engine.staged_rows_padded"] <= 4
     assert c["server.vocode_frames_computed"] > c["server.vocode_frames_delivered"]

@@ -149,17 +149,18 @@ def test_warmup_vocodes_every_egress_shape_on_the_vocoder_device(both, monkeypat
     """`warmup()` with a vocoder device vocodes every `egress_shapes()` entry
     on the vocoder's params, decodes every completion batch through
     `_decode_tok` and runs no first-packet extract; a one-device server's
-    warm-up runs the extract once per row bucket."""
+    warm-up runs the extract once per `first_packet_shapes()` entry (each
+    row bucket, at T = F)."""
     _, tm = both
     seen, fast = [], []
     rows = tserver._vocode_rows_compact
 
     def recorded(params, cfg, codes, ctx, F_, pcm16=False):
-        seen.append((params, graphs.params_device(params), codes.shape[0], F_))
+        seen.append((params, graphs.params_device(params), codes.shape[0], codes.shape[2], F_))
         return rows(params, cfg, codes, ctx, F_, pcm16=pcm16)
 
     def first(*a, **kw):
-        fast.append(a[3].shape[0])
+        fast.append((a[3].shape[0], a[-1], a[-2]))
         return torch.zeros((1,)), torch.zeros((1,), dtype=torch.int32)
 
     monkeypatch.setattr(tserver, "_vocode_rows_compact", recorded)
@@ -170,14 +171,14 @@ def test_warmup_vocodes_every_egress_shape_on_the_vocoder_device(both, monkeypat
     monkeypatch.setattr(srv._decode_tok, "decode",
                         lambda enc, **kw: decodes.append(len(enc)) or decode(enc, **kw))
     assert srv.warmup() > 0
-    assert [(n, f) for _, _, n, f in seen] == srv.egress_shapes()
-    assert all(p is srv.dec_params and d == torch.device("cpu") for p, d, _, _ in seen)
+    assert [(n, t, f) for _, _, n, t, f in seen] == srv.egress_shapes()
+    assert all(p is srv.dec_params and d == torch.device("cpu") for p, d, _, _, _ in seen)
     assert fast == [] and decodes == [1, 2, 4]
     seen.clear()
     one = _server(tm, num_slots=3)
     one.warmup()
-    assert fast == sorted({n for n, _ in one.egress_shapes()})
-    assert all(p is tm.speech_tokenizer.dec_params for p, _, _, _ in seen)
+    assert fast == one.first_packet_shapes()
+    assert all(p is tm.speech_tokenizer.dec_params for p, _, _, _, _ in seen)
 
 
 def test_threaded_server_over_a_vocoder_device(both):
