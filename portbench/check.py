@@ -6,7 +6,12 @@ the seed (up to `n` greedy and `n` sampled requests, and the longest of
 each kind), the reference (`portbench/reference/`) draws the run's weights
 again from the seed, quantises the talker itself, rebuilds each prompt from
 the request's inputs (the task file's `reference_prompt`), and runs once
-over it with the served tokens. Five numbers are compared, each against the
+over it with the served tokens. Where the program computed some of those
+inputs itself at submit (a clone's reference codes and speaker embedding),
+the record carries them as `served_inputs`, and the reference takes them as
+it takes the served tokens: each stage from the program's own output of the
+stage before, the task's own numbers judging that output. Five numbers are
+compared, then the task's own (`CHECK_NAMES`), each against the
 configuration's limit (`check_limits` in its file):
 
   code0_gap         greedy requests: the widest gap by which a served code-0
@@ -24,16 +29,19 @@ configuration's limit (`check_limits` in its file):
                     (`subtalker_top_k`)
   audio_err         the largest absolute difference of a streamed packet's
                     samples from the reference vocoder over the same served
-                    codes with the packet's left context, over the greedy
-                    requests of the sample and the longest request the run
-                    finished, relative to the largest reference sample
+                    codes with the packet's left context (the reference
+                    frames the task's `context_frames` names lead the
+                    served ones), over the greedy requests of the sample and
+                    the longest request the run finished, relative to the
+                    largest reference sample
+  <task's names>    the task file's `check_readings` over the same sample
 
 The control (`readings(..., control=True)`) reads the same numbers with the
 reference itself in the program's place in the next lower precision: the
 talker's matmuls in int4 instead of int8 (at each position of a greedy
 request the token the int4 reference ranks first; of a sampled request the
 worst of the tokens it would let the sampler draw, its own top_k), the
-vocoder with TF32 on.
+vocoder with TF32 on; the task reads its own control for its own numbers.
 """
 
 from __future__ import annotations
@@ -48,6 +56,29 @@ from portbench.reference import talker as rt
 from portbench.reference import vocoder as rv
 
 NAMES = ("code0_gap", "subcode_gap", "code0_topk_gap", "subcode_topk_gap", "audio_err")
+
+
+def names(task) -> tuple:
+    """The numbers a run of `task` compares: the five, then the task's."""
+    return NAMES + tuple(getattr(task, "CHECK_NAMES", ()))
+
+
+def require_limits(cfg: Dict[str, Any], task) -> None:
+    """Raise, naming them, where the configuration has no limit for a
+    number the run would compare."""
+    missing = [n for n in names(task) if n not in cfg.get("check_limits", {})]
+    if missing:
+        raise KeyError(f"configuration {cfg.get('name')!r} has no check_limits for "
+                       f"{missing}, which task {task.__name__} compares")
+
+
+def host_copy(served_inputs):
+    """A task's served inputs (a dict, or None) with each tensor value
+    copied to the host, in its dtype."""
+    if served_inputs is None:
+        return None
+    return {k: v.detach().to("cpu") if isinstance(v, torch.Tensor) else v
+            for k, v in served_inputs.items()}
 
 
 def _longest(reqs):
@@ -126,17 +157,37 @@ def _token_readings(cfg, task, ref, low, reqs, device) -> Dict[str, float]:
     return out
 
 
-def _audio_reading(cfg, voc, reqs, device, tf32: bool) -> float:
+def _lead_frames(task, cfg, rec):
+    """The reference frames that lead the request's stream (the task's
+    `context_frames`), or None."""
+    lead = getattr(task, "context_frames", None)
+    return None if lead is None else lead(cfg, rec)
+
+
+def _history(task, cfg, rec):
+    """(the frames the request's packets are vocoded over: its reference
+    frames, then its served ones; the number of reference frames)."""
+    served = np.asarray(rec["frames"], np.int64)
+    lead = _lead_frames(task, cfg, rec)
+    if lead is None or len(lead) == 0:
+        return served, 0
+    lead = np.asarray(lead, np.int64)
+    return np.concatenate([lead, served.reshape(-1, lead.shape[1])]), len(lead)
+
+
+def _audio_reading(cfg, task, voc, reqs, device, tf32: bool) -> float:
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
     worst, peak = 0.0, 0.0
     try:
         for r in reqs:
-            hist = torch.as_tensor(np.asarray(r["frames"], np.int64), device=device)
+            hist, ctx0 = _history(task, cfg, r)
+            hist = torch.as_tensor(hist, device=device)
             for start, count, wav in r["packets"]:
                 if count == 0:
                     continue
-                want = rv.packet(voc, cfg["vocoder"], hist, start, count, 0, r["left_context"])
+                want = rv.packet(voc, cfg["vocoder"], hist, start, count, ctx0,
+                                 r["left_context"])
                 got = torch.as_tensor(np.asarray(wav, np.float32), device=device)
                 worst = max(worst, float((got - want).abs().max()))
                 peak = max(peak, float(want.abs().max()))
@@ -147,10 +198,11 @@ def _audio_reading(cfg, voc, reqs, device, tf32: bool) -> float:
 
 def readings(cfg: Dict[str, Any], seed: int, device, task, tokens: List[Dict[str, Any]],
              audio: List[Dict[str, Any]], control: bool = False) -> Dict[str, float]:
-    """The five numbers over the sampled requests (records with `frames`
-    (n, Q), `greedy`, `ended_by_eos`, `packets` [(start, count, samples)],
-    the request's inputs) of a mix whose task file is `task`. `control`:
-    the control's readings instead."""
+    """The five numbers, then the task's own, over the sampled requests
+    (records with `frames` (n, Q), `greedy`, `ended_by_eos`, `packets`
+    [(start, count, samples)], `served_inputs`, the request's inputs) of a
+    mix whose task file is `task`. `control`: the control's readings
+    instead. A number the task declares and does not read is NaN."""
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     with torch.no_grad():
         tree = weights.talker_tree(cfg, seed, device)
@@ -159,17 +211,22 @@ def readings(cfg: Dict[str, Any], seed: int, device, task, tokens: List[Dict[str
         out = _token_readings(cfg, task, ref, low, tokens, device)
         del ref, low, tree
         voc = weights.vocoder_tree(cfg, seed, device)
-        out["audio_err"] = _audio_reading(cfg, voc, audio, device, tf32=control)
+        out["audio_err"] = _audio_reading(cfg, task, voc, audio, device, tf32=control)
+        del voc
+        own_names = getattr(task, "CHECK_NAMES", ())
+        if own_names:
+            own = task.check_readings(cfg, seed, device, tokens, audio, control)
+            out.update({n: float(own.get(n, float("nan"))) for n in own_names})
     return out
 
 
-def verdict(cfg: Dict[str, Any], values: Dict[str, float],
-            tokens: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """{name: {"value", "limit"}} and whether every value is within its
-    limit (a run whose token sample lacks a greedy or a sampled request is
-    not correct)."""
+def verdict(cfg: Dict[str, Any], values: Dict[str, float], tokens: List[Dict[str, Any]],
+            compared=NAMES) -> Dict[str, Any]:
+    """{name: {"value", "limit"}} of the `compared` numbers (`names(task)`),
+    in that order, and whether every value is within its limit (a run whose
+    token sample lacks a greedy or a sampled request is not correct)."""
     limits = cfg["check_limits"]
-    table = {k: {"value": values[k], "limit": limits[k]} for k in NAMES}
+    table = {k: {"value": values[k], "limit": limits[k]} for k in compared}
     kinds = {bool(r["greedy"]) for r in tokens}
     ok = kinds == {True, False} and all(np.isfinite(v["value"]) and v["value"] <= v["limit"]
                                         for v in table.values())
@@ -177,9 +234,12 @@ def verdict(cfg: Dict[str, Any], values: Dict[str, float],
 
 
 def served_record(req: Dict[str, Any], frames: np.ndarray, packets, max_frames: int,
-                  left_context: int, min_new_tokens: int) -> Dict[str, Any]:
+                  left_context: int, min_new_tokens: int,
+                  served_inputs=None) -> Dict[str, Any]:
     """A finished request as the check reads it: its inputs, the served
-    frames and packets (None where the run kept none), and the server's
-    settings that shape its tokens."""
+    frames and packets (None where the run kept none), the server's
+    settings that shape its tokens, and what the task's submit returned
+    (`served_inputs`: what the program computed from the inputs, or None)."""
     return dict(req, frames=frames, packets=packets, ended_by_eos=len(frames) < max_frames,
-                left_context=left_context, min_new_tokens=min_new_tokens)
+                left_context=left_context, min_new_tokens=min_new_tokens,
+                served_inputs=served_inputs)

@@ -2,7 +2,8 @@
 window) that read both the program's numbers and the control's (the
 reference itself in the next lower precision in the program's place:
 int4 talker matmuls, TF32 vocoder) on the same served requests, one JSON
-line per seed.
+line per seed, with whether the control's numbers pass the check's own
+comparison (`control_correct`, which has to read false).
 
     python3 portbench/control.py --workload <cell> --seconds <s> --seeds <n> [<n> ...]
 
@@ -35,6 +36,7 @@ def one(workload: str, seed: int, seconds: float) -> None:
     res = harness.run(bench, workload, seed, seconds, False, torch.device("cuda", 0), t0,
                       log=lambda s: print(s, file=sys.stderr, flush=True), control=True)
     print(json.dumps({"workload": workload, "seed": seed, "correct": res["correct"],
+                      "control_correct": res["control_correct"],
                       "program": {k: v["value"] for k, v in res["check"].items()},
                       "control": res["control"], "metrics": res["metrics"]}), flush=True)
 

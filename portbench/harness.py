@@ -6,12 +6,18 @@ is found by name from `BENCHMARK.json`: `<paths[0]>/traffic/<mix>.json` (its
 `generator` names `generators/<kind>.py`, its `task` names `tasks/<task>.py`),
 the configuration's `file`, and `metrics/<metric>.py` for every metric (a
 reader: `read(run)` returns the number, or None where the run has nothing to
-read).
+read; `run` holds the configuration as `config` and the mix as `traffic`,
+the window's requests, counters, frames and prompts, and in a traced run
+its kernels).
 
 The window drives `qwen3_tts_tpu_torch.runtime.server.TTSServer` from this
 one thread, the way `ThreadedTTSServer._loop` does without its queues: the
 harness is the clients (closed loops), submits through the task's call
-(`submit_custom_voice(..., stream=True)`) and advances with `step()`.
+(`submit_custom_voice(..., stream=True)`) and advances with `step()`. What
+the task's call returns (what the program computed from the request's
+inputs) stays on the request as it is, and goes to the check's record as
+`served_inputs`, copied to the host after the window for the sampled
+requests alone.
 """
 
 from __future__ import annotations
@@ -117,7 +123,7 @@ def first_packet_ms(run) -> List[float]:
 
 class _Record:
     __slots__ = ("uid", "req", "client", "t_submit", "submit_s", "t_first", "frames",
-                 "frame_times", "packets", "in_window", "trace", "mf")
+                 "frame_times", "packets", "in_window", "trace", "mf", "served")
 
     def __init__(self, uid, req, client, mf):
         self.uid, self.req, self.client, self.mf = uid, req, client, mf
@@ -127,6 +133,7 @@ class _Record:
         self.packets: Optional[list] = []
         self.in_window = False
         self.trace: Optional[Dict[str, float]] = None
+        self.served = None
 
     def codes(self) -> np.ndarray:
         return (np.concatenate(self.frames).astype(np.int64) if self.frames
@@ -143,11 +150,13 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float, trace: bool, de
     """One run of cell `cell_name`; returns the result's fields (without
     printing them). `t_process`: the process's start on the
     `time.perf_counter` clock. `control`: the control's readings too, under
-    "control" (`portbench/control.py`; the benchmark's runs never ask)."""
+    "control", and whether they pass the check under "control_correct"
+    (`portbench/control.py`; the benchmark's runs never ask)."""
     cell = bench.cell(cell_name)
     cfg = bench.config(cell["config"])
     mix = bench.traffic(cell["traffic"])
     task = bench.task(mix["task"])
+    check.require_limits(cfg, task)
     gen = bench.generator(mix["generator"]).Traffic(mix, seed, cfg, task)
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -209,8 +218,9 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float, trace: bool, de
         clients[c] = r
         with scope("portbench.submit"):
             r.t_submit = time.perf_counter()
-            task.submit(server, k, req["kwargs"])
+            inputs = task.submit(server, k, req["kwargs"])
             r.submit_s = time.perf_counter() - r.t_submit
+        r.served = inputs
 
     def finish(r: _Record) -> None:
         clients[r.client] = None
@@ -303,7 +313,7 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float, trace: bool, de
         + f" mean={sum(lat) / max(len(lat), 1):.3f} finished={len(finished)}"
         + f" ended_before_budget={early}")
     run_view = SimpleNamespace(
-        config=cfg, slots=int(mix["server"]["num_slots"]),
+        config=cfg, traffic=mix, slots=int(mix["server"]["num_slots"]),
         window_s=window_s, setup_s=setup_s, t_stop=t_stop, audio_s=audio["frames"] * up / sr,
         requests=win, counters={k: c1.get(k, 0.0) - c0.get(k, 0.0) for k in c1},
         frames=[], prompts=[], kernels={}, busy_s=None, gaps=[])
@@ -333,15 +343,20 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float, trace: bool, de
 
     # the program's state goes before the reference runs
     min_new = int(server.gen_cfg.min_new_tokens)
-    served = [check.served_record(r.req, r.codes(), r.packets, r.mf, lc, min_new)
+    served = [check.served_record(r.req, r.codes(), r.packets, r.mf, lc, min_new, r.served)
               for r in finished]
+    tokens, audio_reqs = check.sample(served, seed, int(mix["check_requests"]))
+    for rec in tokens + audio_reqs:
+        rec["served_inputs"] = check.host_copy(rec["served_inputs"])
+    del served
+    for r in recs.values():
+        r.served = None
     del server, model
     system.free(device)
-    tokens, audio_reqs = check.sample(served, seed, int(mix["check_requests"]))
     t_check = time.perf_counter()
     values = check.readings(cfg, seed, device, task, tokens, audio_reqs)
     _sync(device)
-    verdict = check.verdict(cfg, values, tokens)
+    verdict = check.verdict(cfg, values, tokens, check.names(task))
     log(f"[check] seconds={time.perf_counter() - t_check:.3f} requests={len(tokens)} "
         f"greedy={sum(r['greedy'] for r in tokens)} audio_requests={len(audio_reqs)} "
         f"frames={sum(len(r['frames']) for r in tokens)}")
@@ -360,6 +375,8 @@ def run(bench: Bench, cell_name: str, seed: int, seconds: float, trace: bool, de
         t_check = time.perf_counter()
         result["control"] = check.readings(cfg, seed, device, task, tokens, audio_reqs,
                                            control=True)
+        result["control_correct"] = check.verdict(cfg, result["control"], tokens,
+                                                  check.names(task))["correct"]
         log(f"[control] seconds={time.perf_counter() - t_check:.3f}")
     result["check"] = verdict["table"]
     return result

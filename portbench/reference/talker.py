@@ -148,12 +148,13 @@ class ReferenceTalker:
             out = out + self.sub_emb[j - 1][frames[:, j].long()].to(F32)
         return out
 
-    def prompt(self, req: Dict[str, Any]):
-        """The streaming prompt of one request: (embeds (T, H), trailing
-        text (Tt, H), tts_pad (H,)). `req` holds `input_id` (the tokenized
-        assistant text), `language_id` (None: auto) and `speaker_embed`
-        ((H,) tensor or None)."""
+    def _prefix(self, req: Dict[str, Any]):
+        """The rows every streaming prompt starts with: the role, then the
+        think block (with the language), the speaker and codec_pad over
+        tts_pad ... tts_bos. Returns (prefix (P, H), the codec_bos row,
+        tts_eos, tts_pad, the request's text ids)."""
         t, tts = self.t, self.cfg["tts"]
+        dev = self.head.device
         ids = [int(x) for x in req["input_id"]]
         pad_bos_eos = self._text([tts["tts_bos_token_id"], tts["tts_eos_token_id"],
                                   tts["tts_pad_token_id"]])
@@ -167,16 +168,51 @@ class ReferenceTalker:
         bos_row = codec[-1]
         parts = [codec[:-2]]
         if req.get("speaker_embed") is not None:
-            parts.append(req["speaker_embed"].to(F32).reshape(1, -1))
+            spk = torch.as_tensor(req["speaker_embed"]).to(device=dev, dtype=F32)
+            parts.append(spk.reshape(1, -1))
         parts.append(codec[-2:])
         codec_embed = torch.cat(parts)                               # (m, H)
         m = codec_embed.shape[0]
         text_track = torch.cat([tts_pad.expand(m - 2, -1), tts_bos[None]])
-        role = self._text(ids[:3])
-        prompt = [role, text_track + codec_embed[:-1]]
-        prompt.append(self._text(ids[3:4]) + bos_row[None])
+        prefix = torch.cat([self._text(ids[:3]), text_track + codec_embed[:-1]])
+        return prefix, bos_row, tts_eos, tts_pad, ids
+
+    def prompt(self, req: Dict[str, Any]):
+        """The streaming prompt of one request: (embeds (T, H), trailing
+        text (Tt, H), tts_pad (H,)). `req` holds `input_id` (the tokenized
+        assistant text), `language_id` (None: auto) and `speaker_embed`
+        ((H,) tensor or None)."""
+        prefix, bos_row, tts_eos, tts_pad, ids = self._prefix(req)
+        prompt = torch.cat([prefix, self._text(ids[3:4]) + bos_row[None]])
         trailing = torch.cat([self._text(ids[4:-5]), tts_eos[None]])
-        return torch.cat(prompt), trailing, tts_pad
+        return prompt, trailing, tts_pad
+
+    def icl_prompt(self, req: Dict[str, Any]):
+        """The streaming voice-clone (ICL) prompt of one request, the layout
+        of the published `generate_icl_prompt` with `non_streaming_mode`
+        off: (embeds (T, H), trailing text (Tt, H), tts_pad (H,)). `req`
+        holds what `prompt` takes (`speaker_embed`: the request's speaker
+        embedding) and `ref_id` (the tokenized reference text,
+        `<|im_start|>assistant\\n{text}<|im_end|>\\n`) and `ref_code` ((n, Q)
+        reference codes). After the prefix, the reference text, the target
+        text and tts_eos lie position by position over codec_bos and each
+        reference frame's embeddings summed over its codebooks; a longer
+        text leaves the rest as the trailing text, a shorter one is padded
+        with tts_pad (and tts_pad trails). Departures: only the streaming
+        layout (the server's); the speaker embedding is taken in float32 as
+        given, where the published model holds it in its own dtype."""
+        prefix, bos_row, tts_eos, tts_pad, ids = self._prefix(req)
+        ref_ids = [int(x) for x in req["ref_id"]]
+        text = torch.cat([self._text(ref_ids[3:-2] + ids[3:-5]), tts_eos[None]])
+        codes = torch.as_tensor(np.asarray(req["ref_code"], np.int64), device=bos_row.device)
+        codec = torch.cat([bos_row[None], self.frame_embed(codes)])
+        t_len, c_len = text.shape[0], codec.shape[0]
+        if t_len > c_len:
+            icl, trailing = text[:c_len] + codec, text[c_len:]
+        else:
+            icl = torch.cat([text, tts_pad.expand(c_len - t_len, -1)]) + codec
+            trailing = tts_pad[None]
+        return torch.cat([prefix, icl]), trailing, tts_pad
 
     # -- teacher-forced passes ------------------------------------------
 

@@ -12,7 +12,32 @@ the `task` name of a traffic mix (`portbench/tasks/<task>.py`):
   prompt_tokens(req)               the request's real prompt tokens
                                    (the whole-step FLOP count)
   reference_prompt(cfg, ref, req)  the reference's prompt of a served
-                                   request (`ReferenceTalker.prompt`)
+                                   request (`ReferenceTalker.prompt`, or
+                                   `icl_prompt` for a voice clone)
+
+and may give these, which custom voice leaves out (a task without one is
+run and checked as this one is):
+
+  submit(...) -> dict              what the program computed from the
+                                   request's inputs during the call (a
+                                   clone's encoded reference codes and
+                                   speaker embedding): the check's record
+                                   carries it as `served_inputs` (its
+                                   tensors copied to the host after the
+                                   window, for the sampled requests alone),
+                                   and the reference takes it as its input
+  context_frames(cfg, rec)         the (c, Q) reference frames that lead the
+                                   request's stream ahead of its first
+                                   generated frame, or None: the reference
+                                   vocoder's context of the first packets
+  CHECK_NAMES                      the task's own check numbers, compared
+                                   after the five (`portbench/check.py`),
+                                   each against `check_limits[name]` of the
+                                   configuration (a run whose configuration
+                                   lacks one fails at set-up)
+  check_readings(cfg, seed,        {name: value} of those numbers over the
+      device, tokens, audio,       sampled records (`control`: the task's
+      control)                     own control's readings instead)
 """
 
 from __future__ import annotations

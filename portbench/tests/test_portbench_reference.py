@@ -10,7 +10,7 @@ from portbench import weights
 from portbench.reference import talker as rt
 from portbench.reference import vocoder as rv
 from portbench.tests.tiny import tiny_config
-from portbench.text import assistant_ids
+from portbench.text import assistant_ids, ref_ids
 
 from qwen3_tts_tpu_torch.config import CodecV2DecoderConfig
 from qwen3_tts_tpu_torch.models.codec12.decoder import cut_rows, decode_frames
@@ -59,6 +59,30 @@ def test_prompt_and_prefill_logits(setup):
                                        torch.ones((1, T), dtype=torch.int32), cache)
     r_logits, _ = ref.talker_pass(r_prompt, r_trailing, r_pad, torch.zeros((0, 4), dtype=torch.long))
     torch.testing.assert_close(r_logits[0], logits[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_ref", [3, 12], ids=["text_trails", "codes_outlast_text"])
+def test_icl_prompt_is_the_ports_voice_clone_prompt(setup, n_ref):
+    cfg, tree, params, tts_cfg = setup
+    words, ref_words = [11, 220, 3171, 9, 40000, 7], [5, 6000, 17]
+    gen = torch.Generator().manual_seed(n_ref)
+    codes = torch.randint(0, 2048, (n_ref, 4), generator=gen)
+    spk = torch.randn(cfg["talker"]["hidden_size"], generator=gen) * 0.02
+    lang = cfg["codec_language_id"]["english"]
+    spec = PromptSpec(input_id=np.asarray(assistant_ids(words)), language_id=lang,
+                      speaker_embed=spk, ref_id=np.asarray(ref_ids(ref_words)),
+                      ref_code=codes.numpy())
+    base_cfg, _ = port_configs(cfg, "base")
+    prompt, trailing, pad = build_prompt(params, base_cfg.talker_config, base_cfg, spec)
+    ref = rt.ReferenceTalker(cfg, tree, bits=8)
+    r_prompt, r_trailing, r_pad = ref.icl_prompt({
+        "input_id": assistant_ids(words), "ref_id": ref_ids(ref_words), "ref_code": codes,
+        "language_id": lang, "speaker_embed": spk})
+    # text of 3 + 6 words and tts_eos against codec_bos and the frames
+    assert r_trailing.shape[0] == (10 - (n_ref + 1) if n_ref + 1 < 10 else 1)
+    torch.testing.assert_close(r_prompt, prompt[0].float(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(r_trailing, trailing[0].float(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(r_pad, pad[0, 0].float(), rtol=1e-5, atol=1e-6)
 
 
 def test_subtalker_teacher_forced_argmax_is_the_ports_greedy_codes(setup):

@@ -53,3 +53,9 @@ def assistant_ids(words: Sequence[int]) -> List[int]:
     """The ids of the program's assistant template around `words`."""
     return encode(f"<|im_start|>assistant\n{words_text(words)}<|im_end|>\n"
                   f"<|im_start|>assistant\n")
+
+
+def ref_ids(words: Sequence[int]) -> List[int]:
+    """The ids of the program's reference-text template around `words` (a
+    voice clone's transcript of its reference clip)."""
+    return encode(f"<|im_start|>assistant\n{words_text(words)}<|im_end|>\n")
